@@ -1,0 +1,31 @@
+"""Carry weights from the JAX package's parameter trees into the port.
+
+A reference parameter tree (nested dicts and lists of arrays, e.g.
+``jax.device_get(init_femnist_cnn(key))``) keeps its structure and
+layout in the port — conv weights HWIO, dense weights (fan_in, fan_out)
+— so conversion copies leaves and nothing else.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import numpy as np
+import torch
+
+from repro_torch import tree as tr
+
+
+def tree_from_numpy(tree, device: Union[str, torch.device] = "cpu"):
+    """The same tree with every leaf a tensor on ``device`` (same dtype
+    and shape as the numpy view of the leaf)."""
+    return tr.tree_map(
+        lambda leaf: torch.from_numpy(np.array(leaf)).to(device), tree)
+
+
+def row_from_numpy(tree, device: Union[str, torch.device] = "cpu"
+                   ) -> torch.Tensor:
+    """The tree as one flat f32 row in ``jax.tree.flatten`` order — the
+    bytes of the reference's ``FlatLayout.flatten_one(tree)``."""
+    leaves = [np.asarray(leaf, np.float32).reshape(-1)
+              for leaf in tr.tree_leaves(tree)]
+    return torch.from_numpy(np.concatenate(leaves)).to(device)

@@ -1,0 +1,63 @@
+"""Flat ModelBank: the simulation engine's resident state as (n, T) buffers
+(port of ``repro.core.modelbank``).
+
+The paper-faithful engine materializes all n device models (eq. 10
+stacks them row-wise). The bank keeps params and momentum as single
+contiguous ``(n, T)`` float32 tensors on one device for the whole run;
+parameter trees are views made only inside the per-device apply call
+and at evaluation, and every mixing boundary is one streaming pass of
+:func:`repro_torch.kernels.gossip_mix.gossip_mix_rows`.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.gossip_mix import FlatLayout, gossip_mix_rows
+
+
+class ModelBank:
+    """Params and momentum of all n devices as (n, T) f32 tensors.
+
+    ``layout`` is the :class:`FlatLayout` of one device model. The
+    buffers are plain attributes: the round updates them in place on the
+    card and reassigns them where an operation returns a new tensor."""
+
+    def __init__(self, layout: FlatLayout, n: int, params_row: torch.Tensor,
+                 *, device: Optional[Union[str, torch.device]] = None):
+        dev = resolve_device(device)
+        self.layout = layout
+        self.n = n
+        self.params = params_row.to(dev, torch.float32)[None, :].repeat(n, 1)
+        self.mom = torch.zeros((n, layout.total), dtype=torch.float32,
+                               device=dev)
+
+    @classmethod
+    def from_model(cls, one_model, n: int, *,
+                   device: Optional[Union[str, torch.device]] = None
+                   ) -> "ModelBank":
+        """Broadcast a single init model to all n rows (Algorithm 1's
+        shared init)."""
+        layout = FlatLayout.for_tree(one_model)
+        return cls(layout, n, layout.flatten_one(one_model), device=device)
+
+    @property
+    def resident_nbytes(self) -> int:
+        """Device-resident bytes of the bank's buffers."""
+        return int(self.params.nbytes + self.mom.nbytes)
+
+    def params_tree(self):
+        """The (n, ...)-leaved tree view of the params (eval edge)."""
+        return self.layout.unflatten_stack(self.params)
+
+    def mean_model(self):
+        """Device-average model as a tree (the global model x̄)."""
+        return self.layout.unflatten_one(self.params.mean(0))
+
+    def project(self, P):
+        """Row-apply a rectangular (m, n) operator to the bank and
+        materialize the m resulting models as a tree — the edge-model
+        projection of eq. 11 in one streaming pass."""
+        return self.layout.unflatten_stack(gossip_mix_rows(P, self.params))

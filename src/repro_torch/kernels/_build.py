@@ -1,0 +1,77 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
+``nvcc`` for Hopper (``sm_90a``) into a shared library under ``_build/``
+next to this file, named by the hash of its source, then loaded with
+``ctypes``. Building happens at first use, never at import, so the CPU
+tests import every module without a CUDA toolkit.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+#: compiler output of each build in this process (ptxas register and
+#: shared-memory report), by kernel name
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: on PATH, else under ``$CUDA_HOME`` or
+    ``/usr/local/cuda``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): the CUDA "
+            "kernels of repro_torch build on a machine with the CUDA toolkit")
+    return path
+
+
+def library_path(name: str) -> Path:
+    """Where the shared library of ``csrc/<name>.cu`` is (or will be)
+    built: one file per source hash, so an edited source rebuilds."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return BUILD / f"lib{name}-{digest}.so"
+
+
+def compile_library(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; returns the
+    library path. Raises with nvcc's output if the build fails."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_LOGS[name] = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {name}.cu "
+                           f"(exit {res.returncode}):\n{BUILD_LOGS[name]}")
+    os.replace(tmp, out)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(compile_library(name)))
+        _LIBS[name] = lib
+    return lib
