@@ -21,6 +21,7 @@ import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.config import FLConfig
 from repro_torch.core import program as prg
@@ -169,10 +170,12 @@ def run_wall_clock(sim, rt: RuntimeModel, rounds: int, *,
 
     Every round runs the full cohort and is charged its program per op
     at the RuntimeModel's own speeds. Besides the *simulated* wall clock,
-    the history records the simulator's own host seconds per eval window
-    (``compute_s``, taken before the window's evaluation; ``page_s`` is 0
-    for the resident bank)."""
+    the history records the simulator's own seconds per eval window
+    (``compute_s``: host seconds until the window's rounds have finished
+    on the bank's device, taken before the window's evaluation;
+    ``page_s`` is 0 for the resident bank)."""
     clock = EventClock(rt, sim.fl)
+    on_card = sim.bank.params.device.type == "cuda"
     hist: Dict[str, List[float]] = {
         "round": [], "wall_time": [], "acc": [], "loss": [],
         "participants": [], "page_s": [], "compute_s": []}
@@ -181,6 +184,9 @@ def run_wall_clock(sim, rt: RuntimeModel, rounds: int, *,
         sim.step_round()
         t = clock.charge_program(sim.last_program, None, None, uplink_ratio)
         if (r + 1) % eval_every == 0:
+            if on_card:
+                # the rounds were only enqueued: wait for them to run
+                torch.cuda.synchronize(sim.bank.params.device)
             wall = time.perf_counter() - window_t0
             acc, loss = sim.evaluate(eval_batch)
             hist["round"].append(r + 1)

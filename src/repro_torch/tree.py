@@ -10,32 +10,38 @@ from __future__ import annotations
 from typing import Any, Callable, List, Tuple
 
 
+# The walkers are module functions, not nested closures: a recursive
+# closure refers to itself through its cell, and that cycle would keep
+# the leaves (a step's bank-sized gradients) alive until Python's cyclic
+# collector happens to run.
+
+def _walk(t, leaves: List[Any]):
+    if isinstance(t, dict):
+        return {k: _walk(t[k], leaves) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_walk(v, leaves) for v in t)
+    leaves.append(t)
+    return None
+
+
+def _build(t, it):
+    if isinstance(t, dict):
+        return {k: _build(v, it) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)
+
+
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
     """``(leaves, treedef)``: leaves in sorted-key order; ``treedef`` is
     the tree with every leaf replaced by None."""
     leaves: List[Any] = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(walk(v) for v in t)
-        leaves.append(t)
-        return None
-    return leaves, walk(tree)
+    return leaves, _walk(tree, leaves)
 
 
 def tree_unflatten(treedef, leaves):
     """Inverse of :func:`tree_flatten`."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree) -> List[Any]:

@@ -1,6 +1,8 @@
 """The port's classifier models against the reference on the same weights:
-logits, loss and per-row gradients (``vmap(grad)`` over flat rows, as the
-simulator computes them). Tolerance 1e-5 (f32; the two frameworks sum
+logits, loss and per-row gradients (``vmap(grad)`` over flat rows). The
+simulator takes its gradients per leaf view of the bank instead; that
+path is held to the reference by the bank parity tests of
+``test_torch_cefedavg.py``. Tolerance 1e-5 (f32; the two frameworks sum
 convolutions and products in different orders)."""
 import jax
 import jax.numpy as jnp

@@ -203,6 +203,24 @@ def test_row_from_numpy_is_flatten_one(name):
         assert a.numpy().tobytes() == np.asarray(b).tobytes()
 
 
+def test_tree_walks_leave_no_cycle():
+    """Flattening and rebuilding a tree makes no reference cycle: a leaf
+    dies with its last reference, without the cyclic collector."""
+    import gc
+    import weakref
+    gc.collect()
+    gc.disable()
+    try:
+        leaf = torch.zeros(3)
+        dead = weakref.ref(leaf)
+        out = tr.tree_map(lambda a: a + 1, {"b": [leaf], "a": {"w": leaf}})
+        assert len(tr.tree_leaves(out)) == 2
+        del leaf, out
+        assert dead() is None
+    finally:
+        gc.enable()
+
+
 def test_stack_round_trip():
     init = tree_from_numpy(jax.device_get(_ref_init("mlp")))
     stacked = tr.tree_map(lambda a: torch.stack([a, 2 * a, 3 * a]), init)
