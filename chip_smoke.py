@@ -5,23 +5,40 @@
 
 Phases, each reported on its own lines; any failure exits non-zero:
 
-1. build    — compile every CUDA kernel of the main path from
-               ``src/repro_torch/kernels/csrc`` for sm_90a and print the
-               card's name and power limit.
-2. kernels  — hold each kernel against its plain PyTorch version on the
-               card at the reference sweep shapes (in place and out of
-               place, f32 and bf16) and at the main path's shapes, then
-               time kernel, plain version and one library call.
-3. main     — the paper's FEMNIST experiment (``configs/femnist_cnn``:
-               64 devices, 8 edge servers on a ring, tau=2, q=8, pi=10)
-               with the LEAF CNN at full width (6,603,710 params), two
-               rounds through ``run_wall_clock``; checks finite losses,
-               kernel launch counts and cluster-synced bank rows. Round 1
-               runs under the allocator's memory history (what is live
-               at its peak), round 2 under the profiler (device time by
-               kernel and the device's busy share).
-4. parity   — the quickstart configuration for one round on the card and
-               on the CPU; the banks must agree (TF32 off).
+1. build      — compile every CUDA kernel source from
+                 ``src/repro_torch/kernels/csrc`` for sm_90a and print
+                 the card's name and power limit.
+2. kernels    — hold each kernel against its plain PyTorch version on
+                 the card, then time kernel, plain version and (where
+                 one exists) one library call:
+                 ``gossip_mix`` at the reference sweep shapes (in place
+                 and out, f32 and bf16) and at the main path's shapes;
+                 the cold codec (int8 and f16, encode and decode) at the
+                 reference's codec rows and at the streamed slab's
+                 (64, 6,603,710) FEMNIST-CNN shape, bit for bit, plus 8
+                 full-width rows against the host numpy codec; the
+                 blocked int8 quantizer on the codec's kernel.
+3. main       — the paper's FEMNIST experiment (``configs/femnist_cnn``:
+                 64 devices, 8 edge servers on a ring, tau=2, q=8, pi=10)
+                 with the LEAF CNN at full width (6,603,710 params), two
+                 rounds through ``run_wall_clock``; checks finite losses,
+                 kernel launch counts and cluster-synced bank rows. Round
+                 1 runs under the allocator's memory history (what is
+                 live at its peak), round 2 under the profiler (device
+                 time by kernel and the device's busy share).
+4. population — the same configuration streamed over a virtual
+                 population of 10,000 clients (cohort 7 a cluster, int8
+                 cold store, visit mobility 0.25): three pipelined rounds
+                 (slab 56 + 8 = 64 rows) through ``run_wall_clock``, the
+                 last under the profiler; checks finite losses, the slab,
+                 the kernels' launch counts and finite stored scales;
+                 then the serial driver (host codec) on the same
+                 configuration, whose global model must agree within the
+                 int8 tolerance.
+5. parity     — the quickstart configuration for one round, and the small
+                 population configuration of the CPU tests (f32,
+                 pipelined) for two, on the card and on the CPU; they
+                 must agree (TF32 off).
 
 The line before the last two is ``{"kernels": [...]}``; the card's
 ``name, power.limit`` (from nvidia-smi) follows, and the last line is
@@ -33,6 +50,7 @@ import contextlib
 import json
 import math
 import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -58,6 +76,13 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 PARITY_ATOL = 1e-5
 SWEEP = ((8, 5000), (16, 4096), (64, 1000), (4, 123))
 FEMNIST_T = 6_603_710
+#: the reference's codec rows (tests/test_kernels.py): irregular segments
+CODEC_SEGMENTS = ((0, 100), (100, 37), (137, 263))
+#: the streamed slab of the population phase: 56 cohort + 8 representatives
+SLAB_ROWS = 64
+#: serial (host codec) against pipelined (card codec) at int8: the
+#: reference's own bound (tests/test_clientstore.py)
+INT8_ATOL = 5e-3
 
 
 def log(msg: str) -> None:
@@ -104,7 +129,7 @@ def max_err(out: torch.Tensor, exp: torch.Tensor, tol: float,
 # phase 1: build
 # ---------------------------------------------------------------------------
 
-KERNEL_SOURCES = ("gossip_mix",)
+KERNEL_SOURCES = ("gossip_mix", "cold_codec")
 
 
 def phase_build() -> None:
@@ -203,6 +228,150 @@ def phase_kernels(dev: torch.device) -> dict:
             "bound_by": b_by, "library_ms": library_ms}
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The raw bits of a tensor, for bit-for-bit comparisons."""
+    return t.view({torch.float32: torch.int32, torch.float16: torch.int16,
+                   torch.int8: torch.int8}[t.dtype])
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
+    """Raises unless ``a`` and ``b`` hold the same bits; returns their max
+    abs difference (0.0, or NaN where both hold the same NaN)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{what}: {a.dtype} {tuple(a.shape)} against "
+                             f"{b.dtype} {tuple(b.shape)}")
+    bad = int((_bits(a) != _bits(b)).sum())
+    if bad:
+        raise AssertionError(f"{what}: {bad} elements differ in their bits")
+    if a.numel() == 0:
+        return 0.0
+    return float((a.float() - b.float()).abs().max())
+
+
+def _codec_rows(dev: torch.device) -> torch.Tensor:
+    """The reference's codec rows: 13 x 400, an all-zero row (the 1e-12
+    scale floor) and a near-zero segment."""
+    rng = np.random.default_rng(7)
+    rows = (rng.standard_normal((13, 400)) * 3).astype(np.float32)
+    rows[2] = 0.0
+    rows[5, :100] = 1e-9
+    return torch.from_numpy(rows).to(dev)
+
+
+def _check_codec(rows: torch.Tensor, codec: str, segments, what: str):
+    """Kernel encode and decode against their plain versions, bit for
+    bit; returns the kernel's (q, scale) and the max abs differences of
+    the encode and of the decode."""
+    from repro_torch.kernels import cold_codec as cc
+    from repro_torch.kernels import ref
+    q, s = cc.encode_rows(rows, codec, segments)
+    q_ref, s_ref = ref.cold_encode_ref(rows, codec, segments)
+    enc_err = max(_same_bits(q, q_ref, f"{what} {codec} encode q"),
+                  _same_bits(s, s_ref, f"{what} {codec} encode scale"))
+    dec_err = _same_bits(cc.decode_rows(q, s, codec, segments),
+                         ref.cold_decode_ref(q, s, codec, segments),
+                         f"{what} {codec} decode")
+    return q, s, enc_err, dec_err
+
+
+def phase_codec(dev: torch.device):
+    """The cold codec and the blocked quantizer against their plain
+    versions, bit for bit, at the reference's codec rows and at the
+    population phase's slab; times at the slab's shape. Returns the
+    JSON entries of the int8 encode and decode (the main path's)."""
+    from repro_torch.core import compress
+    from repro_torch.kernels import cold_codec as cc
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gossip_mix import FlatLayout
+    from repro_torch.models.cnn import init_femnist_cnn
+    rows = _codec_rows(dev)
+    for codec in ("f16", "int8"):
+        q, s, _, _ = _check_codec(rows, codec, CODEC_SEGMENTS, "codec rows")
+        host = compress.encode_cold_rows(rows.cpu().numpy(), codec,
+                                         CODEC_SEGMENTS)
+        assert np.array_equal(q.cpu().numpy(), host["q"]) and \
+            np.array_equal(s.cpu().numpy(), host["scale"]), \
+            f"codec rows {codec}: the card differs from the host codec"
+    log(f"[kernels] cold_codec 13x400 (3 irregular segments, zero row, "
+        f"near-zero segment): f16 and int8 encode/decode bit-equal to "
+        f"the plain version and the host codec")
+
+    # the streamed slab: 64 rows of the FEMNIST CNN's 8 segments, each
+    # segment at its own magnitude
+    segs = FlatLayout.for_tree(
+        init_femnist_cnn(torch.Generator().manual_seed(0))).segments
+    S, T = SLAB_ROWS, FEMNIST_T
+    assert segs[-1][0] + segs[-1][1] == T, segs
+    gen = torch.Generator(dev).manual_seed(1)
+    X = torch.randn((S, T), device=dev, generator=gen)
+    for j, (o, n) in enumerate(segs):
+        X[:, o:o + n] *= 10.0 ** (j % 4 - 2)
+    X[3] = 0.0
+    out = {}
+    for codec in ("f16", "int8"):
+        q, s, enc_err, dec_err = _check_codec(X, codec, segs,
+                                              f"slab {S}x{T}")
+        host = compress.encode_cold_rows(X[:8].cpu().numpy(), codec, segs)
+        assert np.array_equal(q[:8].cpu().numpy(), host["q"]) and \
+            np.array_equal(s[:8].cpu().numpy(), host["scale"]), \
+            f"slab {codec}: 8 rows differ from the host codec"
+        nseg = s.shape[1]
+        width = q.element_size()
+        enc_bytes = 4 * S * T + width * S * T + 4 * S * nseg
+        dec_bytes = width * S * T + 4 * S * nseg + 4 * S * T
+        # FP32 work a element: |x|, max, divide, round, two clamps to
+        # encode (one cast for f16); one multiply to decode
+        enc_ops = (6 if codec == "int8" else 1) * S * T
+        dec_ops = S * T
+        times = {
+            "encode": (time_ms(lambda: cc.encode_rows(X, codec, segs)),
+                       time_ms(lambda: ref.cold_encode_ref(X, codec, segs),
+                               reps=5),
+                       enc_bytes, enc_ops, enc_err),
+            "decode": (time_ms(lambda: cc.decode_rows(q, s, codec, segs)),
+                       time_ms(lambda: ref.cold_decode_ref(q, s, codec,
+                                                           segs), reps=5),
+                       dec_bytes, dec_ops, dec_err)}
+        for direction, (ms, plain_ms, nbytes, ops, err) in times.items():
+            tb = nbytes / HBM_BYTES_PER_S * 1e3
+            tf = ops / FP32_FLOPS * 1e3
+            b_ms, b_by = (tb, "bytes") if tb >= tf else (tf, "operations")
+            log(f"[kernels] cold_codec {codec} {direction} {S}x{T}: "
+                f"{ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.4f} by "
+                f"{b_by}: {nbytes / 1e9:.3f} GB; no single library call "
+                f"computes it); bit-equal to the plain version, 8 rows to "
+                f"the host codec")
+            out[(codec, direction)] = {
+                "name": f"cold_codec_{direction}",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/cold_codec.cu",
+                "replaces": ("src/repro/kernels/cold_codec.py:109" if
+                             direction == "encode" else
+                             "src/repro/kernels/cold_codec.py:125"),
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None}
+        del q, s
+
+    # B3: the blocked quantizer on the codec's kernel, over one slab row
+    x = X[0].clone()
+    codes, scales = qz.quantize_int8_blocked(x)
+    pc, ps = qz.quantize_int8_ref(x)
+    _same_bits(codes, pc, "quantize_int8_blocked codes")
+    _same_bits(scales, ps, "quantize_int8_blocked scales")
+    ms = time_ms(lambda: qz.quantize_int8_blocked(x))
+    plain_ms = time_ms(lambda: qz.quantize_int8_ref(x))
+    nb = scales.shape[0]
+    b_ms = (4 * T + T + 4 * nb) / HBM_BYTES_PER_S * 1e3
+    log(f"[kernels] quantize_int8_blocked T={T} (block 1024): {ms:.4f} ms "
+        f"(plain {plain_ms:.4f}, bound {b_ms:.4f} by bytes); bit-equal to "
+        f"the plain version")
+    del X, x
+    torch.cuda.empty_cache()
+    return out[("int8", "encode")], out[("int8", "decode")]
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
@@ -217,7 +386,8 @@ def femnist_data(fl):
     return build_fl_data(x, y, parts, tx, ty, samples_per_device=64)
 
 
-def device_breakdown(prof, wall_s: float, top: int = 10) -> None:
+def device_breakdown(prof, wall_s: float, top: int = 10,
+                     tag: str = "main") -> None:
     """Device time of a profiled window by kernel, and the device's busy
     share of the window's wall time: the union of the kernels' intervals
     (kernels on several streams may overlap, so their sum can exceed
@@ -226,7 +396,7 @@ def device_breakdown(prof, wall_s: float, top: int = 10) -> None:
                if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation and e.time_range.elapsed_us() > 0]
     if not kernels:
-        log("[main] profiler recorded no device time: breakdown not "
+        log(f"[{tag}] profiler recorded no device time: breakdown not "
             "measured")
         return
     busy_us, end = 0.0, -math.inf
@@ -240,14 +410,14 @@ def device_breakdown(prof, wall_s: float, top: int = 10) -> None:
         by_name[k.name] = (t + k.time_range.elapsed_us(), c + 1)
     sum_us = sum(t for t, _ in by_name.values())
     streams = len({k.device_resource_id for k in kernels})
-    log(f"[main] profiled round: {len(kernels)} kernels on {streams} "
+    log(f"[{tag}] profiled round: {len(kernels)} kernels on {streams} "
         f"stream(s), kernel time {sum_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms of {wall_s * 1e3:.2f} ms wall "
         f"({100 * busy_us / 1e6 / wall_s:.1f}% busy, under the profiler); "
         f"top kernels:")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
                                )[:top]:
-        log(f"[main]   {t / 1e3:9.3f} ms {100 * t / sum_us:5.1f}% "
+        log(f"[{tag}]   {t / 1e3:9.3f} ms {100 * t / sum_us:5.1f}% "
             f"x{c:<5d} {name[:110]}")
 
 
@@ -379,7 +549,108 @@ def phase_main(dev: torch.device, rounds: int = 2) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the card against the CPU
+# phase 4: the streamed population at full width
+# ---------------------------------------------------------------------------
+
+def _global_row(sim) -> np.ndarray:
+    return sim.layout.flatten_one(sim.global_model()).cpu().numpy()
+
+
+def phase_population(dev: torch.device, rounds: int = 3):
+    """Returns the launches of gossip_mix and of the codec's encode and
+    decode on the pipelined population path."""
+    from repro_torch.config import PopulationConfig, ScenarioConfig
+    from repro_torch.configs import femnist_cnn as cfg
+    from repro_torch.core.cefedavg import FLSimulator
+    from repro_torch.core.clock import run_wall_clock
+    from repro_torch.core.runtime import paper_runtime_model
+    from repro_torch.kernels import cold_codec as cc
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.models.cnn import apply_femnist_cnn, init_femnist_cnn
+    fl = cfg.FL
+    scenario = ScenarioConfig(
+        sample_fraction=1.0, dropout_prob=0.0, move_prob=0.25, seed=7,
+        population=PopulationConfig(clients_per_cluster=1250,
+                                    cohort_per_cluster=7, codec="int8"))
+    data = femnist_data(fl)
+    rt = paper_runtime_model()
+    results = {}
+    for pipeline in (True, False):
+        name = "pipelined" if pipeline else "serial"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        sim = FLSimulator(init_femnist_cnn, apply_femnist_cnn, fl, data,
+                          lr=0.1, batch_size=16, seed=0,
+                          scenario=scenario, pipeline=pipeline, device=dev)
+        T = sim.layout.total
+        if pipeline:
+            log(f"[population] FEMNIST CNN T={T}: N={sim.engine.population}"
+                f" virtual clients in {fl.num_clusters} clusters, cohort "
+                f"cap {sim.engine.cohort_cap}, codec "
+                f"{sim.store.codec}, data shards {fl.n}")
+        gm.launches = cc.encode_launches = cc.decode_launches = 0
+        times, wall = [], 0.0
+        for r in range(rounds):
+            last = pipeline and r == rounds - 1
+            prof = (profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA]) if last
+                    else contextlib.nullcontext())
+            with prof:
+                t0 = time.perf_counter()
+                hist = run_wall_clock(sim, rt, 1)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            if last:
+                device_breakdown(prof, dt, tag="population")
+            times.append(dt)
+            wall += hist["wall_time"][-1]
+            loss = hist["loss"][-1]
+            log(f"[population] {name} round {r + 1}: {dt:.3f} s (step + "
+                f"eval), page_s={hist['page_s'][-1]:.3f} compute_s="
+                f"{hist['compute_s'][-1]:.3f} eval_s="
+                f"{hist['eval_s'][-1]:.3f}, loss={loss:.4f} "
+                f"acc={hist['acc'][-1]:.4f} participants="
+                f"{hist['participants'][-1]} simulated_wall={wall:,.1f} s")
+            assert math.isfinite(loss), f"{name} round {r + 1}: loss {loss}"
+        launches = (gm.launches, cc.encode_launches, cc.decode_launches)
+        snap = sim.store.snapshot()
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"[population] {name}: slab {sim.last_bucket} rows, peak slab "
+            f"{sim.peak_slab_bytes / 1e9:.3f} GB, peak device memory "
+            f"{peak / 1e9:.2f} GB, host store {sim.store.nbytes / 1e9:.3f} "
+            f"GB ({sim.store.num_stored} stored clients), process peak RSS "
+            f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f}"
+            f" GB; launches gossip_mix={launches[0]} cold_codec encode="
+            f"{launches[1]} decode={launches[2]}")
+        assert sim.last_bucket == SLAB_ROWS, sim.last_bucket
+        assert sim.peak_slab_bytes == 2 * 4 * SLAB_ROWS * T
+        assert np.isfinite(snap["mom_scale"]).all(), \
+            f"{name}: a stored scale row is not finite"
+        assert snap["ids"].size == sim.store.num_stored > 0
+        # streamed evaluation reads the references: no projection launch
+        assert launches[0] == rounds * fl.q, launches
+        if pipeline:
+            # a decode in pre and an int8 encode (absmax + quantize) in
+            # post, every round
+            assert launches[1:] == (2 * rounds, rounds), launches
+        else:
+            assert launches[1:] == (0, 0), launches
+        results[name] = (_global_row(sim), times, launches)
+        del sim, snap
+        torch.cuda.empty_cache()
+    diff = float(np.abs(results["pipelined"][0]
+                        - results["serial"][0]).max())
+    log(f"[population] serial (host codec) vs pipelined (card codec) global "
+        f"model after {rounds} rounds: max abs diff {diff:.3e} (atol "
+        f"{INT8_ATOL}); round times pipelined "
+        f"{', '.join(f'{t:.3f}' for t in results['pipelined'][1])} s, "
+        f"serial {', '.join(f'{t:.3f}' for t in results['serial'][1])} s")
+    assert diff <= INT8_ATOL, "serial and pipelined drivers disagree"
+    return results["pipelined"][2]
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the card against the CPU
 # ---------------------------------------------------------------------------
 
 def phase_parity(dev: torch.device) -> None:
@@ -411,6 +682,39 @@ def phase_parity(dev: torch.device) -> None:
     assert ep <= PARITY_ATOL and em <= PARITY_ATOL, \
         "card and CPU banks disagree"
 
+    # the small population of the CPU tests, pipelined at f32
+    from repro_torch.config import PopulationConfig, ScenarioConfig
+    pfl = FLConfig(algorithm="ce_fedavg", num_clusters=4,
+                   devices_per_cluster=4, tau=2, q=2, pi=2, topology="ring")
+    x, y = make_synthetic_classification(800, 16, 4, seed=3)
+    tx, ty = make_synthetic_classification(400, 16, 4, seed=4)
+    pdata = build_fl_data(x, y, dirichlet_partition(y, pfl.n, 0.5, seed=5),
+                          tx, ty, 64)
+    scenario = ScenarioConfig(
+        name="mobile", sample_fraction=0.5, dropout_prob=0.1,
+        move_prob=0.25, seed=7,
+        population=PopulationConfig(clients_per_cluster=100,
+                                    cohort_per_cluster=3, codec="f32"))
+    pinit = init_mlp_classifier(torch.Generator().manual_seed(1), 16, 32, 4)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        sim = FLSimulator(lambda g: pinit, apply_mlp_classifier, pfl, pdata,
+                          lr=0.1, batch_size=16, seed=1,
+                          scenario=scenario, pipeline=True, device=where)
+        for _ in range(2):
+            sim.step_round()
+        out[where.type] = (_global_row(sim), sim.store.snapshot())
+    (gc, sc), (gh, sh) = out["cuda"], out["cpu"]
+    assert np.array_equal(sc["ids"], sh["ids"])
+    eg = float(np.abs(gc - gh).max())
+    es = max(float(np.abs(sc[k] - sh[k]).max()) for k in ("cluster",
+                                                          "mom_q"))
+    log(f"[parity] population of 400 (f32, pipelined), 2 rounds: card vs "
+        f"CPU max abs diff global model {eg:.3e}, store {es:.3e} (atol "
+        f"{PARITY_ATOL}; {sc['ids'].size} stored clients on both)")
+    assert eg <= PARITY_ATOL and es <= PARITY_ATOL, \
+        "card and CPU population runs disagree"
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -426,10 +730,15 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     entry = phase_kernels(dev)
+    encode, decode = phase_codec(dev)
     entry["launches"] = phase_main(dev)
+    gossip_pop, encode["launches"], decode["launches"] = \
+        phase_population(dev)
+    log(f"[done] gossip_mix launches: main path {entry['launches']}, "
+        f"population path {gossip_pop}")
     phase_parity(dev)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, encode, decode]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

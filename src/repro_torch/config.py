@@ -1,8 +1,9 @@
 """Configuration of the port: the paper's federated-learning knobs.
 
-Port of ``repro.config``'s :class:`FLConfig` (plain dataclasses, no
-external deps). The language-model, scenario and population configs
-arrive with the slices that use them.
+Port of ``repro.config``'s :class:`FLConfig` and of its scenario,
+fault and virtual-population configs (plain dataclasses, no external
+deps). The language-model and mesh configs arrive with the slices that
+use them.
 """
 from __future__ import annotations
 
@@ -107,3 +108,165 @@ class FLConfig:
             assert self.algorithm in ("ce_fedavg", "dec_local_sgd"), \
                 f"{self.gossip_impl!r} backend requires a gossip algorithm" \
                 f" (ce_fedavg/dec_local_sgd), not {self.algorithm!r}"
+
+
+# ---------------------------------------------------------------------------
+# Wall-clock scenarios (heterogeneity / sampling / mobility)
+# ---------------------------------------------------------------------------
+
+SPEED_DISTS = ("homogeneous", "uniform", "lognormal", "bimodal")
+
+
+@dataclass(frozen=True)
+class FaultConfig:
+    """Edge/backhaul fault injection knobs.
+
+    Realized per round by ``core.scenario.FaultModel`` with draws keyed
+    by ``(seed, round, stream, entity)`` — the fault trace at round t is
+    a pure function of (config, t), so a killed-and-resumed run replays
+    the identical faults it would have seen uninterrupted.
+
+    Three fault classes, mirroring what a mobile-edge deployment
+    actually loses:
+
+    - **Edge-server outages**: each round, each cluster independently
+      starts an outage window with prob ``outage_prob``; the window
+      lasts 1..``outage_len`` rounds (keyed draw at window start). A
+      dark cluster trains nothing and its rows/columns are gated out of
+      every mixing operator (identity rows, deficit folded onto the
+      diagonal — see ``gossip.fault_gate``).
+    - **Backhaul link loss**: each inter-edge backhaul link
+      independently drops for the round with prob ``link_drop_prob``;
+      the round's gossip runs on the surviving (possibly partitioned)
+      graph, re-weighted per connected component.
+    - **Straggler timeouts**: a participating device whose local-steps
+      compute exceeds ``timeout_factor`` x the cohort-median compute is
+      aborted and retried with an exponentially backed-off budget
+      (``retry_backoff``); after ``max_retries`` failed retries it is
+      dropped from the round's cohort. The aborted-attempt ladder is
+      priced in ``EventClock`` (see ``clock.fault_compute_penalty``).
+    """
+    outage_prob: float = 0.0    # per-cluster per-round window-start prob
+    outage_len: int = 1         # max outage window length (rounds)
+    link_drop_prob: float = 0.0  # per-backhaul-link per-round drop prob
+    timeout_factor: float = 0.0  # x median compute; 0 disables timeouts
+    max_retries: int = 2        # retry attempts before dropping a device
+    retry_backoff: float = 1.5  # budget multiplier per retry attempt
+    seed: int = 0               # fault stream seed (independent of scenario)
+
+    def validate(self) -> None:
+        assert 0.0 <= self.outage_prob < 1.0
+        assert self.outage_len >= 1
+        assert 0.0 <= self.link_drop_prob < 1.0
+        assert self.timeout_factor >= 0.0
+        assert self.max_retries >= 0
+        assert self.retry_backoff >= 1.0
+
+    @property
+    def trivial(self) -> bool:
+        """True iff no fault can ever fire (the parity regime: a
+        fault-gated run must match the ungated run bitwise)."""
+        return (self.outage_prob == 0.0 and self.link_drop_prob == 0.0
+                and self.timeout_factor == 0.0)
+
+
+@dataclass(frozen=True)
+class PopulationConfig:
+    """Virtual-client population: per-cluster member-count
+    *distributions* replace enumerated devices, so a cluster can claim
+    10^4 members without 10^4 resident bank rows.
+
+    Realized once (keyed by the scenario seed) by
+    ``core.scenario.PopulationEngine``: each cluster draws its member
+    count from ``size_dist`` around ``clients_per_cluster``, client ids
+    are the implicit contiguous ranges under the cluster-size prefix
+    sums, and every per-round draw (cohort sampling, visit mobility,
+    per-client speeds) is keyed by ``SeedSequence`` — never stateful —
+    so a resumed run replays the identical population trace. Client
+    state lives in the streaming ``core.clientstore.ClientStore``:
+    only each round's cohort is resident, cold rows are stored under
+    ``codec``, and each cohort client trains on data shard
+    ``client_id % n`` of the enumerated per-device data."""
+    clients_per_cluster: int = 1000  # mean cluster size
+    size_dist: str = "fixed"         # fixed | uniform | lognormal
+    size_spread: float = 0.0         # uniform half-width / lognormal sigma
+    cohort_per_cluster: int = 4      # sampled members per cluster per round
+    codec: str = "f32"               # cold-row codec (compress.COLD_CODECS)
+
+    SIZE_DISTS = ("fixed", "uniform", "lognormal")
+
+    def validate(self) -> None:
+        assert self.clients_per_cluster >= 1
+        assert self.size_dist in self.SIZE_DISTS, \
+            f"unknown size_dist {self.size_dist!r}"
+        assert self.size_spread >= 0.0
+        if self.size_dist == "uniform":
+            assert self.size_spread < 1.0, \
+                "uniform size spread must leave clusters nonempty"
+        assert self.cohort_per_cluster >= 1
+        from repro_torch.core.compress import COLD_CODECS
+        assert self.codec in COLD_CODECS, \
+            f"unknown cold-row codec {self.codec!r}"
+
+
+@dataclass(frozen=True)
+class ScenarioConfig:
+    """A wall-clock scenario: who trains each round, how fast, and where.
+
+    Consumed by ``core.scenario.ScenarioEngine`` which re-draws the
+    participation mask and (under mobility) the cluster assignment B_t
+    between global rounds, and by ``core.clock.EventClock`` which charges
+    each round the slowest *participating* device's compute plus the
+    algorithm's communication terms (eq. 8 with the max_k rule).
+
+    With ``population`` set, the scenario describes a *virtual*
+    population instead of the enumerated devices:
+    ``core.scenario.PopulationEngine`` draws each round's cohort from
+    the per-cluster size distributions and ``FLSimulator`` runs the
+    streamed client-store engine (O(cohort) resident memory).
+    """
+    name: str = "homogeneous"
+    # -- device-speed heterogeneity (multipliers on hw.device_flops) --------
+    speed_dist: str = "homogeneous"  # one of SPEED_DISTS
+    speed_spread: float = 0.0        # uniform: half-width; lognormal: sigma
+    slow_fraction: float = 0.25      # bimodal: fraction of slow devices
+    slow_factor: float = 0.1         # bimodal: slow devices' relative speed
+    # -- per-round client sampling ------------------------------------------
+    sample_fraction: float = 1.0     # fraction of devices training per round
+    dropout_prob: float = 0.0        # straggler dropout among the sampled
+    # -- mobility ------------------------------------------------------------
+    move_prob: float = 0.0           # per-device per-round re-association prob
+    seed: int = 0
+    # -- fault injection (None = fault-free) ---------------------------------
+    faults: "FaultConfig | None" = None
+    # -- virtual population (None = enumerated devices) ----------------------
+    population: "PopulationConfig | None" = None
+
+    def validate(self) -> None:
+        assert self.speed_dist in SPEED_DISTS, \
+            f"unknown speed_dist {self.speed_dist!r}"
+        assert self.speed_spread >= 0.0
+        if self.speed_dist == "uniform":
+            assert self.speed_spread < 1.0, "uniform spread must leave c>0"
+        assert 0.0 <= self.slow_fraction <= 1.0
+        assert 0.0 < self.slow_factor <= 1.0
+        assert 0.0 < self.sample_fraction <= 1.0
+        assert 0.0 <= self.dropout_prob < 1.0
+        assert 0.0 <= self.move_prob <= 1.0
+        if self.faults is not None:
+            self.faults.validate()
+        if self.population is not None:
+            self.population.validate()
+            assert self.faults is None or self.faults.trivial, \
+                "fault injection is not supported with a virtual " \
+                "population (FaultModel realizes per enumerated device)"
+
+    @property
+    def trivial(self) -> bool:
+        """True iff the scenario cannot change the training trajectory
+        (full participation, no mobility) — the parity regime in which the
+        masked schedule must reduce to the static operators."""
+        return (self.sample_fraction >= 1.0 and self.dropout_prob == 0.0
+                and self.move_prob == 0.0
+                and (self.faults is None or self.faults.trivial)
+                and self.population is None)

@@ -1,5 +1,6 @@
 """Event clock: wall-clock time-to-accuracy accounting (paper §6, Figs. 5–6)
-(port of ``repro.core.clock``, barrier rounds without scenarios).
+(port of ``repro.core.clock``: barrier rounds, static or over a virtual
+population).
 
 ``FLSimulator`` measures accuracy per *round*; the paper's headline claim
 is accuracy per *second*. :class:`EventClock` converts rounds to seconds
@@ -12,8 +13,10 @@ and :func:`run_wall_clock` couples a simulator to that clock, emitting
 ``(wall_time, acc)`` curves and :func:`time_to_accuracy`. Rounds are
 charged *per op* of their :class:`repro_torch.core.program.RoundProgram`
 (:func:`program_compute_time`, :func:`program_comm_time`); the canonical
-program reproduces ``charge_round`` to the last term. Scenarios, async
-timelines, paging charges and checkpoints arrive with later slices.
+program reproduces ``charge_round`` to the last term; a streamed round
+is also charged its client paging (:func:`paging_comm_time`).
+Enumerated scenarios, fault penalties, async timelines and checkpoints
+arrive with later slices.
 """
 from __future__ import annotations
 
@@ -124,6 +127,19 @@ def block_comm_times(rt: RuntimeModel, algorithm: str,
     return out
 
 
+def paging_comm_time(rt: RuntimeModel, rows_in: int, rows_out: int,
+                     bits_per_row: int) -> float:
+    """Communication seconds of one streamed round's client paging
+    (``core/clientstore.py``): every paged-in row is a device→edge
+    *download* of the client's model and every paged-out row the
+    matching upload, both over the d2e link — the attach/detach traffic
+    a virtual-population round adds on top of its program's §6.1 terms.
+    Cold-codec compression (``PopulationConfig.codec``) shrinks
+    ``bits_per_row`` and therefore this charge."""
+    return float((int(rows_in) + int(rows_out)) * int(bits_per_row)
+                 / rt.hw.b_d2e)
+
+
 class EventClock:
     """Accumulates simulated wall time, one global round at a time."""
 
@@ -168,35 +184,66 @@ def run_wall_clock(sim, rt: RuntimeModel, rounds: int, *,
     the event clock, returning a history dict with ``round``,
     ``wall_time``, ``acc``, ``loss`` and ``participants`` columns.
 
-    Every round runs the full cohort and is charged its program per op
-    at the RuntimeModel's own speeds. Besides the *simulated* wall clock,
-    the history records the simulator's own seconds per eval window
-    (``compute_s``: host seconds until the window's rounds have finished
-    on the bank's device, taken before the window's evaluation;
-    ``page_s`` is 0 for the resident bank)."""
+    Every round is charged its program per op. Without a scenario the
+    full fleet runs at the RuntimeModel's own speeds; with a population
+    the round's plan paces it (its cohort's keyed speed multipliers ×
+    the profile's ``device_flops``) and a streamed round adds its client
+    paging over the d2e link (:func:`paging_comm_time`).
+
+    Besides the *simulated* wall clock, the history records the
+    simulator's own host seconds per eval window, split into ``page_s``
+    (host time spent paging the streamed client store: fetch, stage,
+    drain, commit — deltas of the sim's ``_page_seconds``; 0 for the
+    resident bank) and ``compute_s`` (the rest of the window, until its
+    rounds have finished on the device, taken before the window's
+    evaluation); ``eval_s`` is the evaluation's own host seconds (for a
+    pipelined streamed sim it includes landing the in-flight page-out,
+    which every store reader waits for)."""
     clock = EventClock(rt, sim.fl)
-    on_card = sim.bank.params.device.type == "cuda"
+    on_card = sim.device.type == "cuda"
     hist: Dict[str, List[float]] = {
         "round": [], "wall_time": [], "acc": [], "loss": [],
-        "participants": [], "page_s": [], "compute_s": []}
+        "participants": [], "page_s": [], "compute_s": [], "eval_s": []}
     window_t0 = time.perf_counter()
+    page0 = sim._page_seconds
     for r in range(rounds):
-        sim.step_round()
-        t = clock.charge_program(sim.last_program, None, None, uplink_ratio)
+        plan = sim.step_round()
+        if plan is not None:
+            fleet = (np.asarray(sim.engine.speed_multipliers, float)
+                     * rt.hw.device_flops)
+            participants = int(plan.mask.sum())
+            t = clock.charge_program(sim.last_program, fleet, plan.mask,
+                                     uplink_ratio)
+        else:
+            participants = sim.fl.n
+            t = clock.charge_program(sim.last_program, None, None,
+                                     uplink_ratio)
+        # streamed rounds page client state through the edge: charge the
+        # page-in/page-out rows as d2e traffic
+        paging = sim.last_paging
+        if paging is not None:
+            clock.now += paging_comm_time(rt, paging["rows_in"],
+                                          paging["rows_out"],
+                                          paging["bits_per_row"])
+            t = clock.now
         if (r + 1) % eval_every == 0:
             if on_card:
                 # the rounds were only enqueued: wait for them to run
-                torch.cuda.synchronize(sim.bank.params.device)
+                torch.cuda.synchronize(sim.device)
             wall = time.perf_counter() - window_t0
+            page_s = sim._page_seconds - page0
+            eval_t0 = time.perf_counter()
             acc, loss = sim.evaluate(eval_batch)
+            hist["eval_s"].append(time.perf_counter() - eval_t0)
             hist["round"].append(r + 1)
             hist["wall_time"].append(t)
             hist["acc"].append(acc)
             hist["loss"].append(loss)
-            hist["participants"].append(sim.fl.n)
-            hist["page_s"].append(0.0)
-            hist["compute_s"].append(wall)
+            hist["participants"].append(participants)
+            hist["page_s"].append(page_s)
+            hist["compute_s"].append(max(wall - page_s, 0.0))
             window_t0 = time.perf_counter()
+            page0 = sim._page_seconds
     return hist
 
 

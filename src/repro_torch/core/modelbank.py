@@ -6,12 +6,15 @@ stacks them row-wise). The bank keeps params and momentum as single
 contiguous ``(n, T)`` float32 tensors on one device for the whole run;
 parameter trees are views made only inside the per-device apply call
 and at evaluation, and every mixing boundary is one streaming pass of
-:func:`repro_torch.kernels.gossip_mix.gossip_mix_rows`.
+:func:`repro_torch.kernels.gossip_mix.gossip_mix_rows`. The streamed
+engine wraps each round's paged-in working set as a bank of its own
+(:meth:`ModelBank.from_rows`), sized by :func:`cohort_buckets`.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -43,6 +46,28 @@ class ModelBank:
         layout = FlatLayout.for_tree(one_model)
         return cls(layout, n, layout.flatten_one(one_model), device=device)
 
+    @classmethod
+    def from_rows(cls, layout: FlatLayout, params_rows, mom_rows, *,
+                  device: Optional[Union[str, torch.device]] = None
+                  ) -> "ModelBank":
+        """Wrap host-paged (S, T) numpy rows as a hot slab bank, copied to
+        ``device``: the streamed engine's per-round working set
+        (``core/clientstore.py``)."""
+        dev = resolve_device(device)
+        params = torch.as_tensor(np.asarray(params_rows, np.float32))
+        mom = torch.as_tensor(np.asarray(mom_rows, np.float32))
+        S, T = params.shape
+        if T != layout.total or tuple(mom.shape) != (S, T):
+            raise ValueError(f"slab rows {tuple(params.shape)} / "
+                             f"{tuple(mom.shape)} do not match T="
+                             f"{layout.total}")
+        self = cls.__new__(cls)
+        self.layout = layout
+        self.n = S
+        self.params = params.to(dev, copy=True)
+        self.mom = mom.to(dev, copy=True)
+        return self
+
     @property
     def resident_nbytes(self) -> int:
         """Device-resident bytes of the bank's buffers."""
@@ -61,3 +86,31 @@ class ModelBank:
         materialize the m resulting models as a tree — the edge-model
         projection of eq. 11 in one streaming pass."""
         return self.layout.unflatten_stack(gossip_mix_rows(P, self.params))
+
+
+# ---------------------------------------------------------------------------
+# slab capacities: static bucket sizes
+# ---------------------------------------------------------------------------
+
+def cohort_buckets(n: int) -> Tuple[int, ...]:
+    """Static cohort capacities: powers of two up to n, plus n itself.
+
+    A streamed round's slab is padded up to one of these, so a scenario
+    whose cohort size wanders round to round sees at most
+    ``len(cohort_buckets(n))`` slab shapes."""
+    assert n >= 1
+    out = []
+    b = 1
+    while b < n:
+        out.append(b)
+        b <<= 1
+    out.append(n)
+    return tuple(out)
+
+
+def bucket_for(k: int, buckets: Tuple[int, ...]) -> int:
+    """Smallest bucket capacity >= k."""
+    for b in buckets:
+        if b >= k:
+            return b
+    raise ValueError(f"cohort {k} exceeds largest bucket {buckets[-1]}")

@@ -1,0 +1,228 @@
+"""The port's cold-row codec and blocked int8 quantizer against the JAX
+package.
+
+On the CPU the wrappers take their plain versions; they are held against
+the reference's host codec (``repro.core.compress``), its device codec
+(``repro.kernels.cold_codec``, both through its pure-jnp oracle and in
+Pallas interpret mode) and its quantizer (``repro.kernels.quantize``,
+interpret mode), on the reference's own codec inputs
+(``tests/test_kernels.py``: 13 irregular rows, an all-zero row, a
+near-zero segment). q must be byte-identical and the scales exactly
+equal; decodes agree to 1e-6 (the reference's own tolerance). The
+Hopper kernel itself is held against these plain versions on the card by
+``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import compress as rcomp
+from repro.kernels import cold_codec as rcc
+from repro.kernels import quantize as rq
+from repro_torch.core import compress as tcomp
+from repro_torch.kernels import cold_codec as tcc
+from repro_torch.kernels import quantize as tq
+
+SEGMENTS = ((0, 100), (100, 37), (137, 263))   # irregular FlatLayout-style
+CODECS = ("f32", "f16", "int8")
+#: the FEMNIST CNN's FlatLayout segments (c1.b ... f2.w), T = 6,603,710
+FEMNIST_SEGMENTS = ((0, 32), (32, 800), (832, 64), (896, 51200),
+                    (52096, 2048), (54144, 6422528), (6476672, 62),
+                    (6476734, 126976))
+
+
+def _cold_rows(S=13, T=400, seed=7):
+    rng = np.random.default_rng(seed)
+    rows = (rng.standard_normal((S, T)) * 3).astype(np.float32)
+    rows[2] = 0.0                      # all-zero row: the 1e-12 scale floor
+    rows[5, :100] = 1e-9               # near-zero segment
+    return rows
+
+
+def _port_encode(rows, codec, segments=SEGMENTS):
+    q, s = tcc.encode_rows(torch.from_numpy(rows), codec, segments)
+    return q.numpy(), s.numpy()
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_encode_matches_host_codec(codec):
+    rows = _cold_rows()
+    host = rcomp.encode_cold_rows(rows, codec, SEGMENTS)
+    q, s = _port_encode(rows, codec)
+    assert q.dtype == host["q"].dtype
+    np.testing.assert_array_equal(q, host["q"])
+    np.testing.assert_array_equal(s, host["scale"])
+    # the port's own numpy copy of the host codec is the same bytes
+    mine = tcomp.encode_cold_rows(rows, codec, SEGMENTS)
+    np.testing.assert_array_equal(mine["q"], host["q"])
+    np.testing.assert_array_equal(mine["scale"], host["scale"])
+
+
+@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("mode", ["jnp", "interpret"])
+def test_encode_decode_match_reference_device_codec(codec, mode):
+    rows = _cold_rows()
+    kw = (dict(use_pallas=False) if mode == "jnp"
+          else dict(use_pallas=True, interpret=True))
+    rq_, rs_ = rcc.encode_rows(jnp.asarray(rows), codec, SEGMENTS, **kw)
+    q, s = _port_encode(rows, codec)
+    np.testing.assert_array_equal(q, np.asarray(rq_))
+    np.testing.assert_array_equal(s, np.asarray(rs_))
+    rdec = np.asarray(rcc.decode_rows(rq_, rs_, codec, SEGMENTS, **kw))
+    dec = tcc.decode_rows(torch.from_numpy(q), torch.from_numpy(s), codec,
+                          SEGMENTS).numpy()
+    assert dec.dtype == np.float32
+    np.testing.assert_allclose(dec, rdec, atol=1e-6, rtol=0)
+    host = rcomp.decode_cold_rows({"q": q, "scale": s}, codec, SEGMENTS)
+    np.testing.assert_allclose(dec, host, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("codec,tol", [("f32", 0.0), ("f16", 1e-3),
+                                       ("int8", 4e-2)])
+def test_roundtrip_bounds_and_fixed_point(codec, tol):
+    """decode(encode(x)) stays within the codec's bound (exact for f32;
+    f16 ~2^-11 relative; int8 scale/2 per segment), and a decoded row
+    re-encodes to itself (the re-quantization fixed point)."""
+    rows = _cold_rows(S=9)
+    q, s = tcc.encode_rows(torch.from_numpy(rows), codec, SEGMENTS)
+    dec = tcc.decode_rows(q, s, codec, SEGMENTS)
+    if codec == "f32":
+        np.testing.assert_array_equal(dec.numpy(), rows)
+        return
+    err = np.abs(dec.numpy() - rows)
+    assert err.max() <= tol * max(1.0, np.abs(rows).max()), err.max()
+    if codec == "int8":
+        for j, (o, n) in enumerate(SEGMENTS):
+            bound = s.numpy()[:, j] / 2 + 1e-7
+            assert (err[:, o:o + n].max(1) <= bound).all()
+    q2, _ = tcc.encode_rows(dec, codec, SEGMENTS)
+    np.testing.assert_array_equal(q2.numpy(), q.numpy())
+
+
+def test_int8_ties_round_half_to_even():
+    """Values at exact half steps round to even codes, as ``np.rint``
+    does (a kernel with ``roundf`` would round them away from zero)."""
+    row = np.array([[127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.0]],
+                   np.float32)
+    q, s = _port_encode(row, "int8", ((0, 8),))
+    assert s[0, 0] == np.float32(1.0)
+    np.testing.assert_array_equal(q[0], [127, 0, 2, 2, 0, -2, -2, 3])
+    np.testing.assert_array_equal(
+        q, rcomp.encode_cold_rows(row, "int8", ((0, 8),))["q"])
+
+
+def test_zero_rows_decode_to_exact_zeros():
+    """A never-stored client's staged row (zero q, zero scales) decodes to
+    exact zeros under every codec."""
+    for codec in CODECS:
+        dt = {"f32": torch.float32, "f16": torch.float16,
+              "int8": torch.int8}[codec]
+        width = len(SEGMENTS) if codec == "int8" else 0
+        dec = tcc.decode_rows(torch.zeros((3, 400), dtype=dt),
+                              torch.zeros((3, width)), codec, SEGMENTS)
+        assert dec.dtype == torch.float32
+        assert not dec.any()
+
+
+def test_cpu_calls_launch_nothing():
+    tcc.encode_launches = tcc.decode_launches = tq.launches = 0
+    rows = torch.from_numpy(_cold_rows())
+    for codec in CODECS:
+        q, s = tcc.encode_rows(rows, codec, SEGMENTS)
+        tcc.decode_rows(q, s, codec, SEGMENTS)
+    tq.quantize_int8_blocked(rows.reshape(-1))
+    assert tcc.encode_launches == tcc.decode_launches == tq.launches == 0
+
+
+@pytest.mark.parametrize("codec", ["f16", "int8"])
+def test_other_devices_raise_instead_of_falling_back(codec):
+    """A tensor that is neither on the CPU nor on a CUDA card gets no
+    plain-version fallback: the wrapper raises."""
+    rows = torch.zeros((2, 400), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tcc.encode_rows(rows, codec, SEGMENTS)
+    dt = torch.float16 if codec == "f16" else torch.int8
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tcc.decode_rows(torch.zeros((2, 400), dtype=dt, device="meta"),
+                        torch.zeros((2, 3), device="meta"), codec, SEGMENTS)
+
+
+@pytest.mark.parametrize("segments", [SEGMENTS, FEMNIST_SEGMENTS,
+                                      ((0, 1),), ((0, 4096), (4096, 4097))],
+                         ids=["irregular", "femnist", "one", "edges"])
+def test_tile_table_covers_every_column_once(segments):
+    """The kernels' tile table: every column in exactly one tile, no tile
+    crossing a segment, at most TILE columns, and one first-tile flag per
+    segment."""
+    table = tcc.tile_table(segments)
+    start, packed = table[:, 0], table[:, 1]
+    length = packed & 0x7FFFFFFF
+    first = (packed >> 31) & 1
+    seg = packed >> 32
+    T = sum(n for _, n in segments)
+    cover = np.zeros(T, np.int64)
+    for s0, n, j in zip(start, length, seg):
+        off, size = segments[j]
+        assert off <= s0 and s0 + n <= off + size
+        assert 0 < n <= tcc.TILE
+        cover[s0:s0 + n] += 1
+    assert (cover == 1).all()
+    assert np.bincount(seg[first == 1], minlength=len(segments)).tolist() \
+        == [1] * len(segments)
+    if segments is FEMNIST_SEGMENTS:
+        assert T == 6_603_710
+        assert len(table) == sum(-(-n // tcc.TILE) for _, n in segments)
+
+
+def test_cold_codec_helpers_match_reference():
+    assert tcomp.COLD_CODECS == rcomp.COLD_CODECS == tcc.CODECS
+    for codec in CODECS:
+        assert tcomp.cold_bits_per_param(codec) \
+            == rcomp.cold_bits_per_param(codec)
+        assert tcomp.cold_dtype(codec) == rcomp.cold_dtype(codec)
+    with pytest.raises(ValueError, match="do not cover"):
+        tcc.encode_rows(torch.zeros((1, 10), device="meta"), "int8",
+                        ((0, 4),))
+
+
+# -- B3: the blocked quantizer on the cold codec -----------------------------
+
+@pytest.mark.parametrize("T,block", [(4096, 1024), (5000, 1024),
+                                     (777, 256), (1, 1024)])
+def test_quantize_int8_blocked_matches_reference(T, block):
+    rng = np.random.default_rng(T)
+    x = (rng.standard_normal(T) * 2).astype(np.float32)
+    if T > 600:
+        x[512:600] = 0.0
+    codes, scales = tq.quantize_int8_blocked(torch.from_numpy(x),
+                                             block=block)
+    rc, rs = rq.quantize_int8_blocked(jnp.asarray(x), block=block,
+                                      interpret=True)
+    assert codes.dtype == torch.int8 and codes.shape == (T,)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(rc))
+    np.testing.assert_array_equal(scales.numpy(), np.asarray(rs))
+    pc, ps = tq.quantize_int8_ref(torch.from_numpy(x), block=block)
+    np.testing.assert_array_equal(pc.numpy(), codes.numpy())
+    np.testing.assert_array_equal(ps.numpy(), scales.numpy())
+    deq = tq.dequantize_int8_blocked(codes, scales, block=block)
+    rdeq = rq.dequantize_int8_blocked(rc, rs, block=block)
+    np.testing.assert_allclose(deq.numpy(), np.asarray(rdeq), atol=1e-6,
+                               rtol=0)
+    np.testing.assert_allclose(deq.numpy(), x,
+                               atol=float(scales.max()) / 2 + 1e-7, rtol=0)
+
+
+def test_quantize_equals_cold_encode_of_blocked_rows():
+    """The identity the port builds B3 on: per-block quantization of a
+    flat vector is the int8 cold encode of its (T/block, block) rows."""
+    T, block = 4096, 1024
+    x = (np.random.default_rng(11).standard_normal(T) * 2).astype(
+        np.float32)
+    codes, scales = tq.quantize_int8_blocked(torch.from_numpy(x),
+                                             block=block)
+    host = rcomp.encode_cold_rows(x.reshape(-1, block), "int8",
+                                  ((0, block),))
+    np.testing.assert_array_equal(codes.numpy().reshape(-1, block),
+                                  host["q"])
+    np.testing.assert_array_equal(scales.numpy(), host["scale"][:, 0])
