@@ -18,6 +18,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  (64, 6,603,710) FEMNIST-CNN shape, bit for bit, plus 8
                  full-width rows against the host numpy codec; the
                  blocked int8 quantizer on the codec's kernel.
+                 Then flash attention (B4) over the reference's sweep
+                 and at the Zamba2 prefill shape (2 x 4096 tokens, 32
+                 heads of 80, bf16, causal, in the model's layout), and
+                 the SSD intra-chunk block (B5, both outputs) over the
+                 reference's sweep and at the prefill shape (32 chunks of
+                 256, 80 heads, P = N = 64); each timed beside its plain
+                 version (and B4 beside one
+                 ``scaled_dot_product_attention`` call).
 3. main       — the paper's FEMNIST experiment (``configs/femnist_cnn``:
                  64 devices, 8 edge servers on a ring, tau=2, q=8, pi=10)
                  with the LEAF CNN at full width (6,603,710 params), two
@@ -35,10 +43,21 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  then the serial driver (host codec) on the same
                  configuration, whose global model must agree within the
                  int8 tolerance.
-5. parity     — the quickstart configuration for one round, and the small
+5. lm         — Zamba2-2.7B at full width (2,422,670,240 params, bf16,
+                 random weights from a seeded generator on the card): one
+                 prefill forward of 2 x 4096 tokens (9 B4 and 54 B5
+                 launches, finite logits), a second under the profiler
+                 (device time by kernel), then the port's serve driver at
+                 the reference's defaults (batch 4, prompt 32, 16 decoded
+                 tokens, max-seq 256).
+6. lm decode  — the same model in f32: the kernel forward's logits over
+                 2 x 512 tokens against 512 decode steps (no kernel),
+                 within the reference's atol = rtol = 0.05.
+7. parity     — the quickstart configuration for one round, the small
                  population configuration of the CPU tests (f32,
-                 pipelined) for two, on the card and on the CPU; they
-                 must agree (TF32 off).
+                 pipelined) for two, and the reduced Zamba2 forward (f32,
+                 2 groups; kernels on the card, plain on the CPU), on the
+                 card and on the CPU; they must agree (TF32 off).
 
 The line before the last two is ``{"kernels": [...]}``; the card's
 ``name, power.limit`` (from nvidia-smi) follows, and the last line is
@@ -50,6 +69,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import resource
 import statistics
 import subprocess
@@ -65,10 +85,11 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s and FP32 FLOP/s
-#: on the CUDA cores
+#: NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s, FP32 FLOP/s
+#: on the CUDA cores, and bf16 FLOP/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 #: kernel tolerances (the reference's own, tests/test_kernels.py)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 #: card against CPU after one quickstart round (observed 1.2e-7 on params,
@@ -80,6 +101,32 @@ FEMNIST_T = 6_603_710
 CODEC_SEGMENTS = ((0, 100), (100, 37), (137, 263))
 #: the streamed slab of the population phase: 56 cohort + 8 representatives
 SLAB_ROWS = 64
+#: flash attention against its plain version: the reference's own sweep
+#: and tolerances (tests/test_kernels.py, absolute)
+FA_SWEEP = ((4, 256, 256, 64), (2, 200, 200, 64), (2, 128, 384, 128),
+            (1, 512, 512, 64), (3, 130, 257, 128))
+FA_MASKS = ((True, 0), (False, 0), (True, 100))
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: at the prefill shape both sides read the same bf16 inputs and sum in
+#: f32 (the kernel holds p to about 2^-16), then round the output to bf16:
+#: they may differ by one bf16 step of the output's size, 2^-7 of it
+FA_PATH_ATOL, FA_PATH_RTOL = 1e-3, 2.0 ** -7
+#: SSD intra-chunk block: the reference's sweep and tolerances (absolute
+#: and relative, both outputs); at the prefill shape both sides read the
+#: same bf16 inputs and sum in f32, so only the order of the sums differs
+SSD_SWEEP = ((4, 3, 128, 64, 32), (2, 5, 256, 64, 128), (1, 2, 128, 128, 64))
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 0.15}
+SSD_PATH_TOL = 1e-3
+#: the Zamba2-2.7B prefill of the lm phase, and its parameter count
+LM_BATCH, LM_SEQ = 2, 4096
+ZAMBA2_PARAMS = 2_422_670_240
+#: prefill forward against decode steps at f32: the reference's own bound
+#: for that property (tests/test_models.py)
+DECODE_TOL = 0.05
+DECODE_SEQ = 512
+#: reduced Zamba2 forward, card (kernels) against CPU (plain) at f32:
+#: sums in other orders over 4 Mamba-2 blocks and 2 attention layers
+LM_PARITY_TOL = 1e-4
 #: serial (host codec) against pipelined (card codec) at int8: the
 #: reference's own bound (tests/test_clientstore.py)
 INT8_ATOL = 5e-3
@@ -113,15 +160,17 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def max_err(out: torch.Tensor, exp: torch.Tensor, tol: float,
-            what: str) -> float:
-    """Max abs difference; raises unless |out-exp| <= tol + tol*|exp|."""
+            what: str, rtol: float | None = None) -> float:
+    """Max abs difference; raises unless |out-exp| <= tol + rtol*|exp|
+    (``rtol`` defaults to ``tol``; 0 makes the bound absolute)."""
+    rtol = tol if rtol is None else rtol
     o, e = out.float(), exp.float()
     diff = (o - e).abs()
     err = float(diff.max())
-    bad = int((diff > tol + tol * e.abs()).sum())
+    bad = int((diff > tol + rtol * e.abs()).sum())
     if bad or not math.isfinite(err):
-        raise AssertionError(f"{what}: {bad} elements over tolerance {tol}"
-                             f" (max abs diff {err:.3e})")
+        raise AssertionError(f"{what}: {bad} elements over atol {tol}, "
+                             f"rtol {rtol} (max abs diff {err:.3e})")
     return err
 
 
@@ -129,19 +178,29 @@ def max_err(out: torch.Tensor, exp: torch.Tensor, tol: float,
 # phase 1: build
 # ---------------------------------------------------------------------------
 
-KERNEL_SOURCES = ("gossip_mix", "cold_codec")
+KERNEL_SOURCES = ("gossip_mix", "cold_codec", "flash_attention", "ssd_scan")
 
 
 def phase_build() -> None:
+    """Every kernel source compiled at once, one nvcc each."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    paths = [_build.compile_library(name) for name in KERNEL_SOURCES]
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        paths = list(pool.map(_build.compile_library, KERNEL_SOURCES))
     for name, path in zip(KERNEL_SOURCES, paths):
-        log(f"[build] {name}: {os.path.relpath(path, ROOT)}")
-        for line in _build.BUILD_LOGS.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"[build]   {line.strip()}")
-    log(f"[build] {len(paths)} kernel(s) in "
+        # ptxas -v: one "Used N registers" line per instantiation, after
+        # its "N bytes spill stores" line
+        text = _build.BUILD_LOGS.get(name, "")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                             text)]
+        log(f"[build] {name}: {os.path.relpath(path, ROOT)}; "
+            f"{len(regs)} kernel instantiation(s), registers "
+            f"{min(regs, default=0)}-{max(regs, default=0)}, "
+            f"{sum(1 for b in spills if b)} with spill stores (at most "
+            f"{max(spills, default=0)} bytes)")
+    log(f"[build] {len(paths)} source(s) in "
         f"{time.perf_counter() - t0:.1f} s; card: {card_line()}")
 
 
@@ -410,7 +469,7 @@ def device_breakdown(prof, wall_s: float, top: int = 10,
         by_name[k.name] = (t + k.time_range.elapsed_us(), c + 1)
     sum_us = sum(t for t, _ in by_name.values())
     streams = len({k.device_resource_id for k in kernels})
-    log(f"[{tag}] profiled round: {len(kernels)} kernels on {streams} "
+    log(f"[{tag}] profiled window: {len(kernels)} kernels on {streams} "
         f"stream(s), kernel time {sum_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms of {wall_s * 1e3:.2f} ms wall "
         f"({100 * busy_us / 1e6 / wall_s:.1f}% busy, under the profiler); "
@@ -714,6 +773,366 @@ def phase_parity(dev: torch.device) -> None:
         f"{PARITY_ATOL}; {sc['ids'].size} stored clients on both)")
     assert eg <= PARITY_ATOL and es <= PARITY_ATOL, \
         "card and CPU population runs disagree"
+    _parity_lm(dev)
+
+
+def _parity_lm(dev: torch.device) -> None:
+    """The reduced Zamba2 (2 groups of 2 Mamba-2 blocks, GQA 4/2 heads,
+    chunk 64) over 2 x 300 tokens: the card's forward (both kernels)
+    against the CPU's (plain versions), same weights, f32."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.data.lm import synthetic_lm_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import model as mdl
+    from repro_torch import tree as tr
+    cfg = get_model_config("zamba2-2.7b").reduced(num_layers=4)
+    params = mdl.init_model(torch.Generator().manual_seed(5), cfg, "cpu")
+    batch = synthetic_lm_batch((2, 300), cfg.vocab_size, seed=5)
+    with torch.inference_mode():
+        host, _ = mdl.forward(cfg, params, batch)
+        on_card = tr.tree_map(lambda t: t.to(dev), params)
+        fa.launches = ss.launches = 0
+        card, _ = mdl.forward(cfg, on_card, batch)
+        launches = (fa.launches, ss.launches)
+    err = max_err(card.cpu(), host, LM_PARITY_TOL,
+                  "reduced zamba2 forward, card vs CPU")
+    log(f"[parity] reduced zamba2-2.7b (4 layers, 2 x 300 tokens, f32): card "
+        f"(flash_attention x{launches[0]}, ssd_intra_chunk x{launches[1]}) "
+        f"vs CPU (plain) logits max abs diff {err:.3e} (atol = rtol = "
+        f"{LM_PARITY_TOL})")
+    assert launches == (2, 4), launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the LM kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _bound(nbytes: float, flops: float, peak: float):
+    """The least time (ms) for ``nbytes`` of traffic and ``flops`` at
+    ``peak``, and which of the two sets it."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _refused(fn, what: str) -> None:
+    """Raises unless ``fn()`` raises the wrapper's launch error: a bf16
+    layout that the tensor-core kernel cannot take runs nowhere else."""
+    try:
+        fn()
+    except RuntimeError as e:
+        if "launch failed" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"{what}: launched, want it refused")
+
+
+def phase_flash_attention(dev: torch.device) -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(dev).manual_seed(11)
+    worst = {dt: 0.0 for dt in FA_TOL}
+    for BH, Sq, Sk, D in FA_SWEEP:
+        for causal, window in FA_MASKS:
+            for dt, tol in FA_TOL.items():
+                q, k, v = (torch.randn((BH, S, D), device=dev, generator=gen
+                                       ).to(dt) for S in (Sq, Sk, Sk))
+                worst[dt] = max(worst[dt], max_err(
+                    fa.flash_attention(q, k, v, causal=causal,
+                                       window=window),
+                    ref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window), tol,
+                    f"flash_attention {BH}x{Sq}x{Sk}x{D} causal={causal} "
+                    f"window={window} {dt}", rtol=0))
+    # GQA through the (B, S, H, D) adapter, with a q_offset
+    for dt, tol in FA_TOL.items():
+        q = torch.randn((2, 192, 8, 64), device=dev, generator=gen).to(dt)
+        k, v = (torch.randn((2, 256, 2, 64), device=dev, generator=gen
+                            ).to(dt) for _ in range(2))
+        for causal, window, off in ((True, 0, 64), (True, 40, 0),
+                                    (False, 0, 0)):
+            worst[dt] = max(worst[dt], max_err(
+                fa.flash_attention_bshd(q, k, v, causal=causal,
+                                        window=window, q_offset=off),
+                ref.flash_attention_bshd_ref(q, k, v, causal=causal,
+                                             window=window, q_offset=off),
+                tol, f"flash_attention_bshd GQA 8/2 causal={causal} "
+                f"window={window} q_offset={off} {dt}", rtol=0))
+    log(f"[kernels] flash_attention sweep (5 shapes x 3 masks x f32/bf16, "
+        f"GQA adapter): max abs err f32 {worst[torch.float32]:.3e} (tol "
+        f"{FA_TOL[torch.float32]}), bf16 {worst[torch.bfloat16]:.3e} (tol "
+        f"{FA_TOL[torch.bfloat16]})")
+    q = torch.randn((1, 64, 2, 72), device=dev, generator=gen).to(
+        torch.bfloat16)
+    _refused(lambda: fa.flash_attention_bshd(q, q, q), "flash_attention "
+             "bf16 D=72")
+    q = torch.randn(64 * 64 + 1, device=dev, generator=gen).to(
+        torch.bfloat16)[1:].view(1, 64, 1, 64)
+    _refused(lambda: fa.flash_attention_bshd(q, q, q), "flash_attention "
+             "bf16 at a 2-byte offset")
+    log("[kernels] flash_attention refuses bf16 at D=72 and at a 2-byte "
+        "offset (no CUDA-core bf16 kernel)")
+
+    # the prefill's shape, in the model's (B, S, H, D) layout
+    B, S, H, D = LM_BATCH, LM_SEQ, 32, 80
+    q, k, v = (torch.randn((B, S, H, D), device=dev, generator=gen
+                           ).to(torch.bfloat16) for _ in range(3))
+    out = fa.flash_attention_bshd(q, k, v, causal=True)
+    err = max_err(out, ref.flash_attention_bshd_ref(q, k, v, causal=True),
+                  FA_PATH_ATOL, "flash_attention at the prefill shape",
+                  rtol=FA_PATH_RTOL)
+    del out
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: fa.flash_attention_bshd(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: ref.flash_attention_bshd_ref(
+        q, k, v, causal=True), reps=5)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_ms = time_ms(lambda: torch.nn.functional.
+                         scaled_dot_product_attention(qh, kh, vh,
+                                                      is_causal=True))
+    # q, k, v read once and o written once; the causal band's two
+    # products (S(S+1)/2 score entries a head) on the bf16 tensor cores
+    nbytes = 4 * B * S * H * D * 2
+    flops = 2 * 2 * B * H * D * S * (S + 1) / 2
+    b_ms, b_by = _bound(nbytes, flops, BF16_FLOPS)
+    log(f"[kernels] flash_attention prefill shape (B={B}, S={S}, H={H}, "
+        f"D={D}, bf16, causal): max abs err {err:.3e} (atol "
+        f"{FA_PATH_ATOL}, rtol {FA_PATH_RTOL}); {ms:.4f} ms (plain {plain_ms:.4f}, "
+        f"scaled_dot_product_attention {library_ms:.4f}, bound {b_ms:.4f} "
+        f"by {b_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; "
+        f"achieved {flops / ms / 1e9:.1f} TFLOP/s)")
+    del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:70",
+            "launches": 0,
+            "max_abs_err": max(err, *worst.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
+
+
+def _ssd_inputs(gen, dev, BK, H, C, P, N, dt):
+    """The reference sweep's inputs: x, B, C normal; a = -|n|/10 and dt =
+    |n|/10 (f32 at the prefill shape, as the model gives them)."""
+    x = torch.randn((BK, H, C, P), device=dev, generator=gen).to(dt)
+    a = -torch.randn((BK, H, C), device=dev, generator=gen).abs() * 0.1
+    Bm, Cm = (torch.randn((BK, C, N), device=dev, generator=gen).to(dt)
+              for _ in range(2))
+    d = torch.randn((BK, H, C), device=dev, generator=gen).abs() * 0.1
+    return x, a, Bm, Cm, d
+
+
+def phase_ssd_scan(dev: torch.device) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator(dev).manual_seed(12)
+    worst = {dt: 0.0 for dt in SSD_TOL}
+    for shape in SSD_SWEEP:
+        for dt, tol in SSD_TOL.items():
+            x, a, Bm, Cm, d = _ssd_inputs(gen, dev, *shape, dt)
+            if dt == torch.bfloat16:  # the sweep's a and dt are bf16 too
+                a, d = a.to(dt), d.to(dt)
+            got, exp = ss.ssd_intra_chunk(x, a, Bm, Cm, d), \
+                ref.ssd_intra_chunk_ref(x, a, Bm, Cm, d)
+            for o, e, what in zip(got, exp, ("y", "states")):
+                worst[dt] = max(worst[dt], max_err(
+                    o, e, tol, f"ssd_intra_chunk {shape} {dt} {what}"))
+    log(f"[kernels] ssd_intra_chunk sweep (3 shapes x f32/bf16, y and "
+        f"states): max abs err f32 {worst[torch.float32]:.3e} (tol "
+        f"{SSD_TOL[torch.float32]}), bf16 {worst[torch.bfloat16]:.3e} (tol "
+        f"{SSD_TOL[torch.bfloat16]})")
+    x, a, Bm, Cm, d = _ssd_inputs(gen, dev, 1, 2, 64, 64, 16, torch.bfloat16)
+    xs = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+    xs.copy_(x.flatten())
+    _refused(lambda: ss.ssd_intra_chunk(xs.view(x.shape), a, Bm, Cm, d),
+             "ssd_intra_chunk bf16 x at a 2-byte offset")
+    log("[kernels] ssd_intra_chunk refuses bf16 x at a 2-byte offset (no "
+        "CUDA-core bf16 kernel)")
+
+    # the prefill's shape: both outputs, then y through the adapter in the
+    # model's strided layout (x, B, C views of one conv output)
+    Bsz, K, C, H, P, N = LM_BATCH, LM_SEQ // 256, 256, 80, 64, 64
+    BK = Bsz * K
+    x, a, Bm, Cm, d = _ssd_inputs(gen, dev, BK, H, C, P, N, torch.bfloat16)
+    got, exp = ss.ssd_intra_chunk(x, a, Bm, Cm, d), \
+        ref.ssd_intra_chunk_ref(x, a, Bm, Cm, d)
+    err = max(max_err(o, e, SSD_PATH_TOL, f"ssd_intra_chunk prefill {what}")
+              for o, e, what in zip(got, exp, ("y", "states")))
+    del got, exp
+    xBC = torch.randn((Bsz, K * C, H * P + 2 * N), device=dev, generator=gen
+                      ).to(torch.bfloat16)
+    xv, Bv, Cv = torch.split(xBC, [H * P, N, N], dim=-1)
+    xc = xv.reshape(Bsz, K, C, H, P)
+    dtc = torch.randn((Bsz, K, C, H), device=dev, generator=gen).abs() * 0.1
+    a_t = (-dtc).permute(0, 1, 3, 2)
+    args = (xc, a_t, Bv.reshape(Bsz, K, C, N), Cv.reshape(Bsz, K, C, N), dtc)
+    err = max(err, max_err(ss.make_intra_fn()(*args),
+                           ref.ssd_intra_fn_ref(*args), SSD_PATH_TOL,
+                           "ssd_intra_chunk adapter, prefill layout"))
+    del xBC, xv, Bv, Cv, xc, dtc, a_t, args
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: ss.ssd_intra_chunk(x, a, Bm, Cm, d))
+    plain_ms = time_ms(lambda: ref.ssd_intra_chunk_ref(x, a, Bm, Cm, d),
+                       reps=5)
+    # x, a, dt, B, C read once; y and the states written once (f32); the
+    # products over the lower triangle, C Bᵀ once a chunk (shared by the
+    # heads), on the bf16 tensor cores
+    tri = C * (C + 1) / 2
+    nbytes = (2 * BK * H * C * P + 2 * 4 * BK * H * C + 2 * 2 * BK * C * N
+              + 4 * BK * H * C * P + 4 * BK * H * N * P)
+    flops = 2 * BK * (N * tri + H * P * tri + H * C * N * P)
+    b_ms, b_by = _bound(nbytes, flops, BF16_FLOPS)
+    log(f"[kernels] ssd_intra_chunk prefill shape (BK={BK}, H={H}, C={C}, "
+        f"P={P}, N={N}; x/B/C bf16, a/dt f32): max abs err {err:.3e} (tol "
+        f"{SSD_PATH_TOL}, y, states and the strided adapter); {ms:.4f} ms "
+        f"(plain {plain_ms:.4f}, bound {b_ms:.4f} by {b_by}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP; no single library "
+        f"call computes it)")
+    del x, a, Bm, Cm, d
+    torch.cuda.empty_cache()
+    return {"name": "ssd_intra_chunk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:50",
+            "launches": 0, "max_abs_err": max(err, *worst.values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Zamba2-2.7B at full width
+# ---------------------------------------------------------------------------
+
+def _lm_breakdown(prof, wall_s: float) -> None:
+    """The profiled forward's device time: the two kernels and the GEMMs
+    by name, then the top kernels."""
+    device_breakdown(prof, wall_s, top=12, tag="lm")
+    sums = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        name = e.name.lower()
+        key = ("flash_attention (B4)" if "flash_attention" in name
+               else "ssd_intra_chunk (B5)" if "ssd_intra_chunk" in name
+               else "GEMMs (cuBLAS)" if ("gemm" in name or "nvjet" in name
+                                         or "xmma" in name
+                                         or "cutlass" in name)
+               else "other")
+        sums[key][0] += e.time_range.elapsed_us() / 1e3
+        sums[key][1] += 1
+    log("[lm] forward device time by part: " + ", ".join(
+        f"{k} {t:.2f} ms x{c}" for k, (t, c) in sorted(
+            sums.items(), key=lambda kv: -kv[1][0])))
+
+
+def phase_lm(dev: torch.device):
+    """Returns the launches of flash_attention and ssd_intra_chunk in the
+    prefill forward."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.data.lm import synthetic_lm_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import serve
+    from repro_torch.models import model as mdl
+    cfg = get_model_config("zamba2-2.7b")
+    batch = synthetic_lm_batch((LM_BATCH, LM_SEQ), cfg.vocab_size, seed=0)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = mdl.init_model(torch.Generator(dev).manual_seed(0), cfg,
+                                dev)
+        torch.cuda.synchronize()
+        n = mdl.param_count(params)
+        log(f"[lm] zamba2-2.7b: {n:,} params ({cfg.param_dtype}, "
+            f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB on the card) "
+            f"in {time.perf_counter() - t0:.2f} s; prefill {LM_BATCH} x "
+            f"{LM_SEQ} tokens")
+        assert n == ZAMBA2_PARAMS, n
+        torch.cuda.reset_peak_memory_stats(dev)
+        fa.launches = ss.launches = 0
+        t0 = time.perf_counter()
+        logits, _ = mdl.forward(cfg, params, batch)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        launches = (fa.launches, ss.launches)
+        peak = torch.cuda.max_memory_allocated(dev)
+        finite = bool(torch.isfinite(logits).all())
+        shape = tuple(logits.shape)
+        del logits
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mdl.forward(cfg, params, batch)
+            torch.cuda.synchronize()
+            second = time.perf_counter() - t0
+    log(f"[lm] prefill forward: {first:.3f} s (first), {second:.3f} s "
+        f"(second, under the profiler); logits {shape} finite={finite}; "
+        f"launches flash_attention={launches[0]} (want 9) "
+        f"ssd_intra_chunk={launches[1]} (want 54); peak device memory "
+        f"{peak / 1e9:.2f} GB")
+    assert finite and shape == (LM_BATCH, LM_SEQ, 32000), shape
+    assert launches == (9, 54), launches
+    _lm_breakdown(prof, second)
+    del params, prof
+    torch.cuda.empty_cache()
+
+    out = serve.main(["--arch", "zamba2-2.7b", "--device", str(dev)])
+    log(f"[lm] serve (batch 4, prompt 32, 16 decoded tokens, max-seq 256): "
+        f"prefill {out['prefill_s']:.3f} s ({out['prefill_tok_s']:.1f} "
+        f"tok/s), decode {out['decode_s']:.3f} s "
+        f"({out['decode_tok_s']:.1f} tok/s), finite={out['finite']}")
+    assert out["finite"] and tuple(out["tokens"].shape) == (4, 17)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: prefill (kernels) against decode steps (no kernel), f32
+# ---------------------------------------------------------------------------
+
+def phase_lm_decode(dev: torch.device) -> None:
+    import dataclasses
+    from repro_torch.configs import get_model_config
+    from repro_torch.data.lm import synthetic_lm_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import model as mdl
+    cfg = dataclasses.replace(get_model_config("zamba2-2.7b"),
+                              dtype="float32", param_dtype="float32")
+    toks = synthetic_lm_batch((LM_BATCH, DECODE_SEQ), cfg.vocab_size,
+                              seed=1)["tokens"]
+    with torch.inference_mode():
+        params = mdl.init_model(torch.Generator(dev).manual_seed(1), cfg,
+                                dev)
+        fa.launches = ss.launches = 0
+        t0 = time.perf_counter()
+        full, _ = mdl.forward(cfg, params, {"tokens": toks})
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        fwd_launches = (fa.launches, ss.launches)
+        cache = mdl.init_decode_cache(cfg, LM_BATCH, DECODE_SEQ, device=dev)
+        tt = torch.from_numpy(toks).to(dev)
+        dec = torch.empty_like(full)
+        t0 = time.perf_counter()
+        for i in range(DECODE_SEQ):
+            lg, cache = mdl.decode_step(cfg, params, cache, tt[:, i:i + 1], i)
+            dec[:, i] = lg[:, 0]
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+    diff = (dec - full).abs()
+    err = float(diff.max())
+    bad = int((diff > DECODE_TOL + DECODE_TOL * full.abs()).sum())
+    log(f"[lm decode] zamba2-2.7b f32, {LM_BATCH} x {DECODE_SEQ} tokens: "
+        f"forward {t_fwd:.3f} s (flash_attention x{fwd_launches[0]}, "
+        f"ssd_intra_chunk x{fwd_launches[1]}), {DECODE_SEQ} decode steps "
+        f"{t_dec:.3f} s (no kernel launch: {fa.launches - fwd_launches[0]}, "
+        f"{ss.launches - fwd_launches[1]}); logits max abs diff {err:.3e}, "
+        f"{bad} over atol = rtol = {DECODE_TOL}")
+    assert fwd_launches == (9, 54), fwd_launches
+    assert (fa.launches, ss.launches) == fwd_launches, \
+        "a decode step launched a kernel"
+    assert bad == 0 and math.isfinite(err), "prefill and decode disagree"
+    del params, cache, full, dec
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -731,14 +1150,18 @@ def main() -> int:
     phase_build()
     entry = phase_kernels(dev)
     encode, decode = phase_codec(dev)
+    attn = phase_flash_attention(dev)
+    ssd = phase_ssd_scan(dev)
     entry["launches"] = phase_main(dev)
     gossip_pop, encode["launches"], decode["launches"] = \
         phase_population(dev)
     log(f"[done] gossip_mix launches: main path {entry['launches']}, "
         f"population path {gossip_pop}")
+    attn["launches"], ssd["launches"] = phase_lm(dev)
+    phase_lm_decode(dev)
     phase_parity(dev)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [entry, encode, decode]}))
+    print(json.dumps({"kernels": [entry, encode, decode, attn, ssd]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

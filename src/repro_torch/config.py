@@ -1,14 +1,126 @@
-"""Configuration of the port: the paper's federated-learning knobs.
+"""Configuration of the port: the paper's federated-learning knobs and
+the language models' shapes.
 
-Port of ``repro.config``'s :class:`FLConfig` and of its scenario,
-fault and virtual-population configs (plain dataclasses, no external
-deps). The language-model and mesh configs arrive with the slices that
-use them.
+Port of ``repro.config``'s :class:`FLConfig`, of its scenario, fault
+and virtual-population configs, and of :class:`ModelConfig` (plain
+dataclasses, no external deps). The mesh config arrives with the slice
+that uses it.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm", "cnn")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # one of FAMILIES
+    num_layers: int
+    d_model: int
+    num_heads: int = 0            # 0 for attention-free archs
+    num_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0             # 0 -> d_model // num_heads
+    qkv_bias: bool = False
+    mlp_act: str = "silu"         # silu | gelu | relu2 (nemotron squared relu)
+    norm: str = "rmsnorm"         # rmsnorm | layernorm
+    rope_theta: float = 10000.0
+    use_rope: bool = True         # whisper uses learned positions instead
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    moe_shared_expert: bool = False   # llama4 has a shared expert
+    # --- SSM (Mamba-2 / SSD) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    ssm_conv_width: int = 4
+    # --- hybrid (Zamba2-style): one *shared* attention block every k SSM blocks
+    attn_every: int = 0
+    # --- attention locality ---
+    sliding_window: int = 0       # 0 = full attention
+    # --- encoder/decoder (Whisper) ---
+    encoder_layers: int = 0
+    encoder_seq: int = 1500       # stub audio frontend: #frames after conv
+    # --- VLM (Pixtral): stub vision frontend
+    num_patches: int = 0          # patch embeddings prepended to text
+    # --- beyond-paper performance knobs ---
+    attn_seq_shard: bool = False   # context-parallel attention core in the
+    #   reference's sharded runs; kept so configs carry across, unused on
+    #   the port's one device
+    moe_local_dispatch: bool = False  # MoE dispatch within each batch row
+    head_pad_to: int = 0           # pad query heads to this count with
+    #   zero-masked (permanently inert) heads; mathematically identical
+    #   outputs, ~heads_pad/heads extra attention FLOPs
+    # --- numerics ---
+    dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
+    # --- citation (model card / arXiv that fixes the shape) ---
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.num_heads, 1)
+
+    @property
+    def ssm_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_inner // self.ssm_head_dim
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic serve path exists (SSM state or sliding window)."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window > 0
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """A smoke-test-sized variant of the same family (<=2 layers etc.)."""
+        small = dict(
+            num_layers=2,
+            d_model=min(self.d_model, 256),
+            num_heads=min(self.num_heads, 4) if self.num_heads else 0,
+            num_kv_heads=min(self.num_kv_heads, 2) if self.num_kv_heads else 0,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            head_dim=64 if self.num_heads else 0,
+            num_experts=min(self.num_experts, 4) if self.num_experts else 0,
+            experts_per_token=min(self.experts_per_token, 2)
+            if self.experts_per_token else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_chunk=64 if self.ssm_state else 256,
+            encoder_layers=2 if self.encoder_layers else 0,
+            encoder_seq=32 if self.encoder_layers else 1500,
+            num_patches=8 if self.num_patches else 0,
+            attn_every=2 if self.attn_every else 0,
+            sliding_window=min(self.sliding_window, 64)
+            if self.sliding_window else 0,
+            dtype="float32",
+            param_dtype="float32",
+        )
+        small.update(overrides)
+        return dataclasses.replace(self, **small)
+
 
 # ---------------------------------------------------------------------------
 # Federated learning (the paper's knobs)

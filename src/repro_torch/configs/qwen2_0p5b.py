@@ -1,0 +1,10 @@
+"""qwen2-0.5b [dense] — GQA (kv=2) with QKV bias. [arXiv:2407.10671]"""
+from repro_torch.config import ModelConfig
+
+MODEL = ModelConfig(
+    name="qwen2-0.5b", family="dense",
+    num_layers=24, d_model=896, num_heads=14, num_kv_heads=2,
+    d_ff=4864, vocab_size=151936, head_dim=64, qkv_bias=True,
+    tie_embeddings=True, rope_theta=1000000.0,
+    source="arXiv:2407.10671",
+)

@@ -2,6 +2,8 @@
 wrapper and the ground truth its kernel is held against on the card."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -72,3 +74,84 @@ def cold_decode_ref(q: torch.Tensor, scale: torch.Tensor, codec: str,
         out[:, off:off + size] = (q[:, off:off + size].to(torch.float32)
                                   * scale[:, j][:, None])
     return out
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Plain version of ``kernels.flash_attention.flash_attention``: direct
+    softmax attention in f32. q: (BH, Sq, D), k/v: (BH, Sk, D), kv heads
+    already expanded; masked scores are -1e30. Returns q's dtype."""
+    D = q.shape[-1]
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    diff = q_pos[:, None] - k_pos[None, :]
+    ok = torch.ones(diff.shape, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= diff >= 0
+    if window > 0:
+        ok &= diff < window
+    s = torch.where(ok[None], s, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32)).to(q.dtype)
+
+
+def flash_attention_bshd_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: int = 0,
+                             q_offset: int = 0) -> torch.Tensor:
+    """Plain version of ``kernels.flash_attention.flash_attention_bshd``
+    (the reference's GQA adapter): q (B, Sq, H, D), k/v (B, Sk, Hkv, D);
+    kv heads repeated, heads folded into the batch, back to (B, Sq, H,
+    D)."""
+    B, Sq, H, D = q.shape
+    rep = H // k.shape[2]
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    qt = q.transpose(1, 2).reshape(B * H, Sq, D)
+    kt = k.transpose(1, 2).reshape(B * H, -1, D)
+    vt = v.transpose(1, 2).reshape(B * H, -1, D)
+    o = flash_attention_ref(qt, kt, vt, causal=causal, window=window,
+                            q_offset=q_offset)
+    return o.reshape(B, H, Sq, D).transpose(1, 2)
+
+
+def ssd_intra_chunk_ref(x: torch.Tensor, a_t: torch.Tensor,
+                        Bc: torch.Tensor, Cc: torch.Tensor,
+                        dtc: torch.Tensor):
+    """Plain version of ``kernels.ssd_scan.ssd_intra_chunk``. x: (BK, H,
+    C, P); a_t/dtc: (BK, H, C); Bc/Cc: (BK, C, N). Returns (y_intra (BK,
+    H, C, P) f32, states (BK, H, N, P) f32)."""
+    f32 = torch.float32
+    xf, a, Bf, Cf, dt = (t.to(f32) for t in (x, a_t, Bc, Cc, dtc))
+    C = x.shape[2]
+    cum = torch.cumsum(a, dim=-1)                        # (BK,H,C)
+    diff = cum[..., :, None] - cum[..., None, :]         # (BK,H,C,C)
+    mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=x.device))
+    L = torch.where(mask, torch.exp(diff), torch.zeros((), device=x.device))
+    scores = torch.einsum("bin,bjn->bij", Cf, Bf)        # (BK,C,C)
+    att = scores[:, None] * L * dt[..., None, :]         # (BK,H,C,C)
+    y = torch.einsum("bhij,bhjp->bhip", att, xf)
+    decay_end = torch.exp(cum[..., -1:] - cum)           # (BK,H,C)
+    states = torch.einsum("bjn,bhjp->bhnp", Bf,
+                          (decay_end * dt)[..., None] * xf)
+    return y, states
+
+
+def ssd_intra_fn_ref(xc: torch.Tensor, a_t: torch.Tensor, Bc: torch.Tensor,
+                     Cc: torch.Tensor, dtc: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``kernels.ssd_scan.make_intra_fn``'s adapter (the
+    reference's): xc (B,K,C,H,P), a_t (B,K,H,C), Bc/Cc (B,K,C,N), dtc
+    (B,K,C,H) -> y_intra (B,K,C,H,P) f32."""
+    B, K, C, H, P = xc.shape
+    N = Bc.shape[-1]
+    y, _ = ssd_intra_chunk_ref(
+        xc.permute(0, 1, 3, 2, 4).reshape(B * K, H, C, P),
+        a_t.reshape(B * K, H, C), Bc.reshape(B * K, C, N),
+        Cc.reshape(B * K, C, N),
+        dtc.permute(0, 1, 3, 2).reshape(B * K, H, C))
+    return y.reshape(B, K, H, C, P).permute(0, 1, 3, 2, 4)
