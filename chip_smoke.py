@@ -7,20 +7,30 @@ Phases, each reported on its own lines; any failure exits non-zero:
 
 1. build      — compile every CUDA kernel source from
                  ``src/repro_torch/kernels/csrc`` for sm_90a and print
-                 the card's name and power limit.
+                 the card's name and power limit, then ptxas's
+                 registers, shared memory and spills for every kernel
+                 instantiation of ``gossip_mix`` and ``flash_attention``
+                 (and any ptxas warning).
 2. kernels    — hold each kernel against its plain PyTorch version on
                  the card, then time kernel, plain version and (where
                  one exists) one library call:
                  ``gossip_mix`` at the reference sweep shapes (in place
-                 and out, f32 and bf16) and at the main path's shapes;
+                 and out, f32 and bf16), at n = 64 with T at 0, 1, 2 and
+                 3 mod 4 (in place, 8 bytes off an aligned address, and
+                 the 8 x 64 projection; f32 and bf16), and at the main
+                 path's shapes;
                  the cold codec (int8 and f16, encode and decode) at the
                  reference's codec rows and at the streamed slab's
                  (64, 6,603,710) FEMNIST-CNN shape, bit for bit, plus 8
                  full-width rows against the host numpy codec; the
                  blocked int8 quantizer on the codec's kernel.
-                 Then flash attention (B4) over the reference's sweep
-                 and at the Zamba2 prefill shape (2 x 4096 tokens, 32
-                 heads of 80, bf16, causal, in the model's layout), and
+                 Then flash attention (B4) over the reference's sweep,
+                 at D = 80 through the GQA adapter (strided views of one
+                 fused projection, ragged Sq and Sk, a window, a
+                 q_offset), its refusal of the bf16 layouts its tensor
+                 maps cannot describe (D = 72, a 2-byte offset, a
+                 stride-0 axis), and at the Zamba2 prefill shape (2 x
+                 4096 tokens, 32 heads of 80, bf16, causal), and
                  the SSD intra-chunk block (B5, both outputs) over the
                  reference's sweep and at the prefill shape (32 chunks of
                  256, 80 heads, P = N = 64); each timed beside its plain
@@ -96,6 +106,8 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 #: 2.0e-6 on momentum: f32 sums in different orders)
 PARITY_ATOL = 1e-5
 SWEEP = ((8, 5000), (16, 4096), (64, 1000), (4, 123))
+#: bank widths at 0, 1, 2 and 3 mod 4
+RESIDUE_T = (200_000, 200_001, 200_002, 200_003)
 FEMNIST_T = 6_603_710
 #: the reference's codec rows (tests/test_kernels.py): irregular segments
 CODEC_SEGMENTS = ((0, 100), (100, 37), (137, 263))
@@ -202,6 +214,57 @@ def phase_build() -> None:
             f"{max(spills, default=0)} bytes)")
     log(f"[build] {len(paths)} source(s) in "
         f"{time.perf_counter() - t0:.1f} s; card: {card_line()}")
+    for name in PTXAS_DETAIL:
+        for line in ptxas_report(_build.BUILD_LOGS.get(name, "")):
+            log(f"[build] {name}: {line}")
+
+
+#: sources whose ptxas report is printed per kernel instantiation
+PTXAS_DETAIL = ("gossip_mix", "flash_attention")
+
+
+def _demangle(name: str) -> str:
+    """A kernel's C++ name with its template arguments (c++filt where
+    the toolchain has it), without the anonymous namespace and the
+    parameter list."""
+    try:
+        name = subprocess.run(["c++filt", name], capture_output=True,
+                              text=True, timeout=10).stdout.strip() or name
+    except (OSError, subprocess.SubprocessError):
+        pass
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0]
+
+
+def ptxas_report(text: str) -> list:
+    """One line per kernel instantiation of a ptxas -v log: registers,
+    shared memory, stack and spills; then ptxas's warnings (a setmaxnreg
+    it ignored, wgmma it serialised)."""
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"name": m.group(1)}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_st"], cur["spill_ld"] = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(
+                f"{_demangle(cur['name'])}: {m.group(1)} registers, "
+                f"{smem.group(1) if smem else 0} bytes static smem, stack "
+                f"{cur.get('stack', '?')} B, spill stores "
+                f"{cur.get('spill_st', '?')} B, loads "
+                f"{cur.get('spill_ld', '?')} B")
+            cur = None
+    out += [ln.strip() for ln in text.splitlines()
+            if "warning" in ln.lower()]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +296,41 @@ def phase_kernels(dev: torch.device) -> dict:
             log(f"[kernels] gossip_mix n={n} T={T} {str(dtype)[6:]}: "
                 f"flat max_abs_err={e1:.3e} rows-in-place "
                 f"max_abs_err={e2:.3e} (tol {tol})")
+
+    # every residue of T mod 4 at n = 64 (the copy width follows T's
+    # alignment: the paper models' T are 2 mod 4), in place and as the
+    # (8, 64) projection, and a bank 8 bytes past an aligned address
+    worst = {dt: 0.0 for dt in TOL}
+    for T in RESIDUE_T:
+        for dtype, tol in TOL.items():
+            Y = torch.from_numpy(rng.standard_normal((64, T)).astype(
+                np.float32)).to(dev, dtype)
+            Wr = torch.from_numpy(_stochastic(rng, 64, 64, 1)).to(dev)
+            P = torch.from_numpy(_stochastic(rng, 8, 64, 1)).to(dev)
+            exp, pexp = (ref.gossip_mix_rows_ref(Wr, Y),
+                         ref.gossip_mix_rows_ref(P, Y))
+            worst[dtype] = max(worst[dtype], max_err(
+                gm.gossip_mix_rows(P, Y), pexp, tol,
+                f"projection 8x64 T={T} {dtype}"))
+            Yi = Y.clone()
+            got = gm.gossip_mix_rows(Wr, Yi)
+            assert got.data_ptr() == Yi.data_ptr(), "square W not in place"
+            worst[dtype] = max(worst[dtype], max_err(
+                got, exp, tol, f"rows in place 64x64 T={T} {dtype}"))
+            # the same bank one f32 (two bf16) past an aligned address
+            Ys = torch.empty(64 * T + 2, dtype=dtype, device=dev)[2:]
+            Ys.copy_(Y.flatten())
+            Ys = Ys.view(64, T)
+            worst[dtype] = max(worst[dtype], max_err(
+                gm.gossip_mix_rows(Wr, Ys), exp, tol,
+                f"rows in place 64x64 T={T} {dtype}, offset bank"))
+    log(f"[kernels] gossip_mix n=64 at T mod 4 = 0..3 (T "
+        f"{', '.join(map(str, RESIDUE_T))}), in place, offset and 8x64 "
+        f"projection: max abs err f32 {worst[torch.float32]:.3e}, bf16 "
+        f"{worst[torch.bfloat16]:.3e} (tol {TOL[torch.float32]}, "
+        f"{TOL[torch.bfloat16]}); copy widths "
+        f"{[gm.copy_bytes(T, 4, 0) for T in RESIDUE_T]} B (f32), "
+        f"{[gm.copy_bytes(T, 2, 0) for T in RESIDUE_T]} B (bf16)")
 
     # the main path's shapes: the (64, 64) boundary in place, and the
     # (8, 64) edge-model projection
@@ -282,7 +380,8 @@ def phase_kernels(dev: torch.device) -> dict:
     return {"name": "gossip_mix", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gossip_mix.cu",
             "replaces": "src/repro/kernels/gossip_mix.py:50",
-            "launches": 0, "max_abs_err": max(err_sq, err_in, err_p),
+            "launches": 0,
+            "max_abs_err": max(err_sq, err_in, err_p, *worst.values()),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms}
 
@@ -815,16 +914,21 @@ def _bound(nbytes: float, flops: float, peak: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def _refused(fn, what: str) -> None:
-    """Raises unless ``fn()`` raises the wrapper's launch error: a bf16
-    layout that the tensor-core kernel cannot take runs nowhere else."""
+def _refused(fn, what: str, counter=None) -> None:
+    """Raises unless ``fn()`` raises the wrapper's refusal (its layout
+    check, or the launcher's error) and launches nothing: a bf16 layout
+    that the tensor-core kernel cannot take runs nowhere else.
+    ``counter`` reads the wrapper's launch count."""
+    before = counter() if counter else None
     try:
         fn()
-    except RuntimeError as e:
-        if "launch failed" not in str(e):
+    except (RuntimeError, ValueError) as e:
+        if "launch failed" not in str(e) and "does not take" not in str(e):
             raise
     else:
         raise AssertionError(f"{what}: launched, want it refused")
+    if counter and counter() != before:
+        raise AssertionError(f"{what}: refused, but counted a launch")
 
 
 def phase_flash_attention(dev: torch.device) -> dict:
@@ -862,16 +966,47 @@ def phase_flash_attention(dev: torch.device) -> dict:
         f"GQA adapter): max abs err f32 {worst[torch.float32]:.3e} (tol "
         f"{FA_TOL[torch.float32]}), bf16 {worst[torch.bfloat16]:.3e} (tol "
         f"{FA_TOL[torch.bfloat16]})")
+    # the Zamba2 head size through the GQA adapter: ragged Sq and Sk (not
+    # multiples of the 128-row block or the 128-key tile), a window, a
+    # q_offset, and q, k, v as views of one fused projection (strided)
+    for dt, tol in FA_TOL.items():
+        fused = torch.randn((2, 328, 12, 80), device=dev, generator=gen
+                            ).to(dt)
+        k, v = fused[:, :, 8:10], fused[:, :, 10:]
+        for Sq, causal, window, off in ((200, True, 0, 128),
+                                        (200, True, 96, 64),
+                                        (328, True, 0, 0),
+                                        (70, False, 0, 0)):
+            q = fused[:, :Sq, :8]
+            worst[dt] = max(worst[dt], max_err(
+                fa.flash_attention_bshd(q, k, v, causal=causal,
+                                        window=window, q_offset=off),
+                ref.flash_attention_bshd_ref(q, k, v, causal=causal,
+                                             window=window, q_offset=off),
+                tol, f"flash_attention_bshd D=80 GQA 8/2 Sq={Sq} Sk=328 "
+                f"causal={causal} window={window} q_offset={off} {dt}",
+                rtol=0))
+    log(f"[kernels] flash_attention D=80 through the GQA adapter (strided "
+        f"views, ragged Sq 200/70 and Sk 328, window 96, q_offset 64/128): "
+        f"max abs err so far f32 {worst[torch.float32]:.3e}, bf16 "
+        f"{worst[torch.bfloat16]:.3e}")
+    count = lambda: fa.launches  # noqa: E731
     q = torch.randn((1, 64, 2, 72), device=dev, generator=gen).to(
         torch.bfloat16)
     _refused(lambda: fa.flash_attention_bshd(q, q, q), "flash_attention "
-             "bf16 D=72")
+             "bf16 D=72", count)
     q = torch.randn(64 * 64 + 1, device=dev, generator=gen).to(
         torch.bfloat16)[1:].view(1, 64, 1, 64)
     _refused(lambda: fa.flash_attention_bshd(q, q, q), "flash_attention "
-             "bf16 at a 2-byte offset")
-    log("[kernels] flash_attention refuses bf16 at D=72 and at a 2-byte "
-        "offset (no CUDA-core bf16 kernel)")
+             "bf16 at a 2-byte offset", count)
+    q = torch.randn((2, 64, 2, 64), device=dev, generator=gen).to(
+        torch.bfloat16)
+    kx = q[:1].expand(2, 64, 2, 64)
+    _refused(lambda: fa.flash_attention_bshd(q, kx, kx), "flash_attention "
+             "bf16 with an expanded (stride-0) batch axis", count)
+    log("[kernels] flash_attention refuses bf16 at D=72, at a 2-byte "
+        "offset and with a stride-0 axis (the TMA kernel's maps cannot "
+        "describe them; no other bf16 kernel)")
 
     # the prefill's shape, in the model's (B, S, H, D) layout
     B, S, H, D = LM_BATCH, LM_SEQ, 32, 80

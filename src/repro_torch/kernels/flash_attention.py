@@ -3,7 +3,7 @@
 The full-sequence forward (``models.layers.attention_core``) runs its
 attention here on a CUDA tensor: one launch of ``csrc/flash_attention.cu``
 (a hand-written Hopper kernel, built for ``sm_90a``) per attention call,
-an online softmax over 64-key tiles that never forms the S x S scores.
+an online softmax over key tiles that never forms the S x S scores.
 It replaces the Pallas TPU kernel ``repro.kernels.flash_attention``
 ``flash_attention`` and its GQA adapter ``ops.flash_attention_bshd``.
 
@@ -17,9 +17,13 @@ It replaces the Pallas TPU kernel ``repro.kernels.flash_attention``
 Masking follows the reference: causal, a sliding ``window`` (0 = none)
 and a ``q_offset`` for the query positions; masked scores are -1e30.
 Inputs are f32 or bf16; sums and the softmax run in f32 and the output
-has q's dtype. bf16 runs on the tensor cores and takes only a head size
-that is a multiple of 16, 16-byte aligned tensors and strides that are
-multiples of 8 elements; the launch of any other bf16 layout raises.
+has q's dtype. f32 runs on the CUDA cores. bf16 runs on the tensor cores
+(``wgmma``) fed by TMA over 4-D tensor maps of the (B, S, H, D) layout,
+and takes only the layouts :func:`bf16_refusal` passes: a head size that
+is a multiple of 16, 16-byte aligned tensors, and strides that are
+positive multiples of 8 elements on every axis longer than 1 (an
+expanded, stride-0 axis is refused). Any other bf16 layout raises; no
+other kernel takes it.
 
 On a CPU tensor each wrapper takes its plain version
 (:mod:`repro_torch.kernels.ref`). On a CUDA tensor it launches the
@@ -58,6 +62,26 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def bf16_refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 out: torch.Tensor) -> str | None:
+    """Why the bf16 kernel cannot take these (B, S, H, D) tensors, or None
+    when it can: its TMA tensor maps need D a multiple of 16, 16-byte
+    aligned base pointers and, on every axis longer than 1, a stride that
+    is a positive multiple of 8 elements (16 bytes)."""
+    D = q.shape[-1]
+    if D % 16:
+        return f"a head size of {D} (not a multiple of 16)"
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.data_ptr() % 16:
+            return f"{name} at an address that is not 16-byte aligned"
+        for axis in range(3):
+            st = t.stride(axis)
+            if t.shape[axis] > 1 and (st <= 0 or st % 8):
+                return (f"{name} with stride {st} on axis {axis} (not a "
+                        f"positive multiple of 8 elements)")
+    return None
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out: torch.Tensor, causal: bool, window: int,
             q_offset: int) -> None:
@@ -87,6 +111,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{MAX_HEAD_DIM}, H a multiple of Hkv, q_offset "
                          f">= 0 and B*H <= 65535; got q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, q_offset {q_offset}")
+    if q.dtype == torch.bfloat16:
+        why = bf16_refusal(q, k, v, out)
+        if why is not None:
+            raise ValueError(f"flash_attention: the bf16 kernel does not "
+                             f"take {why}")
     dims = [B, H, Hkv, Sq, Sk, D, int(causal), int(window), int(q_offset)]
     for t in (q, k, v, out):
         dims += [t.stride(0), t.stride(1), t.stride(2)]
@@ -100,9 +129,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc} (q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)} {q.dtype}; bf16 takes only "
-                           f"D a multiple of 16, 16-byte aligned tensors "
-                           f"and strides that are multiples of 8)")
+                           f"{tuple(k.shape)} {q.dtype})")
     launches += 1
 
 

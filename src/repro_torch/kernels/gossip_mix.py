@@ -3,9 +3,11 @@
 Every aggregation boundary of eq. 10/11 applies a mixing operator W over
 the device axis of the bank Y, which stacks the n device models row-wise.
 One pass of ``csrc/gossip_mix.cu`` (a hand-written Hopper kernel, built
-for ``sm_90a``) reads each column tile of the bank once and writes it
-once; it replaces the Pallas TPU kernel ``repro.kernels.gossip_mix``
-``gossip_mix_flat``.
+for ``sm_90a``: a persistent pass whose producer warpgroup stages tiles
+with ``cp.async`` while two warpgroups run TF32 ``wgmma`` products split
+three ways to hold f32 accuracy) reads each column tile of the bank once
+and writes it once; it replaces the Pallas TPU kernel
+``repro.kernels.gossip_mix`` ``gossip_mix_flat``.
 
 Two call conventions, as in the reference:
 
@@ -40,7 +42,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 #: largest n (input rows) and k (output rows) the CUDA kernel takes; the
-#: shared-memory copy of W is n × 64 f32 (16 KB at the limit)
+#: shared-memory copy of W is 64 x 64 f32, hi and lo (32 KB)
 MAX_ROWS = 64
 #: Y dtypes the kernel takes, with their code in the C interface
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,9 +59,26 @@ def _library() -> ctypes.CDLL:
     fn = lib.gossip_mix_rows_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+def copy_bytes(ncols: int, itemsize: int, ptr: int) -> int:
+    """Width of one global-to-shared copy of the kernel: the widest of
+    16, 8, 4 and 2 bytes that divides a row of ``ncols`` elements of
+    ``itemsize`` bytes and the address ``ptr`` (of the bank and the
+    output alike), and holds whole elements. A bank row starts only as
+    aligned as T allows: the FEMNIST CNN's T = 6,603,710 is 2 mod 4, so
+    its f32 rows take 8-byte copies and its bf16 rows 4-byte ones; an
+    odd T at bf16 takes 2 (through registers: ``cp.async`` copies at
+    least 4)."""
+    for width in (16, 8, 4, 2):
+        if width >= itemsize and (ncols * itemsize) % width == 0 and \
+                ptr % width == 0:
+            return width
+    raise ValueError(f"gossip_mix: no copy width fits rows of {ncols} x "
+                     f"{itemsize} bytes at address {ptr}")
 
 
 def _as_operator(W, device: torch.device) -> torch.Tensor:
@@ -95,9 +114,12 @@ def _launch(Wr: torch.Tensor, Y: torch.Tensor, out: torch.Tensor) -> None:
     lib = _library()
     with torch.cuda.device(Y.device):
         stream = torch.cuda.current_stream(Y.device).cuda_stream
+        # the OR of the two addresses is as aligned as the less aligned
+        width = copy_bytes(Y.shape[1], Y.element_size(),
+                           Y.data_ptr() | out.data_ptr())
         rc = lib.gossip_mix_rows_launch(
             Wr.data_ptr(), Y.data_ptr(), out.data_ptr(), n, k, Y.shape[1],
-            _DTYPE_CODE[Y.dtype], stream)
+            _DTYPE_CODE[Y.dtype], width, stream)
     if rc != 0:
         raise RuntimeError(f"gossip_mix kernel launch failed: CUDA error "
                            f"{rc} (W {tuple(Wr.shape)}, Y "

@@ -230,3 +230,128 @@ def test_stack_round_trip():
     for a, b in zip(tr.tree_leaves(layout.unflatten_stack(Y)),
                     tr.tree_leaves(stacked)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the card kernel's arithmetic, emulated in plain torch
+# ---------------------------------------------------------------------------
+
+def _tf32_rna(x):
+    """``cvt.rna.tf32.f32``: f32 rounded to 10 mantissa bits, ties away
+    from zero (add half an ulp of TF32 to the magnitude, then mask)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """What the tensor core reads of an f32 operand in TF32: the top 10
+    mantissa bits (the low 13 ignored)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _kernel_rows(W, Y):
+    """out = W @ Y as ``csrc/gossip_mix.cu`` computes it: W and f32 Y
+    split x = x_hi + x_lo with x_hi = x rounded to TF32, products
+    W_hi·Y_hi + W_hi·Y_lo + W_lo·Y_hi on TF32 operands (bf16 Y is exact
+    in TF32: W_hi·Y + W_lo·Y), every product exact and summed in f64 here
+    (f32 on the card), rounded to Y's dtype."""
+    W = torch.as_tensor(W, dtype=torch.float32)
+    wh = _tf32_rna(W)
+    wl = _tf32_trunc(W - wh)
+    y = Y.to(torch.float32)
+    yh = _tf32_rna(y)
+    yl = _tf32_trunc(y - yh)
+    if Y.dtype == torch.bfloat16:
+        assert torch.equal(yh, y)  # exact: bf16 has 7 mantissa bits
+        parts = ((wh, y), (wl, y))
+    else:
+        parts = ((wh, yh), (wh, yl), (wl, yh))
+    out = sum(a.double() @ b.double() for a, b in parts)
+    return out.to(Y.dtype)
+
+
+def test_tf32_helpers():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
+                      -1.0 - 2.0 ** -11, 1.0 + 2.0 ** -12],
+                     dtype=torch.float32)
+    np.testing.assert_array_equal(
+        _tf32_rna(x).numpy(), np.float32([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                                          -1.0 - 2.0 ** -10, 1.0]))
+    np.testing.assert_array_equal(_tf32_trunc(x).numpy(),
+                                  np.float32([1.0, 1.0, -1.0, 1.0]))
+    # a single rounding loses up to 2^-11; the split keeps about 2^-21
+    rng = np.random.default_rng(0)
+    v = torch.from_numpy(rng.standard_normal(10000).astype(np.float32))
+    hi = _tf32_rna(v)
+    assert float(((v - hi) / v).abs().max()) > 2.0 ** -13
+    assert float(((hi + _tf32_trunc(v - hi) - v) / v).abs().max()) \
+        <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("n,T", [(8, 5000), (16, 4096), (64, 1000),
+                                 (4, 123)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_arithmetic_matches_reference_oracle(n, T, dtype):
+    """The split TF32 products of the card kernel against the reference's
+    ``kernels/ref.py`` oracle, run through JAX on the CPU, at the kernel
+    sweep's tolerances (1e-5 f32, 5e-2 bf16): square and in place, and
+    the flat (column) convention."""
+    from repro.kernels import ref as rref
+    rng = np.random.default_rng(n * 11 + T)
+    W = rng.uniform(size=(n, n)).astype(np.float32)
+    W /= W.sum(1, keepdims=True)
+    Yj, Yt = _bank(rng, n, T, dtype)
+    _close(_kernel_rows(W, Yt), rref.gossip_mix_rows_ref(jnp.asarray(W), Yj),
+           TOL[dtype])
+    _close(_kernel_rows(W.T, Yt), rref.gossip_mix_ref(jnp.asarray(W), Yj),
+           TOL[dtype])
+
+
+def test_kernel_arithmetic_at_the_main_shape_width():
+    """The 64x64 boundary and the (8, 64) projection over a slice of a
+    bank scaled as the FEMNIST CNN's weights may grow (|y| up to 50):
+    the three-pass split stays within 1e-5 + 1e-5·|out|, where one TF32
+    pass would not."""
+    from repro.kernels import ref as rref
+    rng = np.random.default_rng(3)
+    n = 64
+    W = rng.uniform(size=(n, n)).astype(np.float32)
+    W /= W.sum(1, keepdims=True)
+    P = np.kron(np.eye(8), np.full((1, 8), 1 / 8)).astype(np.float32)
+    y = (rng.standard_normal((n, 4096)) * 10).astype(np.float32)
+    for op in (W, P):
+        exp = np.asarray(rref.gossip_mix_rows_ref(jnp.asarray(op),
+                                                  jnp.asarray(y)))
+        got = _kernel_rows(op, torch.from_numpy(y)).numpy()
+        np.testing.assert_allclose(got, exp, atol=1e-5, rtol=1e-5)
+        one_pass = (_tf32_rna(torch.from_numpy(op)).double()
+                    @ _tf32_rna(torch.from_numpy(y)).double()).numpy()
+        assert np.abs(one_pass - exp).max() > 1e-3
+
+
+@pytest.mark.parametrize("T,itemsize,ptr,want", [
+    (6_603_710, 4, 0, 8),    # FEMNIST CNN, f32: T = 2 mod 4
+    (9_750_922, 4, 0, 8),    # VGG-11, f32: T = 2 mod 4
+    (6_603_710, 2, 0, 4),    # FEMNIST CNN, bf16
+    (4096, 4, 0, 16), (4096, 2, 0, 16), (5000, 4, 0, 16), (5000, 2, 0, 16),
+    (1000, 4, 0, 16), (1000, 2, 0, 16), (1001, 4, 0, 4), (123, 4, 0, 4),
+    (123, 2, 0, 2), (4099, 4, 0, 4), (4098, 2, 0, 4), (4097, 2, 0, 2),
+    (4096, 4, 8, 8), (4096, 4, 4, 4), (4096, 2, 2, 2), (4096, 2, 12, 4),
+])
+def test_copy_width_follows_row_and_pointer_alignment(T, itemsize, ptr,
+                                                      want):
+    assert tgm.copy_bytes(T, itemsize, 256 + ptr) == want
+
+
+def test_copy_width_at_every_residue():
+    """T at 0, 1, 2 and 3 mod 4 (and bf16 to 7 mod 8): a copy never
+    straddles a row's end (the width divides the row), holds whole
+    elements, and is the widest that does."""
+    for itemsize in (4, 2):
+        for T in range(4000, 4016):
+            w = tgm.copy_bytes(T, itemsize, 0)
+            assert (T * itemsize) % w == 0 and w >= itemsize
+            assert w == max(b for b in (16, 8, 4, 2)
+                            if b >= itemsize and (T * itemsize) % b == 0)
+    with pytest.raises(ValueError):
+        tgm.copy_bytes(8, 4, 2)
