@@ -9,8 +9,7 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  ``src/repro_torch/kernels/csrc`` for sm_90a and print
                  the card's name and power limit, then ptxas's
                  registers, shared memory and spills for every kernel
-                 instantiation of ``gossip_mix`` and ``flash_attention``
-                 (and any ptxas warning).
+                 instantiation of every source (and any ptxas warning).
 2. kernels    — hold each kernel against its plain PyTorch version on
                  the card, then time kernel, plain version and (where
                  one exists) one library call:
@@ -22,8 +21,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  the cold codec (int8 and f16, encode and decode) at the
                  reference's codec rows and at the streamed slab's
                  (64, 6,603,710) FEMNIST-CNN shape, bit for bit, plus 8
-                 full-width rows against the host numpy codec; the
-                 blocked int8 quantizer on the codec's kernel.
+                 full-width rows against the host numpy codec; int8
+                 rows with segments at the encode's one-block threshold,
+                 one past it, and one too wide for the grid to hold on
+                 chip; the blocked int8 quantizer on the codec's kernel.
                  Then flash attention (B4) over the reference's sweep,
                  at D = 80 through the GQA adapter (strided views of one
                  fused projection, ragged Sq and Sk, a window, a
@@ -32,8 +33,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  stride-0 axis), and at the Zamba2 prefill shape (2 x
                  4096 tokens, 32 heads of 80, bf16, causal), and
                  the SSD intra-chunk block (B5, both outputs) over the
-                 reference's sweep and at the prefill shape (32 chunks of
-                 256, 80 heads, P = N = 64); each timed beside its plain
+                 reference's sweep, its refusal of a misaligned bf16 x,
+                 and at the prefill shape (32 chunks of 256, 80 heads,
+                 P = N = 64), also through both adapters of ``ssd_chunked``
+                 (y only; y and the chunk states) in the model's strided
+                 layout; each timed beside its plain
                  version (and B4 beside one
                  ``scaled_dot_product_attention`` call).
 3. main       — the paper's FEMNIST experiment (``configs/femnist_cnn``:
@@ -220,7 +224,7 @@ def phase_build() -> None:
 
 
 #: sources whose ptxas report is printed per kernel instantiation
-PTXAS_DETAIL = ("gossip_mix", "flash_attention")
+PTXAS_DETAIL = ("gossip_mix", "flash_attention", "ssd_scan", "cold_codec")
 
 
 def _demangle(name: str) -> str:
@@ -512,6 +516,27 @@ def phase_codec(dev: torch.device):
                 "library_ms": None}
         del q, s
 
+    # int8 rows whose segments sit at the encode's one-block threshold
+    # (one block), one past it (two slices held at once), and one segment
+    # too wide for the grid to hold on chip (two rounds: maxima, codes)
+    edge = ((0, 7), (7, cc.SLICE), (7 + cc.SLICE, cc.SLICE + 1),
+            (8 + 2 * cc.SLICE, 5))
+    E = torch.randn((5, sum(n for _, n in edge)), device=dev, generator=gen)
+    E[2, 7:7 + cc.SLICE] = 0.0
+    q, s, _, _ = _check_codec(E, "int8", edge, "threshold rows")
+    host = compress.encode_cold_rows(E.cpu().numpy(), "int8", edge)
+    assert np.array_equal(q.cpu().numpy(), host["q"]) and \
+        np.array_equal(s.cpu().numpy(), host["scale"]), \
+        "threshold rows: the card differs from the host codec"
+    wide = cc._library().cold_encode_int8_grid() * cc.SLICE + 1
+    W = torch.randn((2, wide), device=dev, generator=gen)
+    _check_codec(W, "int8", ((0, wide),), "rows of one wide segment")
+    log(f"[kernels] cold_codec int8 with segments of {cc.SLICE} (one "
+        f"block) and {cc.SLICE + 1} columns (two slices on chip), and of "
+        f"{wide:,} columns (two rounds): bit-equal to the plain version "
+        f"and the host codec")
+    del E, W, q, s
+
     # B3: the blocked quantizer on the codec's kernel, over one slab row
     x = X[0].clone()
     codes, scales = qz.quantize_int8_blocked(x)
@@ -788,9 +813,9 @@ def phase_population(dev: torch.device, rounds: int = 3):
         # streamed evaluation reads the references: no projection launch
         assert launches[0] == rounds * fl.q, launches
         if pipeline:
-            # a decode in pre and an int8 encode (absmax + quantize) in
-            # post, every round
-            assert launches[1:] == (2 * rounds, rounds), launches
+            # a decode in pre and an int8 encode (one launch) in post,
+            # every round
+            assert launches[1:] == (rounds, rounds), launches
         else:
             assert launches[1:] == (0, 0), launches
         results[name] = (_global_row(sim), times, launches)
@@ -1104,8 +1129,14 @@ def phase_ssd_scan(dev: torch.device) -> dict:
     args = (xc, a_t, Bv.reshape(Bsz, K, C, N), Cv.reshape(Bsz, K, C, N), dtc)
     err = max(err, max_err(ss.make_intra_fn()(*args),
                            ref.ssd_intra_fn_ref(*args), SSD_PATH_TOL,
-                           "ssd_intra_chunk adapter, prefill layout"))
-    del xBC, xv, Bv, Cv, xc, dtc, a_t, args
+                           "ssd_intra_chunk y adapter, prefill layout"))
+    got, exp = ss.make_intra_states_fn()(*args), \
+        ref.ssd_intra_states_fn_ref(*args)
+    err = max(err, *(max_err(o, e, SSD_PATH_TOL,
+                             f"ssd_intra_chunk states adapter {what}, "
+                             f"prefill layout")
+                     for o, e, what in zip(got, exp, ("y", "states"))))
+    del xBC, xv, Bv, Cv, xc, dtc, a_t, args, got, exp
     torch.cuda.empty_cache()
     ms = time_ms(lambda: ss.ssd_intra_chunk(x, a, Bm, Cm, d))
     plain_ms = time_ms(lambda: ref.ssd_intra_chunk_ref(x, a, Bm, Cm, d),
@@ -1120,10 +1151,11 @@ def phase_ssd_scan(dev: torch.device) -> dict:
     b_ms, b_by = _bound(nbytes, flops, BF16_FLOPS)
     log(f"[kernels] ssd_intra_chunk prefill shape (BK={BK}, H={H}, C={C}, "
         f"P={P}, N={N}; x/B/C bf16, a/dt f32): max abs err {err:.3e} (tol "
-        f"{SSD_PATH_TOL}, y, states and the strided adapter); {ms:.4f} ms "
-        f"(plain {plain_ms:.4f}, bound {b_ms:.4f} by {b_by}: "
-        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP; no single library "
-        f"call computes it)")
+        f"{SSD_PATH_TOL}, y, states and both strided adapters); {ms:.4f} ms "
+        f"(the earlier kernel, one block a chunk and head: 0.362 on an H100 "
+        f"80GB HBM3 at 700 W; plain {plain_ms:.4f}, bound {b_ms:.4f} by "
+        f"{b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP; no single "
+        f"library call computes it)")
     del x, a, Bm, Cm, d
     torch.cuda.empty_cache()
     return {"name": "ssd_intra_chunk", "route": "cuda",

@@ -14,9 +14,12 @@ even, clip to ±127; f16 is the IEEE cast and f32 the identity.
 One hand-written Hopper kernel source, ``csrc/cold_codec.cu`` (built for
 ``sm_90a``), replaces the Pallas TPU kernels of
 ``repro.kernels.cold_codec`` (``_segment_absmax`` and ``_elementwise``):
-each direction is one launch over all segments (two for the int8
-encode: absmax, then quantize), driven by a table of column tiles that
-never cross a segment boundary (:func:`tile_table`).
+each direction is one launch over all segments. The int8 encode reads
+each element once: it runs the tasks of :func:`encode_plan` (runs of
+whole segments, or slices of a larger segment held on chip by as many
+blocks at once) and needs 16-byte aligned rows. Decode and the f16
+casts are driven by a table of column tiles that never cross a segment
+boundary (:func:`tile_table`).
 
 On a CPU tensor each wrapper takes its plain version
 (:mod:`repro_torch.kernels.ref`). On a CUDA tensor it launches the
@@ -44,9 +47,17 @@ from repro_torch.kernels import ref as _ref
 CODECS = ("f32", "f16", "int8")
 #: columns of one tile of the tiled passes (one CUDA block each)
 TILE = 4096
+#: f32 columns of one int8-encode task: one block's shared memory
+#: (``kSlice`` in ``csrc/cold_codec.cu``); a larger segment is sliced
+SLICE = 57_344
+#: whole segments one int8-encode task may hold (``kMaxUnits``)
+MAX_UNITS = 128
+#: int8-encode task kinds: the slice stays on chip between its max and
+#: its codes; the max only; the codes only, read again from memory
+RESIDENT, MAX_ONLY, CODES_ONLY = 0, 1, 2
 
-#: kernel launches of the encode direction (two per int8 encode, one per
-#: f16 encode) and of the decode direction (one per int8 or f16 decode)
+#: kernel launches of the encode direction (one per int8 or f16 encode)
+#: and of the decode direction (one per int8 or f16 decode)
 encode_launches = 0
 decode_launches = 0
 
@@ -59,29 +70,106 @@ def _library() -> ctypes.CDLL:
     """The kernels' library, built on first use, with its C signatures."""
     lib = _build.load("cold_codec")
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.cold_encode_int8_launch.argtypes = [p, ll, ll, p, ll, i, p, p, p, p]
+    lib.cold_encode_int8_grid.argtypes = []
+    lib.cold_encode_int8_launch.argtypes = [p, p, ll, p, p, i, i, p, p, p]
     lib.cold_decode_int8_launch.argtypes = [p, p, ll, ll, p, ll, i, p, p]
     lib.cold_cast_launch.argtypes = [p, p, ll, i, p]
-    for fn in (lib.cold_encode_int8_launch, lib.cold_decode_int8_launch,
-               lib.cold_cast_launch):
+    for fn in (lib.cold_encode_int8_grid, lib.cold_encode_int8_launch,
+               lib.cold_decode_int8_launch, lib.cold_cast_launch):
         fn.restype = ctypes.c_int
     return lib
 
 
 def tile_table(segments: Sequence[Tuple[int, int]],
                tile: int = TILE) -> np.ndarray:
-    """The (ntiles, 2) int64 tile table of the tiled passes: each
-    segment cut into runs of at most ``tile`` columns. Column 0 is the
-    start column; column 1 packs the length (bits 0-30), a flag marking
-    the first tile of its segment (bit 31) and the segment index (bits
-    32-63), as ``csrc/cold_codec.cu`` reads it."""
+    """The (ntiles, 2) int64 tile table of the tiled passes (decode):
+    each segment cut into runs of at most ``tile`` columns. Column 0 is
+    the start column; column 1 packs the length (bits 0-31) and the
+    segment index (bits 32-63), as ``csrc/cold_codec.cu`` reads it."""
     out = []
     for j, (off, size) in enumerate(segments):
         for start in range(off, off + size, tile):
             n = min(tile, off + size - start)
-            first = (1 << 31) if start == off else 0
-            out.append((start, n | first | (j << 32)))
+            out.append((start, n | (j << 32)))
     return np.asarray(out, np.int64).reshape(-1, 2)
+
+
+def encode_plan(segments: Sequence[Tuple[int, int]], rows: int,
+                max_group: int):
+    """The int8 encode's tasks over ``rows`` rows of ``segments``, in
+    the order the kernel's blocks take them.
+
+    Every (row, segment) is a unit. Consecutive units of at most
+    ``SLICE`` columns are packed into one task of at most ``SLICE``
+    columns and ``MAX_UNITS`` units (they are adjacent in memory, across
+    rows too). A larger unit is cut into ``m = ceil(size / SLICE)``
+    slices of near-equal length, one group: if ``m <= max_group`` (the
+    blocks of the kernel's grid) they are ``m`` RESIDENT tasks, else
+    ``m`` MAX_ONLY tasks followed by ``m`` CODES_ONLY ones.
+
+    Returns ``(tasks, units, ngroups, largest)``: ``tasks`` (ntasks, 4)
+    int64 rows ``[e0, n | nunits << 32, u0 | kind << 32, gslot | gsize
+    << 32]`` (first element ``row * T + column``, length, units held
+    (1 for a slice), first unit, kind, group slot, slices in the group,
+    1 for whole units); ``units`` (nunits, 2) int64 rows ``[e, size |
+    (row * nseg + segment) << 32]``; the number of groups; the largest
+    RESIDENT group (1 if none)."""
+    segs = [(int(o), int(n)) for o, n in segments]
+    T = sum(n for _, n in segs)
+    units, tasks, pack = [], [], []
+    pack_n = ngroups = 0
+    largest = 1
+
+    def flush():
+        nonlocal pack, pack_n
+        if pack:
+            tasks.append((units[pack[0]][0], pack_n, len(pack), pack[0],
+                          RESIDENT, 0, 1))
+        pack, pack_n = [], 0
+
+    for r in range(rows):
+        for j, (off, size) in enumerate(segs):
+            e = r * T + off
+            u = len(units)
+            units.append((e, size, r * len(segs) + j))
+            if size <= SLICE:
+                if pack_n + size > SLICE or len(pack) == MAX_UNITS:
+                    flush()
+                pack.append(u)
+                pack_n += size
+                continue
+            flush()
+            m = -(-size // SLICE)
+            cut = [e + size * i // m for i in range(m + 1)]
+            kinds = (RESIDENT,) if m <= max_group else (MAX_ONLY, CODES_ONLY)
+            for kind in kinds:
+                tasks += [(cut[i], cut[i + 1] - cut[i], 1, u, kind, ngroups,
+                           m) for i in range(m)]
+            if m <= max_group:
+                largest = max(largest, m)
+            ngroups += 1
+    flush()
+    t = np.asarray(tasks, np.int64).reshape(-1, 7)
+    packed = np.stack([t[:, 0], t[:, 1] | (t[:, 2] << 32),
+                       t[:, 3] | (t[:, 4] << 32), t[:, 5] | (t[:, 6] << 32)],
+                      axis=1)
+    un = np.asarray(units, np.int64).reshape(-1, 3)
+    return (packed, np.stack([un[:, 0], un[:, 1] | (un[:, 2] << 32)],
+                             axis=1), ngroups, largest)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_plan(segments: Tuple[Tuple[int, int], ...], rows: int,
+                 device: torch.device):
+    """:func:`encode_plan` on the card, for the kernel's grid there."""
+    with torch.cuda.device(device):
+        grid = _library().cold_encode_int8_grid()
+    if grid < 1:
+        raise RuntimeError("cold_codec: the int8 encode kernel cannot be "
+                           "resident on this card")
+    tasks, units, ngroups, largest = encode_plan(segments, rows, grid)
+    return (torch.from_numpy(tasks).to(device),
+            torch.from_numpy(units).to(device), ngroups, largest)
 
 
 @functools.lru_cache(maxsize=64)
@@ -138,13 +226,17 @@ def encode_rows(rows: torch.Tensor, codec: str, segments
         encode_launches += 1
         return q, torch.zeros((S, 0), dtype=torch.float32,
                               device=rows.device)
-    tiles = _device_tiles(segs, rows.device)
-    amax = torch.empty((S, len(segs)), dtype=torch.int32, device=rows.device)
+    if rows.data_ptr() % 16:
+        raise ValueError("cold_codec int8 encode kernel needs 16-byte "
+                         "aligned rows")
+    tasks, units, ngroups, largest = _device_plan(segs, S, rows.device)
+    scratch = torch.empty(2 * ngroups + 1, dtype=torch.int32,
+                          device=rows.device)
     scale = torch.empty((S, len(segs)), dtype=torch.float32,
                         device=rows.device)
-    _run(lib.cold_encode_int8_launch, rows, S, T, tiles, tiles.shape[0],
-         len(segs), amax, q, scale, what="int8 encode")
-    encode_launches += 2
+    _run(lib.cold_encode_int8_launch, rows, tasks, tasks.shape[0], units,
+         scratch, ngroups, largest, q, scale, what="int8 encode")
+    encode_launches += 1
     return q, scale
 
 

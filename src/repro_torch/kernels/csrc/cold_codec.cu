@@ -12,33 +12,67 @@
 //
 // What bounds it: bytes. At the streamed FEMNIST-CNN slab (S = 64,
 // T = 6,603,710) the int8 encode must read 1.69 GB and write 0.42 GB
-// (0.63 ms at 3.35 TB/s); this two-pass design reads the rows twice
-// (absmax, then quantize), so it sits near 1.8x that. Decode reads
-// 0.42 GB and writes 1.69 GB.
+// (0.63 ms at 3.35 TB/s). A segment's scale needs the whole segment
+// before its first code, so a design in two passes (absmax, then
+// quantize: 1.52 ms on an H100 80GB HBM3 at 700 W) reads the rows
+// twice. This one
+// reads them once: every element stays on chip between its absmax and
+// its code. Decode reads 0.42 GB and writes 1.69 GB.
 //
-// Design:
-// - Segments are very uneven (32 columns to 6.4 M). The TPU version ran
-//   one grid per segment; here every pass is ONE launch over all
-//   segments: the wrapper cuts each row into tiles that never cross a
-//   segment boundary and passes the tile table (start column, length,
-//   segment, first-tile flag); block b handles tile b % ntiles of row
-//   b / ntiles. Rows are in the same 1-D grid, so any S fits.
-// - absmax: a tile's max is folded into its (row, segment) slot with
-//   atomicMax on the bits of |x| (sign bit cleared). For non-negative
-//   floats the integer order is the float order, so the result does not
-//   depend on block order; and any NaN orders above +inf, so a NaN
-//   propagates into the scale as it does through numpy's max. The
-//   scratch slots are zeroed (cudaMemsetAsync) before the pass.
-// - quantize / dequantize: each block reads its slot once, computes the
-//   scale with IEEE division (__fdiv_rn), and the first tile of each
-//   segment writes it out. x / s is __fdiv_rn, rounding rintf (half to
-//   even, never roundf), decode __fmul_rn: no fast math anywhere.
-// - Threads stride a tile with scalar loads and stores, so a warp moves
-//   32 consecutive elements: coalesced with no vector alignment needed
-//   (T = 6,603,710 is not a multiple of 4, so rows after the first are
-//   not 16-byte aligned).
-// - Offsets are 64-bit: S * T passes 2^31 for a 256-row slab of the
-//   wider models.
+// The int8 encode (encode_int8_kernel), one launch:
+// - The wrapper plans tasks (cold_codec.encode_plan) of at most kSlice =
+//   57,344 columns, one block's shared memory (224 KiB): runs of whole
+//   small segments (one segment or many, like the blocked quantizer's
+//   rows), or one slice of a larger segment. One block of 1024 threads
+//   on each SM takes tasks in order from a ticket counter.
+// - A task's elements go to shared memory as they are read (16-byte
+//   loads of the 4-aligned words, streaming), with the running max of
+//   |x| in registers. A task of one whole segment turns that max into
+//   its scale at once: no atomics, no second read. A task of several
+//   segments takes each segment's max from shared memory, a warp a
+//   segment.
+// - The slices of a larger segment (the FEMNIST CNN's 126,976- and
+//   6,422,528-column ones, cut into 3 and 112) are held on chip by as
+//   many blocks at once: each folds its max into the segment's slot
+//   (atomicMax on the bits of |x|) and counts itself in, then waits for
+//   the count, then codes its slice from shared memory. The launch is
+//   cooperative, so every block of the grid is resident, and a group's
+//   slices are consecutive tickets of at most one grid: a block waits
+//   only for tickets already handed out to running blocks, which reach
+//   the count without waiting themselves. A block takes its next ticket
+//   only after its group is complete. A segment with more slices than
+//   the grid has blocks is coded in two rounds of tickets instead (max,
+//   then codes from device memory): the only case that reads twice.
+// - A code is v * (1 / s) rounded, checked against the tie: within
+//   2^-10 of one, the IEEE quotient is taken instead (see code4()).
+// - The next task's ticket and descriptor are fetched, and its elements
+//   prefetched into L2 (cp.async.bulk.prefetch, 32 KiB a request: 30 MB
+//   for the 132 blocks, within the 50 MB L2), while the current task
+//   writes its codes: the reads of one task run under the codes of the
+//   one before, and its loads into shared memory then come from L2.
+// - Codes are written a 32-bit word (4 codes) a store where the word
+//   lies inside the task, a byte a store at its two ends: rows start at
+//   row * T bytes, which for the FEMNIST CNN's T = 6,603,710 is only
+//   2-byte aligned, so the word grid is the one of the whole (S, T)
+//   array (x 16-byte and q 4-byte aligned, checked by the wrapper), on
+//   which element e's float4 and its code word share the index e / 4.
+// - |x|'s max is taken on the bits with the sign cleared: for
+//   non-negative floats the integer order is the float order, and any
+//   NaN orders above +inf, so a NaN propagates into the scale as it does
+//   through numpy's max. x / s is __fdiv_rn, rounding rintf (half to
+//   even, never roundf): no fast math anywhere.
+// - The scratch (group maxima and counts, the ticket) is zeroed by one
+//   memset before the launch.
+//
+// Decode and the f16 casts: every pass is ONE launch over all segments,
+// driven by a table of column tiles that never cross a segment boundary
+// (start column, length, segment); block b handles tile b % ntiles of
+// row b / ntiles. Threads stride a tile with scalar loads and stores, so
+// a warp moves 32 consecutive elements: coalesced with no vector
+// alignment needed. Decode is __fmul_rn.
+//
+// Offsets are 64-bit: S * T passes 2^31 for a 256-row slab of the wider
+// models.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -47,7 +81,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 struct Tile {
   int64_t start;  // first column of the tile in the row
@@ -57,18 +90,13 @@ struct Tile {
 
 __device__ __forceinline__ Tile load_tile(const int64_t* tiles, int64_t t) {
   // two int64 per tile: tiles[2t] = start, tiles[2t + 1] = len (bits
-  // 0-30) | first-tile-of-its-segment flag (bit 31) | seg (bits 32-63)
+  // 0-31) | seg (bits 32-63)
   Tile out;
   out.start = tiles[2 * t];
   const int64_t packed = tiles[2 * t + 1];
-  out.len = (int32_t)(packed & 0x7fffffff);
+  out.len = (int32_t)(packed & 0xffffffff);
   out.seg = (int32_t)(packed >> 32);
   return out;
-}
-
-__device__ __forceinline__ bool first_of_segment(const int64_t* tiles,
-                                                 int64_t t) {
-  return (tiles[2 * t + 1] & 0x80000000LL) != 0;
 }
 
 __device__ __forceinline__ float scale_of(unsigned bits) {
@@ -78,56 +106,279 @@ __device__ __forceinline__ float scale_of(unsigned bits) {
   return __fdiv_rn(m, 127.0f);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    absmax_kernel(const float* __restrict__ x, int64_t ncols,
-                  const int64_t* __restrict__ tiles, int64_t ntiles,
-                  int nseg, unsigned* __restrict__ amax) {
-  const int64_t b = blockIdx.x;
-  const int64_t row = b / ntiles;
-  const int64_t t = b - row * ntiles;
-  const Tile tile = load_tile(tiles, t);
-  const float* p = x + row * ncols + tile.start;
-  unsigned m = 0u;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < tile.len; i += kThreads)
-    m = max(m, __float_as_uint(p[i]) & 0x7fffffffu);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
-  __shared__ unsigned part[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) part[warp] = m;
-  __syncthreads();
-  if (warp == 0) {
-    m = (lane < kWarps) ? part[lane] : 0u;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if (lane == 0) atomicMax(amax + row * nseg + tile.seg, m);
-  }
+// ---- the int8 encode, one pass ----
+
+constexpr int kEncThreads = 1024;
+constexpr int kEncWarps = kEncThreads / 32;
+constexpr int kSlice = 57344;    // f32 columns of one task (224 KiB)
+constexpr int kMaxUnits = 128;   // segments of one task
+
+// task kinds: the elements stay on chip; the max only; the codes only,
+// read again from device memory
+enum { kResident = 0, kMaxOnly = 1, kCodesOnly = 2 };
+
+struct Task {
+  int64_t e0;     // first element (row * T + column)
+  int32_t n;      // elements (<= kSlice)
+  int32_t nunits; // whole segments in it, or 1 for a slice of one
+  int32_t u0;     // its first segment in the unit table
+  int32_t kind;
+  int32_t gslot;  // slot of its group of slices in the scratch
+  int32_t gsize;  // slices in the group; 1 for a whole segment
+};
+
+__device__ __forceinline__ Task unpack_task(const long long* p) {
+  // four int64 a task: e0; n | nunits << 32; u0 | kind << 32;
+  // gslot | gsize << 32
+  Task k;
+  k.e0 = p[0];
+  k.n = (int32_t)(p[1] & 0xffffffff);
+  k.nunits = (int32_t)(p[1] >> 32);
+  k.u0 = (int32_t)(p[2] & 0xffffffff);
+  k.kind = (int32_t)(p[2] >> 32);
+  k.gslot = (int32_t)(p[3] & 0xffffffff);
+  k.gsize = (int32_t)(p[3] >> 32);
+  return k;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    quantize_kernel(const float* __restrict__ x, int64_t ncols,
-                    const int64_t* __restrict__ tiles, int64_t ntiles,
-                    int nseg, const unsigned* __restrict__ amax,
-                    int8_t* __restrict__ q, float* __restrict__ scale) {
-  const int64_t b = blockIdx.x;
-  const int64_t row = b / ntiles;
-  const int64_t t = b - row * ntiles;
-  const Tile tile = load_tile(tiles, t);
-  const float s = scale_of(amax[row * nseg + tile.seg]);
-  if (threadIdx.x == 0 && first_of_segment(tiles, t))
-    scale[row * nseg + tile.seg] = s;
-  const int64_t base = row * ncols + tile.start;
-  const float* p = x + base;
-  int8_t* o = q + base;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < tile.len; i += kThreads) {
-    float v = rintf(__fdiv_rn(p[i], s));
-    v = fminf(fmaxf(v, -127.0f), 127.0f);
-    o[i] = (int8_t)(int)v;
+__device__ __forceinline__ unsigned absbits(float v) {
+  return __float_as_uint(v) & 0x7fffffffu;
+}
+
+// The codes of four elements, clip(rint(v / s), -127, 127) with v / s
+// the IEEE quotient, packed in a word (the first in the low byte).
+// v * r (r = 1 / s rounded) is within 2e-5 of v / s wherever |v / s| <=
+// 127.5, as it is for every element of s's segment: unless that lands
+// within 2^-10 of a tie, both round to the same integer; near a tie the
+// quotient is taken exactly.
+__device__ __forceinline__ uint32_t code4(const float (&v)[4],
+                                          const float (&s)[4],
+                                          const float (&r)[4]) {
+  float f[4];
+  bool tie = false;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float qf = v[j] * r[j];
+    f[j] = rintf(qf);
+    tie |= fabsf(qf - f[j]) > 0.4990234375f;
+  }
+  if (tie) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) f[j] = rintf(__fdiv_rn(v[j], s[j]));
+  }
+  int c[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    c[j] = (int)fminf(fmaxf(f[j], -127.0f), 127.0f);
+  // cvt.pack.sat.s8.s32.b32 d, a, b, c: d = b | a << 8 | c << 16
+  uint32_t upper, word;
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;"
+      : "=r"(upper) : "r"(c[3]), "r"(c[2]), "r"(0u));
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;"
+      : "=r"(word) : "r"(c[1]), "r"(c[0]), "r"(upper));
+  return word;
+}
+
+// tid 0: the next task's ticket and descriptor (its four words, then its
+// first segment's start and packed length and slot) into s_next; and its
+// inside words on their way into L2 (bulk prefetches of 32 KiB), so that
+// its reads overlap this task's codes
+__device__ __forceinline__ void fetch_task(
+    unsigned* ticket, const int64_t* __restrict__ tasks, int64_t ntasks,
+    const int64_t* __restrict__ units, const float* __restrict__ x,
+    long long* s_next) {
+  const int64_t t = atomicAdd(ticket, 1u);
+  s_next[0] = t;
+  if (t >= ntasks) return;
+  const int64_t* p = tasks + 4 * t;
+  int64_t d[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s_next[1 + i] = d[i] = p[i];
+  const int64_t u0 = d[2] & 0xffffffff;
+  if ((d[2] >> 32) != kCodesOnly) {
+    const int64_t e0 = d[0];
+    const int64_t ea = (e0 + 3) & ~3LL;
+    const int64_t eb = (e0 + (d[1] & 0xffffffff)) & ~3LL;
+    for (int64_t e = ea; e < eb; e += 8192) {
+      const int64_t n = eb - e < 8192 ? eb - e : 8192;
+      asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;"
+                   ::"l"(x + e), "r"((unsigned)(4 * n)) : "memory");
+    }
+  }
+  s_next[5] = units[2 * u0];
+  s_next[6] = units[2 * u0 + 1];
+}
+
+__global__ void __launch_bounds__(kEncThreads, 1)
+    encode_int8_kernel(const float* __restrict__ x,
+                       const int64_t* __restrict__ tasks, int64_t ntasks,
+                       const int64_t* __restrict__ units,
+                       unsigned* __restrict__ scratch, int ngroups,
+                       int8_t* __restrict__ q, float* __restrict__ scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* buf = reinterpret_cast<float*>(smem_raw);  // [kSlice + 4]
+  float* uscale = buf + kSlice + 4;                 // [kMaxUnits]
+  float* urcp = uscale + kMaxUnits;                 // [kMaxUnits]
+  int* ubeg = reinterpret_cast<int*>(urcp + kMaxUnits);  // [kMaxUnits+1]
+  __shared__ unsigned red[kEncWarps];
+  __shared__ long long s_next[7];  // ticket, task, its first segment
+  unsigned* gmax = scratch;
+  unsigned* gcount = scratch + ngroups;
+  unsigned* ticket = scratch + 2 * ngroups;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+
+  if (tid == 0) fetch_task(ticket, tasks, ntasks, units, x, s_next);
+  __syncthreads();
+  while (s_next[0] < ntasks) {
+    const Task k = unpack_task(s_next + 1);
+    const int64_t ustart = s_next[5];
+    const int64_t upacked = s_next[6];
+    const int64_t end = k.e0 + k.n;
+    const int64_t base = k.e0 & ~3LL;  // element of buf[0]
+    const int64_t w0 = base >> 2;      // words [w0, w1) hold the task
+    const int64_t w1 = (end + 3) >> 2;
+    const int64_t wa = (k.e0 + 3) >> 2;  // words [wa, wb) lie inside it
+    const int64_t wb = end >> 2;
+    unsigned m = 0u;
+    if (k.kind != kCodesOnly) {
+      // the inside words, 8 loads in flight a thread (from L2 where the
+      // task before this one prefetched them)
+      for (int64_t w = wa + tid; w < wb; w += 8 * kEncThreads) {
+        float4 v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (w + i * kEncThreads < wb) v[i] = __ldcs(x4 + w + i * kEncThreads);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (w + i * kEncThreads < wb) {
+            m = max(max(max(absbits(v[i].x), absbits(v[i].y)),
+                        max(absbits(v[i].z), absbits(v[i].w))), m);
+            if (k.kind == kResident)
+              *reinterpret_cast<float4*>(
+                  buf + ((w + i * kEncThreads - w0) << 2)) = v[i];
+          }
+      }
+      // the (at most two) words cut by its ends: word w0 by thread 0,
+      // word w1 - 1 by thread 1 when it is another word
+      const int64_t w = tid == 0 ? w0 : w1 - 1;
+      if (tid < 2 && (w < wa || w >= wb) && (tid == 0 || w != w0)) {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int64_t e = (w << 2) + j;
+          v[j] = (e >= k.e0 && e < end) ? x[e] : 0.f;
+          m = max(m, absbits(v[j]));
+        }
+        if (k.kind == kResident)
+          *reinterpret_cast<float4*>(buf + ((w - w0) << 2)) =
+              make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    if (k.nunits == 1) {
+      // one segment, or one slice of one: the block's max
+      m = __reduce_max_sync(0xffffffffu, m);
+      if (lane == 0) red[warp] = m;
+      __syncthreads();
+      if (warp == 0) {
+        m = __reduce_max_sync(0xffffffffu, red[lane]);
+        if (lane == 0) {
+          if (k.gsize > 1) {
+            if (k.kind != kCodesOnly) {
+              atomicMax(gmax + k.gslot, m);
+              __threadfence();
+              atomicAdd(gcount + k.gslot, 1u);
+            }
+            if (k.kind != kMaxOnly) {
+              while (atomicAdd(gcount + k.gslot, 0u) < (unsigned)k.gsize)
+                __nanosleep(32);
+              __threadfence();
+              m = atomicMax(gmax + k.gslot, 0u);
+            }
+          }
+          const float s = scale_of(m);
+          uscale[0] = s;
+          urcp[0] = __frcp_rn(s);
+          ubeg[0] = 0;
+          ubeg[1] = kSlice + 4;
+          // the segment's first slice writes its scale
+          if (k.kind != kMaxOnly && ustart == k.e0) scale[upacked >> 32] = s;
+        }
+      }
+    } else {
+      // whole segments: a warp each, from shared memory
+      __syncthreads();
+      for (int i = warp; i < k.nunits; i += kEncWarps) {
+        const int64_t us = i == 0 ? ustart : units[2 * (k.u0 + i)];
+        const int64_t packed = i == 0 ? upacked : units[2 * (k.u0 + i) + 1];
+        const int len = (int)(packed & 0xffffffff);
+        const float* seg = buf + (us - base);
+        unsigned mm = 0u;
+        for (int c = lane; c < len; c += 32) mm = max(mm, absbits(seg[c]));
+        mm = __reduce_max_sync(0xffffffffu, mm);
+        if (lane == 0) {
+          const float s = scale_of(mm);
+          uscale[i] = s;
+          urcp[i] = __frcp_rn(s);
+          ubeg[i] = (int)(us - base);
+          scale[packed >> 32] = s;
+        }
+      }
+      if (tid == 0) ubeg[k.nunits] = kSlice + 4;
+    }
+    __syncthreads();
+    if (tid == 0) fetch_task(ticket, tasks, ntasks, units, x, s_next);
+
+    // the codes
+    const bool codes = k.kind != kMaxOnly;
+    // this thread's segment, moving forward: its scale, reciprocal and
+    // end in registers
+    int ui = 0;
+    float us = uscale[0], ur = urcp[0];
+    int uend = ubeg[1];
+    auto code_word = [&](int64_t w) {
+      const int64_t e = w << 2;
+      const int rel = (int)(e - base);
+      const bool inside = w >= wa && w < wb;
+      float v[4];
+      if (k.kind == kResident) {
+        const float4 v4 = *reinterpret_cast<const float4*>(buf + rel);
+        v[0] = v4.x, v[1] = v4.y, v[2] = v4.z, v[3] = v4.w;
+      } else if (inside) {
+        const float4 v4 = __ldcs(x4 + w);
+        v[0] = v4.x, v[1] = v4.y, v[2] = v4.z, v[3] = v4.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = (e + j >= k.e0 && e + j < end) ? x[e + j] : 0.f;
+      }
+      float sj[4], rj[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (k.nunits > 1)
+          while (rel + j >= uend) {
+            ++ui;
+            us = uscale[ui];
+            ur = urcp[ui];
+            uend = ubeg[ui + 1];
+          }
+        sj[j] = us;
+        rj[j] = ur;
+      }
+      const uint32_t c = code4(v, sj, rj);
+      if (inside) {
+        *reinterpret_cast<uint32_t*>(q + e) = c;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (e + j >= k.e0 && e + j < end) q[e + j] = (int8_t)(c >> (8 * j));
+      }
+    };
+    if (codes)
+      for (int64_t w = w0 + tid; w < w1; w += kEncThreads) code_word(w);
+    __syncthreads();  // buf is read: the next task may fill it
   }
 }
 
@@ -182,35 +433,72 @@ unsigned cast_blocks(int64_t n) {
   return (unsigned)(want < cap ? want : cap);
 }
 
+constexpr size_t kEncSmem = (kSlice + 4 + 2 * kMaxUnits) * sizeof(float) +
+                            (kMaxUnits + 1) * sizeof(int);
+
+// blocks of the encode's cooperative grid: every one resident at once
+cudaError_t encode_grid(int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(encode_int8_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kEncSmem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, encode_int8_kernel, kEncThreads, kEncSmem);
+  *blocks = sms * per_sm;
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
 
-// x: (rows, ncols) f32; tiles: (ntiles, 2) int64 (see load_tile); amax:
-// rows * nseg uint32 scratch; q: (rows, ncols) int8; scale: (rows, nseg)
-// f32. Two launches (absmax, quantize) after a memset of the scratch.
-// Returns the CUDA error code (0 on success).
-int cold_encode_int8_launch(const void* x, long long rows, long long ncols,
-                            const void* tiles, long long ntiles, int nseg,
-                            void* amax, void* q, void* scale, void* stream) {
-  if (rows == 0 || ncols == 0) return (int)cudaSuccess;
-  const int64_t blocks = tiled_blocks(rows, ntiles);
-  if (blocks == 0 || nseg < 1) return (int)cudaErrorInvalidValue;
+// Blocks of the int8 encode's grid on the current device (0 if the
+// kernel cannot be resident): the largest group of slices that may stay
+// on chip at once.
+int cold_encode_int8_grid(void) {
+  int blocks = 0;
+  return encode_grid(&blocks) == cudaSuccess ? blocks : 0;
+}
+
+// x: (rows, ncols) f32, 16-byte aligned; tasks: (ntasks, 4) int64 and
+// units: (nunits, 2) int64 (start element, length | scale slot << 32) of
+// cold_codec.encode_plan, whose resident groups hold at most max_group
+// slices; scratch: 2 * ngroups + 1 uint32; q: (rows, ncols) int8, 4-byte
+// aligned; scale: (rows, nseg) f32. One memset, one cooperative launch.
+// Returns the CUDA error code (0 on success); cudaErrorInvalidValue if a
+// resident group would not fit in the grid.
+int cold_encode_int8_launch(const void* x, const void* tasks,
+                            long long ntasks, const void* units,
+                            void* scratch, int ngroups, int max_group,
+                            void* q, void* scale, void* stream) {
+  if (ntasks == 0) return (int)cudaSuccess;
+  int blocks = 0;
+  cudaError_t err = encode_grid(&blocks);
+  if (err != cudaSuccess) return (int)err;
+  if (ntasks < 0 || ngroups < 0 || blocks < 1 || max_group > blocks)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      cudaMemsetAsync(amax, 0, (size_t)rows * nseg * sizeof(unsigned), s);
+  err = cudaMemsetAsync(scratch, 0,
+                        (size_t)(2 * ngroups + 1) * sizeof(unsigned), s);
   if (err != cudaSuccess) return (int)err;
-  absmax_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-      static_cast<const float*>(x), ncols,
-      static_cast<const int64_t*>(tiles), ntiles, nseg,
-      static_cast<unsigned*>(amax));
-  err = cudaGetLastError();
+  if (ntasks < blocks) blocks = (int)ntasks;
+  const float* xp = static_cast<const float*>(x);
+  const int64_t* tp = static_cast<const int64_t*>(tasks);
+  int64_t nt = ntasks;
+  const int64_t* up = static_cast<const int64_t*>(units);
+  unsigned* sp = static_cast<unsigned*>(scratch);
+  int8_t* qp = static_cast<int8_t*>(q);
+  float* scp = static_cast<float*>(scale);
+  void* args[] = {&xp, &tp, &nt, &up, &sp, &ngroups, &qp, &scp};
+  err = cudaLaunchCooperativeKernel((const void*)encode_int8_kernel,
+                                    dim3((unsigned)blocks),
+                                    dim3(kEncThreads), args, kEncSmem, s);
   if (err != cudaSuccess) return (int)err;
-  quantize_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-      static_cast<const float*>(x), ncols,
-      static_cast<const int64_t*>(tiles), ntiles, nseg,
-      static_cast<const unsigned*>(amax), static_cast<int8_t*>(q),
-      static_cast<float*>(scale));
   return (int)cudaGetLastError();
 }
 

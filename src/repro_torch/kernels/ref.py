@@ -142,16 +142,26 @@ def ssd_intra_chunk_ref(x: torch.Tensor, a_t: torch.Tensor,
     return y, states
 
 
-def ssd_intra_fn_ref(xc: torch.Tensor, a_t: torch.Tensor, Bc: torch.Tensor,
-                     Cc: torch.Tensor, dtc: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``kernels.ssd_scan.make_intra_fn``'s adapter (the
-    reference's): xc (B,K,C,H,P), a_t (B,K,H,C), Bc/Cc (B,K,C,N), dtc
-    (B,K,C,H) -> y_intra (B,K,C,H,P) f32."""
+def ssd_intra_states_fn_ref(xc: torch.Tensor, a_t: torch.Tensor,
+                            Bc: torch.Tensor, Cc: torch.Tensor,
+                            dtc: torch.Tensor):
+    """Plain version of ``kernels.ssd_scan.make_intra_states_fn``'s
+    adapter: xc (B,K,C,H,P), a_t (B,K,H,C), Bc/Cc (B,K,C,N), dtc
+    (B,K,C,H) -> (y_intra (B,K,C,H,P), states (B,K,H,N,P)) f32."""
     B, K, C, H, P = xc.shape
     N = Bc.shape[-1]
-    y, _ = ssd_intra_chunk_ref(
+    y, st = ssd_intra_chunk_ref(
         xc.permute(0, 1, 3, 2, 4).reshape(B * K, H, C, P),
         a_t.reshape(B * K, H, C), Bc.reshape(B * K, C, N),
         Cc.reshape(B * K, C, N),
         dtc.permute(0, 1, 3, 2).reshape(B * K, H, C))
-    return y.reshape(B, K, H, C, P).permute(0, 1, 3, 2, 4)
+    return (y.reshape(B, K, H, C, P).permute(0, 1, 3, 2, 4),
+            st.reshape(B, K, H, N, P))
+
+
+def ssd_intra_fn_ref(xc: torch.Tensor, a_t: torch.Tensor, Bc: torch.Tensor,
+                     Cc: torch.Tensor, dtc: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``kernels.ssd_scan.make_intra_fn``'s adapter (the
+    reference's): y_intra (B,K,C,H,P) of
+    :func:`ssd_intra_states_fn_ref`."""
+    return ssd_intra_states_fn_ref(xc, a_t, Bc, Cc, dtc)[0]

@@ -12,20 +12,26 @@ cumsum(a)``:
 
 It replaces the Pallas TPU kernel ``repro.kernels.ssd_scan``
 ``ssd_intra_chunk`` and its ``make_intra_fn`` adapter. The inter-chunk
-recurrence stays plain torch in ``ssd_chunked``, as in the reference.
+recurrence stays plain torch in ``ssd_chunked``, as in the reference,
+and reads the chunk states the kernel wrote.
 
 - :func:`ssd_intra_chunk` — x (BK, H, C, P), a/dt (BK, H, C), B/C
   (BK, C, N); returns (y_intra (BK, H, C, P), states (BK, H, N, P)), f32.
-- :func:`make_intra_fn` — the ``intra_fn`` hook of ``ssd_chunked``:
-  (xc (B, K, C, H, P), a_t (B, K, H, C), Bc/Cc (B, K, C, N), dtc (B, K,
-  C, H)) -> y_intra (B, K, C, H, P) f32. On the card the kernel reads and
-  writes that layout through strides (no transpose); the states it
+- :func:`make_intra_states_fn` — the ``intra_states_fn`` hook of
+  ``ssd_chunked``, what it takes on a CUDA tensor: (xc (B, K, C, H, P),
+  a_t (B, K, H, C), Bc/Cc (B, K, C, N), dtc (B, K, C, H)) -> (y_intra (B,
+  K, C, H, P), states (B, K, H, N, P)) f32. On the card the kernel reads
+  and writes those layouts through strides (no transpose).
+- :func:`make_intra_fn` — the ``intra_fn`` hook (the reference's
+  adapter): the same arguments -> y_intra only; the states the kernel
   computes are dropped, as the reference's adapter drops them.
 
 x, B and C are f32 or bf16 (one dtype); a and dt are up-cast to f32,
 which is exact. bf16 runs on the tensor cores and takes only 16-byte
-aligned x, B and C whose strides are multiples of 8 elements; the launch
-of any other bf16 layout raises. On a CPU tensor each wrapper takes its plain version
+aligned x, B and C whose strides are multiples of 8 elements (and
+writes 16-byte aligned outputs with strides that are multiples of 4,
+as the wrappers allocate them); the launch of any other bf16 layout
+raises. On a CPU tensor each wrapper takes its plain version
 (:mod:`repro_torch.kernels.ref`). On a CUDA tensor it launches the
 kernel or raises; nothing falls back. The kernel has no backward (nor
 has the TPU kernel): a CUDA input that requires grad raises
@@ -135,19 +141,33 @@ def ssd_intra_chunk(x: torch.Tensor, a_t: torch.Tensor, Bc: torch.Tensor,
     return y, st
 
 
-def _intra_kernel(xc, a_t, Bc, Cc, dtc) -> torch.Tensor:
-    """The adapter's launch: the kernel reads the (B,K,C,H,P) layout and
-    writes y_intra in it through strides; its states are dropped."""
+def _intra_kernel(xc, a_t, Bc, Cc, dtc):
+    """The adapters' launch: the kernel reads the (B,K,C,H,P) layout and
+    writes y_intra in it through strides, and the states as (B,K,H,N,P).
+    """
+    if xc.device.type != "cuda":
+        raise ValueError(f"ssd_intra_chunk: no kernel for {xc.device}")
     B, K, C, H, P = xc.shape
     N = Bc.shape[-1]
     y = torch.empty((B, K, C, H, P), dtype=torch.float32, device=xc.device)
-    st = torch.empty((B * K, H, N, P), dtype=torch.float32, device=xc.device)
+    st = torch.empty((B, K, H, N, P), dtype=torch.float32, device=xc.device)
     _launch(xc.permute(0, 1, 3, 2, 4).reshape(B * K, H, C, P),
             a_t.reshape(B * K, H, C).float(), Bc.reshape(B * K, C, N),
             Cc.reshape(B * K, C, N),
             dtc.permute(0, 1, 3, 2).reshape(B * K, H, C).float(),
-            y.view(B * K, C, H, P).transpose(1, 2), st)
-    return y
+            y.view(B * K, C, H, P).transpose(1, 2), st.view(B * K, H, N, P))
+    return y, st
+
+
+def make_intra_states_fn():
+    """Adapter for ``models.ssm.ssd_chunked``'s ``intra_states_fn`` hook:
+    (xc (B,K,C,H,P), a_t (B,K,H,C), Bc (B,K,C,N), Cc, dtc (B,K,C,H))
+    -> (y_intra (B,K,C,H,P), states (B,K,H,N,P)) f32, one launch."""
+    def intra(xc, a_t, Bc, Cc, dtc):
+        if xc.device.type == "cpu":
+            return _ref.ssd_intra_states_fn_ref(xc, a_t, Bc, Cc, dtc)
+        return _intra_kernel(xc, a_t, Bc, Cc, dtc)
+    return intra
 
 
 def make_intra_fn():
@@ -157,7 +177,5 @@ def make_intra_fn():
     def intra(xc, a_t, Bc, Cc, dtc):
         if xc.device.type == "cpu":
             return _ref.ssd_intra_fn_ref(xc, a_t, Bc, Cc, dtc)
-        if xc.device.type != "cuda":
-            raise ValueError(f"ssd_intra_chunk: no kernel for {xc.device}")
-        return _intra_kernel(xc, a_t, Bc, Cc, dtc)
+        return _intra_kernel(xc, a_t, Bc, Cc, dtc)[0]
     return intra

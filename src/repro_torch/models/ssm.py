@@ -6,11 +6,11 @@ inter-chunk linear state recurrence (a Python loop over chunks). Single
 B/C group shared across heads (ngroups=1), per-head scalar A, depthwise
 causal conv on (x, B, C).
 
-The intra-chunk block goes through the ``intra_fn`` hook of
-:func:`ssd_chunked`. Without one, a CUDA tensor takes the hand-written
-kernel (:func:`repro_torch.kernels.ssd_scan.make_intra_fn`) and a CPU
-tensor the plain einsum path of the reference. The chunk states and the
-recurrence stay plain torch on both.
+The intra-chunk block goes through a hook of :func:`ssd_chunked`.
+Without one, a CUDA tensor takes the hand-written kernel
+(:func:`repro_torch.kernels.ssd_scan.make_intra_states_fn`), whose one
+launch also gives the chunk states, and a CPU tensor the plain einsum
+path of the reference. The recurrence stays plain torch on both.
 """
 from __future__ import annotations
 
@@ -103,15 +103,18 @@ def _intra_plain(xc, a_t, Bc, Cc, dtc) -> torch.Tensor:
 def ssd_chunked(x: torch.Tensor, dtv: torch.Tensor, A: torch.Tensor,
                 Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
                 initial_state: Optional[torch.Tensor] = None,
-                intra_fn=None):
+                intra_fn=None, intra_states_fn=None):
     """SSD over a full sequence.
 
     x: (B,S,H,P)  dtv: (B,S,H)  A: (H,) negative  Bm/Cm: (B,S,N)
     Returns (y (B,S,H,P), final_state (B,H,P,N)).
 
-    ``intra_fn`` overrides the intra-chunk computation; signature (xc,
-    a_t, Bc, Cc, dtc) -> y_intra per chunk batch. None means the kernel
-    on a CUDA tensor and the plain einsum path on a CPU tensor.
+    ``intra_fn`` overrides the intra-chunk computation, as in the
+    reference: signature (xc, a_t, Bc, Cc, dtc) -> y_intra per chunk
+    batch; the chunk states then come from an einsum. ``intra_states_fn``
+    takes the same arguments and returns (y_intra, chunk states
+    (B,K,H,N,P)). With neither, a CUDA tensor takes the kernel's
+    (``make_intra_states_fn``) and a CPU tensor the plain einsum path.
     """
     f32 = torch.float32
     Bsz, S, H, P = x.shape
@@ -132,34 +135,38 @@ def ssd_chunked(x: torch.Tensor, dtv: torch.Tensor, A: torch.Tensor,
     cum = torch.cumsum(a_t, dim=-1)  # (B,K,H,C)
     total = cum[..., -1]  # (B,K,H)
 
-    # ---- intra-chunk (quadratic within chunk) ----
-    if intra_fn is None and x.device.type != "cpu":
-        intra_fn = _ssd.make_intra_fn()
-    if intra_fn is None:
-        y_intra = _intra_plain(xc, a_t, Bc, Cc, dtc)
+    # ---- intra-chunk (quadratic within chunk) and chunk-final states ----
+    if intra_fn is None and intra_states_fn is None and \
+            x.device.type != "cpu":
+        intra_states_fn = _ssd.make_intra_states_fn()
+    if intra_states_fn is not None:
+        if intra_fn is not None:
+            raise ValueError("ssd_chunked takes intra_fn or "
+                             "intra_states_fn, not both")
+        y_intra, states = intra_states_fn(xc, a_t, Bc, Cc, dtc)
     else:
-        y_intra = intra_fn(xc, a_t, Bc, Cc, dtc)
+        y_intra = (_intra_plain(xc, a_t, Bc, Cc, dtc) if intra_fn is None
+                   else intra_fn(xc, a_t, Bc, Cc, dtc))
+        decay_to_end = torch.exp(total[..., None] - cum)  # (B,K,H,C)
+        w = (decay_to_end * dtc.permute(0, 1, 3, 2)).permute(0, 1, 3, 2)
+        states = torch.einsum("bkjn,bkjhp->bkhnp", Bc.to(f32),
+                              w[..., None] * xc.to(f32))  # (B,K,H,N,P)
 
-    # ---- chunk-final states ----
-    decay_to_end = torch.exp(total[..., None] - cum)  # (B,K,H,C)
-    w = (decay_to_end * dtc.permute(0, 1, 3, 2)).permute(0, 1, 3, 2)
-    states = torch.einsum("bkjn,bkjhp->bkhpn", Bc.to(f32),
-                          w[..., None] * xc.to(f32))  # (B,K,H,P,N)
-
-    # ---- inter-chunk recurrence ----
+    # ---- inter-chunk recurrence, on (N, P) states ----
     chunk_decay = torch.exp(total)  # (B,K,H)
-    s = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
-         if initial_state is None else initial_state.to(f32))
+    s = (torch.zeros((Bsz, H, N, P), dtype=f32, device=x.device)
+         if initial_state is None
+         else initial_state.to(f32).transpose(-1, -2))
     prev = []
     for k in range(K):
         prev.append(s)  # the state *entering* chunk k
         s = s * chunk_decay[:, k, :, None, None] + states[:, k]
-    prev_states = torch.stack(prev, dim=1)  # (B,K,H,P,N)
+    prev_states = torch.stack(prev, dim=1)  # (B,K,H,N,P)
 
-    y_inter = torch.einsum("bkin,bkhpn->bkihp", Cc.to(f32), prev_states) \
+    y_inter = torch.einsum("bkin,bkhnp->bkihp", Cc.to(f32), prev_states) \
         * torch.exp(cum).permute(0, 1, 3, 2)[..., None]
     y = (y_intra + y_inter).reshape(Bsz, K * chunk, H, P)
-    return y[:, :S].to(x.dtype), s
+    return y[:, :S].to(x.dtype), s.transpose(-1, -2).contiguous()
 
 
 def apply_mamba(cfg: ModelConfig, p: Params, u: torch.Tensor,

@@ -13,10 +13,8 @@ sys.path.insert(0, ROOT)
 import kernel_ablations as ka  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 
-CASES = [("gossip_mix.cu", name, cuts)
-         for name, cuts in ka.GOSSIP_CUTS.items()]
-CASES += [("flash_attention.cu", name, cuts)
-          for name, cuts in ka.ATTENTION_CUTS.items()]
+CASES = [(source, name, cuts) for _, source, table, _ in ka.KERNELS
+         for name, cuts in table.items()]
 
 
 @pytest.mark.parametrize("source,name,cuts", CASES,

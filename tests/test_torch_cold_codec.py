@@ -152,13 +152,12 @@ def test_other_devices_raise_instead_of_falling_back(codec):
                                       ((0, 1),), ((0, 4096), (4096, 4097))],
                          ids=["irregular", "femnist", "one", "edges"])
 def test_tile_table_covers_every_column_once(segments):
-    """The kernels' tile table: every column in exactly one tile, no tile
-    crossing a segment, at most TILE columns, and one first-tile flag per
-    segment."""
+    """The decode kernel's tile table: every column in exactly one tile,
+    no tile crossing a segment, at most TILE columns, and each segment's
+    first tile at its first column."""
     table = tcc.tile_table(segments)
     start, packed = table[:, 0], table[:, 1]
-    length = packed & 0x7FFFFFFF
-    first = (packed >> 31) & 1
+    length = packed & 0xFFFFFFFF
     seg = packed >> 32
     T = sum(n for _, n in segments)
     cover = np.zeros(T, np.int64)
@@ -168,11 +167,142 @@ def test_tile_table_covers_every_column_once(segments):
         assert 0 < n <= tcc.TILE
         cover[s0:s0 + n] += 1
     assert (cover == 1).all()
-    assert np.bincount(seg[first == 1], minlength=len(segments)).tolist() \
-        == [1] * len(segments)
+    assert [int(start[seg == j].min()) for j in range(len(segments))] \
+        == [off for off, _ in segments]
     if segments is FEMNIST_SEGMENTS:
         assert T == 6_603_710
         assert len(table) == sum(-(-n // tcc.TILE) for _, n in segments)
+
+
+# -- the int8 encode's task plan ----------------------------------------------
+
+#: the one-block threshold: a segment of SLICE columns is held by one
+#: block, one of SLICE + 1 is sliced
+THRESHOLD = ((0, 7), (7, tcc.SLICE), (7 + tcc.SLICE, 3))
+PAST_THRESHOLD = ((0, 7), (7, tcc.SLICE + 1), (8 + tcc.SLICE, 3))
+PLAN_CASES = {"irregular": (SEGMENTS, 13, 132),
+              "femnist": (FEMNIST_SEGMENTS, 3, 132),
+              "threshold": (THRESHOLD, 3, 132),
+              "past-threshold": (PAST_THRESHOLD, 3, 132),
+              "blocked-quantizer": (((0, 1024),), 200, 132),
+              "femnist-grid-of-50": (FEMNIST_SEGMENTS, 2, 50)}
+
+
+def _tasks(plan):
+    tasks, units = plan[0], plan[1]
+    cols = dict(e0=tasks[:, 0], n=tasks[:, 1] & 0xFFFFFFFF,
+                nunits=tasks[:, 1] >> 32, u0=tasks[:, 2] & 0xFFFFFFFF,
+                kind=tasks[:, 2] >> 32, gslot=tasks[:, 3] & 0xFFFFFFFF,
+                gsize=tasks[:, 3] >> 32)
+    return cols, dict(e=units[:, 0], size=units[:, 1] & 0xFFFFFFFF,
+                      slot=units[:, 1] >> 32)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_encode_plan_covers_every_column_once(case):
+    """Every element is read for its segment's max once and coded once;
+    a task holds at most SLICE columns; whole segments (at most SLICE
+    columns) are packed, adjacent, into tasks of whole segments; a larger
+    one is cut into ceil(size / SLICE) slices of one group, held on chip
+    together (consecutive tickets, at most the grid's blocks) or, past
+    the grid, in two rounds (max, then codes)."""
+    segments, rows, grid = PLAN_CASES[case]
+    plan = tcc.encode_plan(segments, rows, grid)
+    t, u = _tasks(plan)
+    T = sum(n for _, n in segments)
+    assert u["e"].tolist() == (np.arange(rows)[:, None] * T + np.array(
+        [o for o, _ in segments])).reshape(-1).tolist()
+    assert u["slot"].tolist() == list(range(rows * len(segments)))
+    maxed = np.zeros(rows * T, np.int64)
+    coded = np.zeros(rows * T, np.int64)
+    for i in range(len(t["e0"])):
+        e0, n, kind = t["e0"][i], t["n"][i], t["kind"][i]
+        assert 0 < n <= tcc.SLICE
+        if kind != tcc.CODES_ONLY:
+            maxed[e0:e0 + n] += 1
+        if kind != tcc.MAX_ONLY:
+            coded[e0:e0 + n] += 1
+        first, k = t["u0"][i], t["nunits"][i]
+        sizes = u["size"][first:first + k]
+        if t["gsize"][i] == 1:   # whole segments, adjacent, filling it
+            assert kind == tcc.RESIDENT and (sizes <= tcc.SLICE).all()
+            assert 0 < k <= tcc.MAX_UNITS and u["e"][first] == e0
+            assert sizes.sum() == n
+        else:                    # a slice of one larger segment
+            assert k == 1 and sizes[0] > tcc.SLICE
+            assert t["gsize"][i] == -(-sizes[0] // tcc.SLICE)
+            assert u["e"][first] <= e0 and e0 + n <= u["e"][first] + sizes[0]
+    assert (maxed == 1).all() and (coded == 1).all()
+    # each segment goes by its size: whole, or sliced into one group
+    for first in range(len(u["e"])):
+        mine = (t["u0"] == first) & (t["gsize"] > 1)
+        if u["size"][first] <= tcc.SLICE:
+            assert not mine.any()
+            continue
+        m = -(-u["size"][first] // tcc.SLICE)
+        idx = np.nonzero(mine)[0]
+        assert len(set(t["gslot"][idx].tolist())) == 1
+        if m <= grid:
+            assert len(idx) == m and (t["kind"][idx] == tcc.RESIDENT).all()
+            assert (np.diff(idx) == 1).all()   # consecutive tickets
+        else:
+            assert t["kind"][idx].tolist() == [tcc.MAX_ONLY] * m + \
+                [tcc.CODES_ONLY] * m
+    assert plan[3] <= grid
+    if case == "femnist":
+        per_row = np.bincount(t["gsize"][t["gsize"] > 1])
+        assert per_row[112] == 112 * rows and per_row[3] == 3 * rows
+        assert plan[2] == 2 * rows and plan[3] == 112
+        whole = t["nunits"][t["gsize"] == 1]
+        assert sorted(whole.tolist()) == [1] * rows + [5] * rows
+    if case == "threshold":
+        assert (t["gsize"] == 1).all()
+    if case == "past-threshold":
+        assert plan[3] == 2 and (t["gsize"] > 1).sum() == 2 * rows
+    if case == "blocked-quantizer":
+        assert t["nunits"].tolist() == [56, 56, 56, 32]
+    if case == "femnist-grid-of-50":
+        assert plan[3] == 3 and (t["kind"] == tcc.CODES_ONLY).sum() == 224
+
+
+def _emulate_encode(rows, segments, plan):
+    """The kernel's walk over the plan in numpy: each task's scales (a
+    slice's from its whole group), its codes, and the scale written by a
+    segment's first slice or its whole-segment task."""
+    t, u = _tasks(plan)
+    flat = rows.reshape(-1)
+    q = np.full(flat.shape, 99, np.int8)
+    scale = np.full((rows.shape[0], len(segments)), np.nan, np.float32)
+    for i in range(len(t["e0"])):
+        e0, n, kind = t["e0"][i], t["n"][i], t["kind"][i]
+        if kind == tcc.MAX_ONLY:
+            continue
+        for k in range(t["u0"][i], t["u0"][i] + t["nunits"][i]):
+            ue, us = u["e"][k], u["size"][k]
+            amax = np.abs(flat[ue:ue + us]).max()
+            s = np.float32(max(amax, np.float32(1e-12))) / np.float32(127)
+            lo, hi = max(e0, ue), min(e0 + n, ue + us)
+            q[lo:hi] = np.clip(np.rint(flat[lo:hi] / s), -127, 127)
+            if lo == ue:
+                scale.reshape(-1)[u["slot"][k]] = s
+    return q.reshape(rows.shape), scale
+
+
+@pytest.mark.parametrize("case", ["irregular", "threshold", "past-threshold",
+                                  "blocked-quantizer"])
+def test_encode_plan_walk_equals_host_codec(case):
+    """Walking the plan as the kernel does gives the host codec's bytes:
+    each segment's scale from its whole extent, written once."""
+    segments, nrows, grid = PLAN_CASES[case]
+    T = sum(n for _, n in segments)
+    rows = (np.random.default_rng(3).standard_normal((nrows, T)) * 3
+            ).astype(np.float32)
+    rows[1] = 0.0
+    plan = tcc.encode_plan(segments, nrows, grid)
+    q, scale = _emulate_encode(rows, segments, plan)
+    host = rcomp.encode_cold_rows(rows, "int8", segments)
+    np.testing.assert_array_equal(q, host["q"])
+    np.testing.assert_array_equal(scale, host["scale"])
 
 
 def test_cold_codec_helpers_match_reference():

@@ -91,3 +91,77 @@ def test_adapter_inside_ssd_chunked():
                               intra_fn=tss.make_intra_fn())
     _close(y_t, y_j, 1e-3)
     _close(st_t, st_j, 1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,init_state", [(256, False), (160, True)],
+                         ids=["whole-chunks", "padded-initial-state"])
+@pytest.mark.parametrize("reference", ["einsum", "pallas"])
+def test_states_from_the_kernel_inside_ssd_chunked(dtype, S, init_state,
+                                                   reference):
+    """The branch a CUDA tensor takes: y_intra and the chunk states from
+    the intra-chunk block's one launch (its plain version on the CPU)
+    feed the recurrence. y and the final state == the reference's
+    ssd_chunked, with its einsum path or the Pallas intra_fn (interpret
+    mode), with S padded to the chunk and a non-zero initial state.
+    Tolerances: 1e-4 at f32; at bf16 the file's 1e-3 through
+    ssd_chunked, and y, which both sides round to bf16 from f32 sums in
+    another order, may also differ by one bf16 step (2^-7 of it)."""
+    rng = np.random.default_rng(S)
+    B, H, P, N, chunk = 2, 4, 32, 16, 64
+    x, Bm, Cm = (_pair(rng.standard_normal(shape), dtype)
+                 for shape in ((B, S, H, P), (B, S, N), (B, S, N)))
+    f32 = [_pair(a, "float32") for a in (
+        np.abs(rng.standard_normal((B, S, H))) * 0.1,
+        -np.abs(rng.standard_normal((H,))),
+        rng.standard_normal((B, H, P, N)))]
+    dtv, A, s0 = f32
+    kw = {"initial_state": s0[0]} if init_state else {}
+    if reference == "pallas":
+        kw["intra_fn"] = ops.ssd_intra_fn(interpret=True)
+    y_j, st_j = r_ssd_chunked(x[0], dtv[0], A[0], Bm[0], Cm[0], chunk, **kw)
+    y_t, st_t = t_ssd_chunked(
+        x[1], dtv[1], A[1], Bm[1], Cm[1], chunk,
+        initial_state=s0[1] if init_state else None,
+        intra_states_fn=tss.make_intra_states_fn())
+    assert y_t.dtype == TORCH_DTYPE[dtype] and st_t.dtype == torch.float32
+    assert tuple(y_t.shape) == y_j.shape and tuple(st_t.shape) == st_j.shape
+    if dtype == "float32":
+        _close(y_t, y_j, 1e-4)
+        _close(st_t, st_j, 1e-4)
+        return
+    np.testing.assert_allclose(y_t.to(torch.float32).numpy(),
+                               np.asarray(y_j, np.float32), atol=1e-3,
+                               rtol=2.0 ** -7)
+    _close(st_t, st_j, 1e-3)
+
+
+def test_intra_states_adapter_matches_the_y_adapter():
+    """make_intra_states_fn's y is make_intra_fn's, and its states are the
+    plain version's, laid out (B, K, H, N, P) for the recurrence."""
+    rng = np.random.default_rng(9)
+    B, K, C, H, P, N = 2, 3, 64, 4, 32, 16
+    xc, a_t, Bc, Cc, dtc = (torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.standard_normal((B, K, C, H, P)),
+        -np.abs(rng.standard_normal((B, K, H, C))) * 0.1,
+        rng.standard_normal((B, K, C, N)), rng.standard_normal((B, K, C, N)),
+        np.abs(rng.standard_normal((B, K, C, H))) * 0.1))
+    y, st = tss.make_intra_states_fn()(xc, a_t, Bc, Cc, dtc)
+    assert tuple(st.shape) == (B, K, H, N, P)
+    torch.testing.assert_close(y, tss.make_intra_fn()(xc, a_t, Bc, Cc, dtc),
+                               rtol=0, atol=0)
+    _, st_plain = tref.ssd_intra_chunk_ref(
+        xc.permute(0, 1, 3, 2, 4).reshape(B * K, H, C, P),
+        a_t.reshape(B * K, H, C), Bc.reshape(B * K, C, N),
+        Cc.reshape(B * K, C, N), dtc.permute(0, 1, 3, 2).reshape(B * K, H, C))
+    torch.testing.assert_close(st.reshape(B * K, H, N, P), st_plain, rtol=0,
+                               atol=0)
+
+
+def test_ssd_chunked_takes_one_hook():
+    x = torch.zeros((1, 64, 2, 32))
+    with pytest.raises(ValueError, match="not both"):
+        t_ssd_chunked(x, torch.zeros((1, 64, 2)), -torch.ones(2),
+                      torch.zeros((1, 64, 16)), torch.zeros((1, 64, 16)), 64,
+                      intra_fn=tss.make_intra_fn(),
+                      intra_states_fn=tss.make_intra_states_fn())
