@@ -57,21 +57,42 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  then the serial driver (host codec) on the same
                  configuration, whose global model must agree within the
                  int8 tolerance.
-5. lm         — Zamba2-2.7B at full width (2,422,670,240 params, bf16,
+5. scenario   — the same FEMNIST configuration under ``mobile_sampled``
+                 with ``chaos`` faults (seeds 7 and 3, 3 rounds, whose
+                 keyed fault trace holds a dark cluster, a dropped link
+                 and a timed-out device: asserted before the run),
+                 through ``run_wall_clock``: per round the card seconds,
+                 the cohort k, its bucket k_pad and the path (compacted
+                 or flat), the dark clusters, loss, accuracy and peak
+                 memory; gossip_mix launches equal the lowering plans'
+                 mixing groups plus one projection an evaluation, and the
+                 rows of every live cluster agree within 1e-6 after the
+                 trailing boundary; the last round under the profiler.
+6. async      — the same configuration over a ``lognormal`` fleet, two
+                 bounded-staleness rounds at s = 2 (events, card seconds,
+                 one gossip_mix launch an event, every realized edge
+                 within the bound, the simulated makespan beside the
+                 barrier's), then one s = 0 round against the barrier
+                 round with compaction off: bit for bit on the card.
+7. lm         — Zamba2-2.7B at full width (2,422,670,240 params, bf16,
                  random weights from a seeded generator on the card): one
                  prefill forward of 2 x 4096 tokens (9 B4 and 54 B5
                  launches, finite logits), a second under the profiler
                  (device time by kernel), then the port's serve driver at
                  the reference's defaults (batch 4, prompt 32, 16 decoded
                  tokens, max-seq 256).
-6. lm decode  — the same model in f32: the kernel forward's logits over
+8. lm decode  — the same model in f32: the kernel forward's logits over
                  2 x 512 tokens against 512 decode steps (no kernel),
                  within the reference's atol = rtol = 0.05.
-7. parity     — the quickstart configuration for one round, the small
+9. parity     — the quickstart configuration for one round, the small
                  population configuration of the CPU tests (f32,
-                 pipelined) for two, and the reduced Zamba2 forward (f32,
-                 2 groups; kernels on the card, plain on the CPU), on the
-                 card and on the CPU; they must agree (TF32 off).
+                 pipelined) for two; at its geometry a compacted
+                 scenario with chaos faults, the enumerated streamed
+                 engine pipelined under outages, an ``adaptive_tau``
+                 schedule and two async rounds at s = 2; and the reduced
+                 Zamba2 forward (f32, 2 groups; kernels on the card,
+                 plain on the CPU), on the card and on the CPU; they must
+                 agree (TF32 off).
 
 The line before the last two is ``{"kernels": [...]}``; the card's
 ``name, power.limit`` (from nvidia-smi) follows, and the last line is
@@ -80,6 +101,7 @@ The line before the last two is ``{"kernels": [...]}``; the card's
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -146,6 +168,10 @@ LM_PARITY_TOL = 1e-4
 #: serial (host codec) against pipelined (card codec) at int8: the
 #: reference's own bound (tests/test_clientstore.py)
 INT8_ATOL = 5e-3
+#: the scenario phase: seeds and rounds whose keyed fault trace holds a
+#: dark cluster, a dropped link and a timed-out device (asserted)
+SCENARIO_SEED, SCENARIO_FAULT_SEED, SCENARIO_ROUNDS = 7, 3, 3
+ASYNC_STALENESS = 2
 
 
 def log(msg: str) -> None:
@@ -833,7 +859,194 @@ def phase_population(dev: torch.device, rounds: int = 3):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the card against the CPU
+# phase 5: enumerated scenarios with faults at full width
+# ---------------------------------------------------------------------------
+
+def _femnist_sim(dev, **kw):
+    from repro_torch.configs import femnist_cnn as cfg
+    from repro_torch.core.cefedavg import FLSimulator
+    from repro_torch.models.cnn import apply_femnist_cnn, init_femnist_cnn
+    return FLSimulator(init_femnist_cnn, apply_femnist_cnn, cfg.FL,
+                       femnist_data(cfg.FL), lr=0.1, batch_size=16, seed=0,
+                       device=dev, **kw)
+
+
+def _fault_coverage(plans) -> tuple:
+    """Dark clusters, dropped backhaul links and timed-out devices over a
+    run's plans."""
+    dark = sum(int(p.fault.cluster_down.sum()) for p in plans)
+    links = sum(int((~p.fault.link_up).sum()) // 2 for p in plans)
+    timed = sum(int(p.fault.timed_out.sum()) for p in plans)
+    return dark, links, timed
+
+
+def phase_scenario(dev: torch.device, rounds: int = SCENARIO_ROUNDS) -> int:
+    """The FEMNIST experiment at full width under ``mobile_sampled`` with
+    ``chaos`` faults, through ``run_wall_clock``: partial cohorts train on
+    the compacted gather, dark clusters are gated out of every boundary.
+    Returns gossip_mix's launches on this path."""
+    from repro_torch.configs import femnist_cnn as cfg
+    from repro_torch.core import program as prg
+    from repro_torch.core import scenario as scn
+    from repro_torch.core.clock import run_wall_clock
+    from repro_torch.core.runtime import paper_runtime_model
+    from repro_torch.kernels import gossip_mix as gm
+    fl = cfg.FL
+    scenario = dataclasses.replace(
+        scn.get_scenario("mobile_sampled"), seed=SCENARIO_SEED,
+        faults=dataclasses.replace(scn.get_faults("chaos"),
+                                   seed=SCENARIO_FAULT_SEED))
+    # the fault trace is keyed: a twin engine computes it on the host
+    # before the run, and the run must see every fault class
+    twin = scn.ScenarioEngine(scenario, fl)
+    plans = [twin.step() for _ in range(rounds)]
+    dark, links, timed = _fault_coverage(plans)
+    log(f"[scenario] FEMNIST CNN n={fl.n} under mobile_sampled (seed "
+        f"{SCENARIO_SEED}) with chaos faults (seed {SCENARIO_FAULT_SEED}), "
+        f"{rounds} rounds: the keyed trace holds {dark} dark cluster-rounds, "
+        f"{links} dropped links, {timed} timed-out devices")
+    assert dark >= 1 and links >= 1 and timed >= 1, \
+        "pick rounds and seeds whose fault trace covers every fault class"
+    torch.cuda.synchronize()
+    sim = _femnist_sim(dev, scenario=scenario)
+    T = sim.layout.total
+    rt = paper_runtime_model()
+    gm.launches = 0
+    want, wall = 0, 0.0
+    for r, plan in enumerate(plans):
+        last = r == rounds - 1
+        prof = (profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) if last
+                else contextlib.nullcontext())
+        torch.cuda.reset_peak_memory_stats(dev)
+        with prof:
+            t0 = time.perf_counter()
+            hist = run_wall_clock(sim, rt, 1)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        if last:
+            device_breakdown(prof, dt, tag="scenario")
+        assert np.array_equal(sim.labels, plan.labels), \
+            "the run's plan is not the keyed trace's"
+        k = int(plan.mask.sum())
+        path = "compact" if 0 < k < fl.n else "flat"
+        want += sum(len(bp.groups) for bp in
+                    prg.lowering_plan(sim.last_program, fuse=True)) + 1
+        down = plan.fault.cluster_down
+        Y = sim.bank.params
+        spread = 0.0
+        for c in np.nonzero(~down)[0]:
+            rows = torch.from_numpy(np.nonzero(plan.labels == c)[0]).to(dev)
+            Yc = Y[rows]
+            spread = max(spread, float((Yc - Yc[:1]).abs().max()))
+        wall += hist["wall_time"][-1]
+        loss, acc = hist["loss"][-1], hist["acc"][-1]
+        log(f"[scenario] round {r + 1}: {dt:.3f} s on the card (step + "
+            f"eval), k={k} k_pad={sim.last_bucket} path={path}, dark "
+            f"clusters {np.nonzero(down)[0].tolist()}, dropped links "
+            f"{int((~plan.fault.link_up).sum()) // 2}, timed out "
+            f"{int(plan.fault.timed_out.sum())}, loss={loss:.4f} "
+            f"acc={acc:.4f} simulated_wall={wall:,.1f} s, "
+            f"peak device memory {peak / 1e9:.2f} GB, max in-cluster row "
+            f"spread (live clusters)={spread:.2e}")
+        assert math.isfinite(loss), f"round {r + 1}: loss {loss}"
+        assert spread <= 1e-6, f"round {r + 1}: live cluster rows differ " \
+            f"by {spread}"
+        assert sim.last_bucket == (fl.n if path == "flat" else
+                                   next(b for b in sim._buckets if b >= k))
+    launches = gm.launches
+    log(f"[scenario] gossip_mix launches={launches} (the lowering plans' "
+        f"mixing groups + one projection an evaluation = {want}); bank "
+        f"{T} columns")
+    assert launches == want, f"gossip_mix launched {launches}, not {want}"
+    del sim
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: bounded-staleness async rounds at full width
+# ---------------------------------------------------------------------------
+
+def phase_async(dev: torch.device, rounds: int = 2) -> int:
+    """Two async rounds at staleness 2 over a lognormal fleet, then one
+    s=0 round against the barrier round, bit for bit. Returns
+    gossip_mix's launches in the async rounds."""
+    from repro_torch.configs import femnist_cnn as cfg
+    from repro_torch.core import scenario as scn
+    from repro_torch.core.clock import EventClock
+    from repro_torch.core.runtime import compute_bound_runtime_model
+    from repro_torch.kernels import gossip_mix as gm
+    fl = cfg.FL
+    scenario = dataclasses.replace(scn.get_scenario("lognormal"), seed=7)
+    rt = compute_bound_runtime_model()
+    torch.cuda.synchronize()
+    sim = _femnist_sim(dev, scenario=scenario)
+    barrier = EventClock(rt, fl)
+    gm.launches = 0
+    total = 0
+    for r in range(rounds):
+        n0 = gm.launches
+        t0 = time.perf_counter()
+        plan = sim.step_round_async(ASYNC_STALENESS, rt)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ev = sim.last_async["trace"]
+        got = gm.launches - n0
+        total += got
+        fleet = np.asarray(sim.engine.speed_multipliers) * rt.hw.device_flops
+        b = barrier.charge_program(sim.last_program, fleet, plan.mask)
+        for e in ev:
+            ph = np.asarray(e["phases"])
+            assert all(abs(int(ph[i]) - int(ph[j])) <= ASYNC_STALENESS
+                       for i, j in e["edges"]), "an edge broke the bound"
+        acc, loss = sim.evaluate()
+        log(f"[async] round {r + 1} (staleness {ASYNC_STALENESS}): "
+            f"{len(ev)} events, {dt:.3f} s on the card (step), gossip_mix "
+            f"launches {got}; simulated makespan "
+            f"{sim.last_async['timeline']['makespan']:,.1f} s against the "
+            f"barrier's {b:,.1f} s; loss={loss:.4f} acc={acc:.4f}")
+        assert got == len(ev), f"{got} launches for {len(ev)} events"
+        assert math.isfinite(loss)
+    del sim
+    torch.cuda.empty_cache()
+    # s=0 is the barrier: the same launches on the same rows, so on the
+    # card too the banks agree bit for bit (cuDNN held to deterministic
+    # algorithms for the comparison)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        banks = []
+        for run in ("barrier", "async"):
+            sim = _femnist_sim(dev, scenario=scenario)
+            sim._compact_enabled = False
+            t0 = time.perf_counter()
+            if run == "barrier":
+                sim.step_round()
+            else:
+                sim.step_round_async(0, rt)
+            torch.cuda.synchronize()
+            log(f"[async] s=0 check, {run} round: "
+                f"{time.perf_counter() - t0:.3f} s on the card")
+            banks.append((sim.bank.params.clone(), sim.bank.mom.clone()))
+            del sim
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    same = (torch.equal(banks[0][0], banks[1][0])
+            and torch.equal(banks[0][1], banks[1][1]))
+    diff = max(float((a - b).abs().max()) for a, b in zip(*banks))
+    log(f"[async] s=0 round against the barrier round (compaction off), "
+        f"full width: bitwise equal={same} (max abs diff {diff:.3e})")
+    assert same, "async s=0 and the barrier differ on the card"
+    del banks
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the card against the CPU
 # ---------------------------------------------------------------------------
 
 def phase_parity(dev: torch.device) -> None:
@@ -897,7 +1110,85 @@ def phase_parity(dev: torch.device) -> None:
         f"{PARITY_ATOL}; {sc['ids'].size} stored clients on both)")
     assert eg <= PARITY_ATOL and es <= PARITY_ATOL, \
         "card and CPU population runs disagree"
+    _parity_scenarios(dev, pfl, pdata, pinit)
     _parity_lm(dev)
+
+
+def _card_vs_cpu(dev: torch.device, what: str, build, run, read) -> None:
+    """Build, run and read one small simulation on the card and on the
+    CPU; every array ``read`` returns must agree within PARITY_ATOL."""
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        sim = build(where)
+        note = run(sim)
+        out[where.type] = [np.asarray(a, np.float32) for a in read(sim)]
+    err = max(float(np.abs(a - b).max())
+              for a, b in zip(out["cuda"], out["cpu"]))
+    log(f"[parity] {what}: card vs CPU max abs diff {err:.3e} (atol "
+        f"{PARITY_ATOL}){note}")
+    assert err <= PARITY_ATOL, f"card and CPU disagree: {what}"
+
+
+def _parity_scenarios(dev: torch.device, fl, data, init) -> None:
+    """The paths this slice adds, at the small population's geometry
+    (MLP 16-32-4, 4 clusters of 4): a compacted faulted scenario, the
+    enumerated streamed engine pipelined under outages, an adaptive_tau
+    schedule and an s=2 async round."""
+    from repro_torch.core import scenario as scn
+    from repro_torch.core.cefedavg import FLSimulator
+    from repro_torch.core.runtime import compute_bound_runtime_model
+    from repro_torch.models.cnn import apply_mlp_classifier
+
+    def scenario(name, faults=None):
+        return dataclasses.replace(
+            scn.get_scenario(name), seed=7,
+            faults=None if faults is None else scn.get_faults(faults))
+
+    def sim_of(**kw):
+        return lambda where: FLSimulator(
+            lambda g: init, apply_mlp_classifier, fl, data, lr=0.1,
+            batch_size=16, seed=1, device=where, **kw)
+
+    def bank(sim):
+        return sim.bank.params.cpu().numpy(), sim.bank.mom.cpu().numpy()
+
+    def rounds(k):
+        def run(sim):
+            buckets = []
+            for _ in range(k):
+                sim.step_round()
+                buckets.append(sim.last_bucket)
+            return f"; slab/cohort rows by round {buckets}"
+        return run
+
+    _card_vs_cpu(dev, "compacted scenario (sampled, chaos faults), 3 "
+                 "rounds, bank", sim_of(scenario=scenario("sampled",
+                                                           "chaos")),
+                 rounds(3), bank)
+
+    def streamed(sim):
+        ids = sim.store.snapshot()["ids"]
+        return (_global_row(sim), sim.store.cluster_params,
+                sim.store.fetch(ids))
+    _card_vs_cpu(dev, "enumerated streamed engine (sampled, outage faults, "
+                 "f32, pipelined), 3 rounds, global model and store",
+                 sim_of(scenario=scenario("sampled", "outage"),
+                        streaming=True, pipeline=True),
+                 rounds(3), streamed)
+    _card_vs_cpu(dev, "adaptive_tau schedule (bimodal), 2 rounds, bank",
+                 sim_of(scenario=scenario("bimodal"),
+                        schedule="adaptive_tau"), rounds(2), bank)
+    rt = compute_bound_runtime_model()
+
+    def async_rounds(sim):
+        events = []
+        for _ in range(2):
+            sim.step_round_async(2, rt)
+            events.append(len(sim.last_async["trace"]))
+        return f"; events by round {events}"
+    _card_vs_cpu(dev, "async rounds at staleness 2 (lognormal), 2 rounds, "
+                 "bank", sim_of(scenario=scenario("lognormal")),
+                 async_rounds, bank)
 
 
 def _parity_lm(dev: torch.device) -> None:
@@ -929,7 +1220,7 @@ def _parity_lm(dev: torch.device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the LM kernels against their plain versions
+# phase 2b: the LM kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def _bound(nbytes: float, flops: float, peak: float):
@@ -1322,8 +1613,11 @@ def main() -> int:
     entry["launches"] = phase_main(dev)
     gossip_pop, encode["launches"], decode["launches"] = \
         phase_population(dev)
+    gossip_scn = phase_scenario(dev)
+    gossip_async = phase_async(dev)
     log(f"[done] gossip_mix launches: main path {entry['launches']}, "
-        f"population path {gossip_pop}")
+        f"population path {gossip_pop}, scenario path {gossip_scn}, "
+        f"async path {gossip_async}")
     attn["launches"], ssd["launches"] = phase_lm(dev)
     phase_lm_decode(dev)
     phase_parity(dev)

@@ -1,0 +1,10 @@
+"""minitron-8b [dense] — pruned nemotron: squared-ReLU MLP, GQA.
+[arXiv:2407.14679]"""
+from repro_torch.config import ModelConfig
+
+MODEL = ModelConfig(
+    name="minitron-8b", family="dense",
+    num_layers=32, d_model=4096, num_heads=32, num_kv_heads=8,
+    d_ff=16384, vocab_size=256000, head_dim=128, mlp_act="relu2",
+    source="arXiv:2407.14679",
+)

@@ -9,14 +9,27 @@ baseline (Table 1 / §4.3 special cases); ``FLSimulator`` runs the literal
 matrix form with all n device models materialized in a flat (n, T)
 :class:`repro_torch.core.modelbank.ModelBank` on one device.
 
-One round executes the canonical
-:class:`repro_torch.core.program.RoundProgram`: per block, τ local
-SGD+momentum steps on every row (per-row gradients by
-``torch.func.vmap(torch.func.grad(...))``), then one streaming pass of
-the gossip kernel per MixGroup — the coincident τ/qτ boundary arrives
+One round executes a :class:`repro_torch.core.program.RoundProgram` —
+the canonical one compiled from fl's τ/q/π, or what a ``schedule=``
+hook returns for the round (adaptive per-cluster τ_k cut-offs,
+time-varying π_t): per block, τ local SGD+momentum steps on every
+participating row (per-row gradients by
+``torch.func.vmap(torch.func.grad(...))``; masked rows and rows past
+their ``tau_dev`` cut-off stay frozen), then one streaming pass of the
+gossip kernel per MixGroup — the coincident τ/qτ boundary arrives
 pre-fused as ``W_inter @ W_intra``. Batches are drawn from the
 reference's own key stream (:mod:`repro_torch.random`), one round's
 indices at a time on the host, so the port sees the reference's batches.
+
+An enumerated scenario (:class:`repro_torch.core.scenario.ScenarioEngine`)
+re-draws each round's participation, cluster assignment and faults; a
+partial cohort trains on a compacted (k_pad, T) gather of its rows
+(:func:`repro_torch.core.modelbank.compact_plan`) while every mixing
+boundary still streams the whole bank, and every operator is fault-gated
+before fusion. ``step_round_async`` replays a round's blocks as
+per-cluster events under a staleness bound
+(:func:`repro_torch.core.clock.async_program_timeline`,
+:func:`repro_torch.core.gossip.staleness_mask`).
 
 The streamed engine (``streaming=True``, implied by a scenario with a
 ``PopulationConfig``) keeps no resident (n, T) bank: client state lives
@@ -26,9 +39,9 @@ into a hot (S, T) slab. ``pipeline=True`` overlaps that paging with
 compute: the cold codec runs on the card
 (:mod:`repro_torch.kernels.cold_codec`), the cluster references stay on
 the card, round t's page-out copies back on a side stream while round
-t+1 is staged and its encoded rows copied in. Enumerated scenarios
-(``ScenarioEngine``), compaction, schedules, upload transforms and the
-sharded streamed bank wait for later slices.
+t+1 is staged and its encoded rows copied in. Upload transforms, the
+legacy pytree engine and the sharded streamed bank wait for later
+slices.
 """
 from __future__ import annotations
 
@@ -43,12 +56,15 @@ from torch.func import grad, vmap
 from repro_torch import random as rnd
 from repro_torch import tree as tr
 from repro_torch.config import FLConfig
+from repro_torch.core import clock as clk
+from repro_torch.core import gossip as gsp
 from repro_torch.core import program as prg
 from repro_torch.core import topology as topo
 from repro_torch.core.clientstore import ClientStore
-from repro_torch.core.modelbank import ModelBank, bucket_for, cohort_buckets
+from repro_torch.core.modelbank import (ModelBank, bucket_for,
+                                        cohort_buckets, compact_plan)
 from repro_torch.core.scenario import (PopulationEngine, RoundPlan,
-                                       make_masked_w)
+                                       ScenarioEngine, make_masked_w)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import cold_codec
 from repro_torch.kernels.gossip_mix import FlatLayout, gossip_mix_rows
@@ -146,11 +162,19 @@ class FLSimulator:
     data: dict with xs (n, N, ...), ys (n, N) — per-device training
           shards; test_x, test_y — the common test set (numpy arrays or
           tensors; moved to ``device`` once).
-    scenario: optional ``config.ScenarioConfig`` with a
-          ``PopulationConfig``: a virtual population whose keyed cohort
-          draws (:class:`repro_torch.core.scenario.PopulationEngine`)
-          pick each round's trainers; implies ``streaming``. Each
+    scenario: optional ``config.ScenarioConfig``. Without a
+          ``PopulationConfig`` it runs over the n enumerated devices
+          (:class:`repro_torch.core.scenario.ScenarioEngine`: per-round
+          sampling, dropout, mobility, speeds and, with ``faults``,
+          outages, link loss and straggler timeouts). With one, a
+          virtual population whose keyed cohort draws
+          (:class:`repro_torch.core.scenario.PopulationEngine`) pick
+          each round's trainers; that implies ``streaming``, and each
           cohort client trains on data shard ``client_id % n``.
+    schedule: optional round schedule — a name from
+          ``program.SCHEDULES``, a ``program.ScheduleFn`` or a fixed
+          ``program.RoundProgram``; None runs the canonical program
+          compiled from fl's τ/q/π. Not with a virtual population.
     streaming: True pages client state through a
           :class:`repro_torch.core.clientstore.ClientStore` instead of a
           resident (n, T) bank; only each round's working set (cohort +
@@ -172,8 +196,8 @@ class FLSimulator:
     def __init__(self, init_fn: Callable, apply_fn: Callable, fl: FLConfig,
                  data: Dict[str, object], *, lr: float = 0.05,
                  momentum: float = 0.9, batch_size: int = 50, seed: int = 0,
-                 scenario=None, streaming: bool = False, codec: str = "f32",
-                 pipeline: bool = False,
+                 scenario=None, schedule=None, streaming: bool = False,
+                 codec: str = "f32", pipeline: bool = False,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
         self.fl = fl
@@ -189,17 +213,16 @@ class FLSimulator:
             raise ValueError(f"data holds {self.data['xs'].shape[0]} device "
                              f"shards for n={n} devices")
         self.lr, self.momentum, self.batch = lr, momentum, batch_size
-        # a virtual population swaps in the keyed cohort engine and
-        # forces the streamed engine
-        self.engine: Optional[PopulationEngine] = None
+        # an enumerated scenario re-draws each round's plan; a virtual
+        # population swaps in the keyed cohort engine and forces the
+        # streamed engine
+        self.engine: Optional[Union[ScenarioEngine, PopulationEngine]] = None
         self.pop: Optional[PopulationEngine] = None
-        if scenario is not None:
-            if scenario.population is None:
-                raise NotImplementedError(
-                    "enumerated scenarios (ScenarioEngine) arrive with a "
-                    "later slice; only virtual populations run here")
+        if scenario is not None and scenario.population is not None:
             self.engine = self.pop = PopulationEngine(scenario, fl)
             streaming = True
+        elif scenario is not None:
+            self.engine = ScenarioEngine(scenario, fl)
         # current cluster assignment B_t (static without a scenario)
         self.labels = np.repeat(np.arange(fl.num_clusters),
                                 fl.devices_per_cluster)
@@ -233,6 +256,10 @@ class FLSimulator:
             self._pipe: Optional[Dict] = None
         else:
             self.bank = ModelBank.from_model(one, n, device=self.device)
+            self._buckets = cohort_buckets(n)
+        # a partial cohort trains on a compacted (k_pad, T) gather of its
+        # rows; False keeps it on the mask-frozen full bank
+        self._compact_enabled = True
         self._pipeline = bool(pipeline)
         if self._pipeline and not self._streamed:
             raise ValueError("pipeline=True overlaps paging with compute: "
@@ -246,12 +273,38 @@ class FLSimulator:
         # the latest streamed round's paging (rows in/out, bits a row),
         # which the event clock charges; None for the resident bank
         self.last_paging: Optional[Dict[str, int]] = None
-        self._canonical = prg.canonical_program(fl)
+        # every round lowers a RoundProgram: the canonical one (with the
+        # FaultGate directive under a fault-injecting scenario), or what
+        # the schedule hook picks for the round
+        faulted = self.engine is not None and self.engine.faults is not None
+        self._canonical = prg.canonical_program(fl, faults=faulted)
+        self._schedule_fn: Optional[prg.ScheduleFn] = None
+        if isinstance(schedule, str):
+            self._schedule_fn = prg.make_schedule(
+                schedule, fl, engine=self.engine, faults=faulted, sim=self)
+        elif isinstance(schedule, prg.RoundProgram):
+            def _fixed(r, plan, _program=schedule):
+                return _program
+            self._schedule_fn = _fixed
+        elif schedule is not None:
+            self._schedule_fn = schedule
+        if self.pop is not None and schedule is not None:
+            raise ValueError("round schedules need enumerated devices "
+                             "(tau_dev and speed vectors are per device): "
+                             "not with a virtual population")
         self._hier = topo.Hierarchy.from_config(fl)
         self.round_index = 0
         self.last_program: Optional[prg.RoundProgram] = None
         self._lowered: Dict = {}       # (kind, signature) -> round fn
         self._static_mats: Dict = {}   # program signature -> device mats
+        self._inter_static: Dict = {fl.pi: self.sched.W_inter}
+        self._tier_static: Dict = {}   # depth>2 tiers: H_l, operators
+        self._static_labels = self.labels.copy()
+        # async bounded-staleness state: the per-cluster timeline carried
+        # across rounds, the cumulative phases, the latest round's record
+        self._async_carry: Optional[Dict] = None
+        self._async_phases = np.zeros(fl.num_clusters, dtype=int)
+        self.last_async: Optional[Dict] = None
         self.key = rnd.PRNGKey(seed + 1)
 
         # per-row gradients, taken with respect to the bank's leaf views:
@@ -290,12 +343,14 @@ class FLSimulator:
 
     # -- one round -----------------------------------------------------------
     @staticmethod
-    def _step_keys(key: np.ndarray, runs) -> np.ndarray:
+    def _step_keys(key: np.ndarray, runs, block_keyed: bool = False
+                   ) -> np.ndarray:
         """(steps, 2) keys of every local step of one round, from the
         reference's schedule: the round key split per block, each block
-        key split per local step."""
+        key split per local step. ``block_keyed`` (one-block programs of
+        an async event) takes ``key`` as the block key itself."""
         nblocks = sum(count for _, count in runs)
-        bkeys = rnd.split(key, nblocks)
+        bkeys = key[None] if block_keyed else rnd.split(key, nblocks)
         out = []
         ki = 0
         for bp, count in runs:
@@ -306,127 +361,281 @@ class FLSimulator:
 
     def _local_step(self, Y: torch.Tensor, M: torch.Tensor,
                     xs: torch.Tensor, ys: torch.Tensor, idx: torch.Tensor,
-                    lr: float) -> None:
-        """One SGD+momentum step of every row of Y (row i trains on
-        ``xs[i]``, ``ys[i]`` at batch indices ``idx[i]``), in place:
-        M ← μM + G;  Y ← Y − lr·M.
+                    lr: float, act: Optional[np.ndarray] = None) -> None:
+        """One SGD+momentum step of the rows of Y whose ``act`` entry is
+        set (None: every row; row i trains on ``xs[i]``, ``ys[i]`` at
+        batch indices ``idx[i]``), in place:
+        M ← μM + G;  Y ← Y − lr·M, and the other rows keep their values —
+        the reference's ``where(act, μM + G, M)`` / ``where(act, Y − lr·M,
+        Y)``. With every row set it runs on Y and M themselves, with no
+        gather; otherwise on a gather of the set rows, written back.
 
         The reference's jitted round donated these buffers to XLA, which
         fused the update; here the bank is updated in place for the same
         effect (one resident copy of Y and M)."""
+        if act is not None and not act.all():
+            if not act.any():
+                return
+            sel = torch.from_numpy(np.nonzero(act)[0]).to(Y.device)
+            Ya, Ma = Y[sel], M[sel]
+            self._sgd_step(Ya, Ma, xs[sel], ys[sel], idx[sel], lr)
+            Y.index_copy_(0, sel, Ya)
+            M.index_copy_(0, sel, Ma)
+            return
+        self._sgd_step(Y, M, xs, ys, idx, lr)
+
+    def _sgd_step(self, Y, M, xs, ys, idx, lr: float) -> None:
         n = Y.shape[0]
         rows = torch.arange(n, device=Y.device)[:, None]
-        xb = xs[rows, idx]
-        yb = ys[rows, idx]
-        grads = self._grad_rows(self.layout.unflatten_stack(Y), xb, yb)
+        grads = self._grad_rows(self.layout.unflatten_stack(Y),
+                                xs[rows, idx], ys[rows, idx])
         M.mul_(self.momentum)
         for (o, s), g in zip(self.layout.segments, tr.tree_leaves(grads)):
             M[:, o:o + s].add_(g.reshape(n, s))
+        del grads
         Y.sub_(M, alpha=lr)
 
-    def _run_blocks(self, Y, M, xs, ys, idx, runs, args, k: int):
-        """The blocks of one lowered round: τ local steps of the first
-        ``k`` rows (the trainers; the other rows stay frozen, as the
-        reference's ``where`` keeps them), then one streaming pass of each
+    def _train_block(self, Y, M, xs, ys, idx, step: int, op: prg.LocalSteps,
+                     k: int, act: Optional[np.ndarray],
+                     tau_rows: Optional[np.ndarray]) -> int:
+        """τ local steps of one block on the first ``k`` rows of Y (the
+        trainers; the other rows stay frozen), restricted to the rows
+        whose ``act`` is set and, for an adaptive op, to the rows whose
+        step index lies below their ``tau_rows`` cut-off (the
+        reference's ``act & (s < tau_dev)``). Returns the next step's
+        index into ``idx``."""
+        lr = self.lr * op.lr_scale
+        for s in range(op.tau):
+            a = act
+            if op.adaptive and tau_rows is not None:
+                cut = np.asarray(tau_rows[:k]) > s
+                a = cut if a is None else a & cut
+            if k:
+                self._local_step(Y[:k], M[:k], xs, ys, idx[step], lr, a)
+            step += 1
+        return step
+
+    def _run_blocks(self, Y, M, xs, ys, idx, runs, args, k: int,
+                    act: Optional[np.ndarray] = None,
+                    tau_rows: Optional[np.ndarray] = None):
+        """The blocks of one lowered round: τ local steps of the trainers
+        (:meth:`_train_block`), then one streaming pass of each
         MixGroup's operator over all rows. Returns Y (the same tensor on
         the card, where the square mix writes in place)."""
         mi = step = 0
         for bp, count in runs:
             gm = args.mats[mi:mi + len(bp.groups)]
             mi += len(bp.groups)
-            lr = self.lr * bp.local.lr_scale
             for _ in range(count):
-                for _ in range(bp.local.tau):
-                    if k:
-                        self._local_step(Y[:k], M[:k], xs, ys, idx[step],
-                                         lr)
-                    step += 1
+                step = self._train_block(Y, M, xs, ys, idx, step, bp.local,
+                                         k, act, tau_rows)
                 for W in gm:
                     Y = gossip_mix_rows(W, Y)
         return Y
 
-    def _resolve_args(self, program: prg.RoundProgram,
-                      plan: Optional[RoundPlan] = None) -> prg.RoundArgs:
-        """Runtime operands of one round of ``program``: its mixing
-        matrices (``resolve_matrices`` order) as f32 tensors on the
-        device. Static rounds (``plan`` None) cache them per program
-        structure; a plan's round takes its masked, renormalized
-        operators (a population has no faults, so no operator is
-        gated)."""
+    # -- operators of one round ----------------------------------------------
+    def _scenario_h(self, plan=None) -> np.ndarray:
+        """The round's backhaul mixing matrix: the plan's link-loss
+        degraded one (FaultModel), else the scenario's or the static."""
+        if plan is not None and plan.H_eff is not None:
+            return plan.H_eff
+        return self.engine.H if self.engine is not None else self.sched.H
+
+    def _inter_operator(self, pi: int, plan, renorm: bool) -> np.ndarray:
+        """The (n, n) inter-cluster operator at gossip depth ``pi`` for
+        this round — the static schedule's W_inter when possible, else
+        the (masked) time-varying eq. 11 form at the requested depth,
+        built over the plan's surviving backhaul under link faults."""
+        if plan is None:
+            W = self._inter_static.get(pi)
+            if W is None:
+                W = make_masked_w(self.fl, self._static_labels,
+                                  np.ones(self.sched.n), self.sched.H,
+                                  pi=pi)[1]
+                self._inter_static[pi] = W
+            return W
+        if renorm:
+            if pi == self.fl.pi:
+                return plan.W_inter
+            return make_masked_w(self.fl, plan.labels, plan.mask,
+                                 self._scenario_h(plan), pi=pi)[1]
+        return make_masked_w(self.fl, plan.labels,
+                             np.ones(plan.labels.shape[0]),
+                             self._scenario_h(plan), pi=pi)[1]
+
+    def _tier_operator(self, op: prg.TierMix, plan, renorm: bool
+                       ) -> np.ndarray:
+        """The (n, n) dense operator of any ``TierMix`` this round: levels
+        0 and 1 through the intra/inter resolvers (with the masked
+        scenario forms), deeper tiers B_ℓ^T diag(c) H_ℓ^π B_ℓ from the
+        hierarchy — cached per (level, pi) for static rounds, recomposed
+        from the plan's labels lifted to tier-ℓ nodes otherwise."""
+        hier = self._hier
+        if not (0 <= op.level < hier.depth):
+            raise ValueError(
+                f"TierMix level {op.level} outside hierarchy of depth "
+                f"{hier.depth} (tiers {hier.levels})")
+        if op.level == 0:
+            if plan is None:
+                return self.sched.W_intra
+            if renorm:
+                return plan.W_intra
+            return make_masked_w(self.fl, plan.labels,
+                                 np.ones(plan.labels.shape[0]),
+                                 self._scenario_h(plan))[0]
+        if op.level == 1:
+            return self._inter_operator(op.pi, plan, renorm)
+        ck = ("H", op.level)
+        H_l = self._tier_static.get(ck)
+        if H_l is None:
+            H_l = hier.mixing(op.level, self.fl.topology, self.fl.mixing,
+                              self.fl)
+            self._tier_static[ck] = H_l
+        if plan is None:
+            key = (op.level, op.pi)
+            W = self._tier_static.get(key)
+            if W is None:
+                W = hier.tier_operator(op.level, op.pi, self.fl.topology,
+                                       self.fl.mixing, self.fl)
+                self._tier_static[key] = W
+            return W
+        B = topo.assignment_matrix(
+            hier.node_labels(op.level, plan.labels),
+            hier.num_nodes(op.level))
+        return topo.masked_inter_operator(
+            B, H_l, op.pi, plan.mask if renorm else None)
+
+    def _fault_gate(self, program: prg.RoundProgram, plan) -> Callable:
+        """Per-op operator gate for the plan's realized faults: under a
+        ``FaultGate`` directive with dark clusters, every resolved
+        operator gets :func:`repro_torch.core.gossip.fault_gate` applied
+        *before* any fusion (gate(A)·gate(B) is what the fused boundary
+        executes). Identity otherwise."""
+        if (program.fault_gate and plan is not None
+                and plan.fault is not None
+                and plan.fault.cluster_down.any()):
+            down = plan.fault.cluster_down
+            labels = plan.labels
+            return lambda W: gsp.fault_gate(W, labels, down)
+        return lambda W: W
+
+    def _resolve_mats(self, program: prg.RoundProgram,
+                      plan) -> Tuple[np.ndarray, ...]:
+        """The round's mixing matrices on the host, in ``resolve_matrices``
+        order: fault-gated, masked and renormalized (or not) as the
+        program's directives ask."""
         plans = prg.lowering_plan(program, fuse=True)
+        renorm = program.mask_renorm
+        if plan is None:
+            return prg.resolve_matrices(
+                plans, self.sched.W_intra,
+                lambda pi: self._inter_operator(pi, None, renorm),
+                tier_of=lambda op: self._tier_operator(op, None, renorm))
+        gate = self._fault_gate(program, plan)
+        return prg.resolve_matrices(
+            plans, gate(self._tier_operator(prg.IntraMix(), plan, renorm)),
+            lambda pi: gate(self._inter_operator(pi, plan, renorm)),
+            tier_of=lambda op: gate(self._tier_operator(op, plan, renorm)))
+
+    def _resolve_args(self, program: prg.RoundProgram,
+                      plan=None) -> prg.RoundArgs:
+        """Runtime operands of one round of ``program``: its mixing
+        matrices as f32 tensors on the device (static rounds cache them
+        per program structure) and, for an adaptive program, its
+        per-device step cut-offs (host array)."""
         if plan is None:
             ck = program.signature
             mats = self._static_mats.get(ck)
             if mats is None:
-                def inter_of_pi(pi: int) -> np.ndarray:
-                    if pi != self.fl.pi:
-                        raise NotImplementedError(
-                            "gossip depths other than fl.pi arrive with "
-                            "the schedules of a later slice")
-                    return self.sched.W_inter
-
-                def tier_of(op: prg.TierMix) -> np.ndarray:
-                    return self._hier.tier_operator(
-                        op.level, op.pi, self.fl.topology, self.fl.mixing,
-                        self.fl)
-                mats = tuple(
-                    torch.from_numpy(m).to(self.device)
-                    for m in prg.resolve_matrices(plans, self.sched.W_intra,
-                                                  inter_of_pi, tier_of))
+                mats = tuple(torch.from_numpy(m).to(self.device)
+                             for m in self._resolve_mats(program, None))
                 self._static_mats[ck] = mats
-            return prg.RoundArgs(mats)
-        if not program.mask_renorm:
-            raise ValueError("plan rounds need mask-renormalized operators: "
-                             "unrenormalized rows weight absent members")
-        H = self._backhaul()
+        else:
+            mats = tuple(torch.from_numpy(m).to(self.device)
+                         for m in self._resolve_mats(program, plan))
+        tau_dev = (np.asarray(program.tau_dev, np.int32)
+                   if program.adaptive else None)
+        return prg.RoundArgs(mats, tau_dev)
 
-        def inter_of_pi(pi: int) -> np.ndarray:
-            if pi == self.fl.pi:
-                return plan.W_inter
-            return make_masked_w(self.fl, plan.labels, plan.mask, H,
-                                 pi=pi)[1]
-
-        def tier_of(op: prg.TierMix) -> np.ndarray:
-            hier = self._hier
-            B = topo.assignment_matrix(
-                hier.node_labels(op.level, plan.labels),
-                hier.num_nodes(op.level))
-            H_l = hier.mixing(op.level, self.fl.topology, self.fl.mixing,
-                              self.fl)
-            return topo.masked_inter_operator(B, H_l, op.pi, plan.mask)
-        return prg.RoundArgs(tuple(
-            torch.from_numpy(m).to(self.device)
-            for m in prg.resolve_matrices(plans, plan.W_intra, inter_of_pi,
-                                          tier_of)))
-
-    def _backhaul(self) -> np.ndarray:
-        """The m x m backhaul mixing matrix (a population has no link
-        faults, so it is the static one)."""
-        return self.engine.H if self.engine is not None else self.sched.H
-
-    def _lower_flat(self, program: prg.RoundProgram) -> Callable:
+    # -- lowerings -----------------------------------------------------------
+    def _lower_flat(self, program: prg.RoundProgram,
+                    block_keyed: bool = False) -> Callable:
         """Lower a plain RoundProgram to the flat global round
-        ``global_round(Y, M, key, args) -> Y``: all state stays (n, T);
-        each block runs τ local steps, then one streaming pass
+        ``global_round(Y, M, key, args, mask) -> Y``: all state stays
+        (n, T); each block runs τ local steps of the rows whose ``mask``
+        entry is set (None: all), then one streaming pass
         (``gossip_mix_rows``) of each MixGroup's fused operator — for the
         canonical program the final τ-boundary coincides with the
         qτ-boundary and arrives pre-fused as ``W_inter @ W_intra``. M is
         updated in place; the returned Y is the bank's params (the same
-        tensor on the card, where the square mix writes in place)."""
-        if program.has_upload or program.adaptive:
+        tensor on the card, where the square mix writes in place).
+        ``block_keyed`` lowers a one-block program that takes the passed
+        key as its block key (an async event replays one block with the
+        barrier's key of that block)."""
+        if program.has_upload:
             raise NotImplementedError(
-                "upload and adaptive programs arrive with a later slice")
+                "upload programs (compression, privacy) arrive with a "
+                "later slice (ROADMAP A9)")
+        runs = prg.block_runs(prg.lowering_plan(program, fuse=True))
+        if block_keyed and sum(c for _, c in runs) != 1:
+            raise ValueError("block_keyed lowers one-block programs")
+        n, N = self.sched.n, self.data["xs"].shape[1]
+
+        def global_round(Y, M, key, args, mask=None):
+            # every step's batch indices in one host draw and one copy
+            idx = rnd.randint(self._step_keys(key, runs, block_keyed),
+                              (n, self.batch), 0, N)
+            idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+            act = None if mask is None else np.asarray(mask) > 0.5
+            return self._run_blocks(Y, M, self.data["xs"], self.data["ys"],
+                                    idx, runs, args, n, act, args.tau_dev)
+        return global_round
+
+    def _lower_compact(self, program: prg.RoundProgram) -> Callable:
+        """Lower a plain RoundProgram to the compacted scenario round
+        ``compact_round(Y, M, key, cp, args) -> Y``: per block the
+        ``k_pad`` rows of ``cp.idx`` (cohort first, distinct padding
+        rows after) are gathered into a dense slab, its first ``k`` rows
+        train (the padding lanes stay frozen, as the reference's ``lane``
+        mask keeps them) and the slab is written back with
+        ``index_copy_``; the mixing boundaries then stream the FULL bank,
+        since masked operators move every device's row. Gathering
+        ``k_pad`` rather than ``k`` rows keeps the allocator on the few
+        bucket sizes. The cohort sees the batches of the full path: the
+        (steps, n, batch) draw is taken at ``idx[:, cp.idx]``."""
+        if program.has_upload:
+            raise NotImplementedError(
+                "compacted rounds run plain programs (upload programs "
+                "arrive with ROADMAP A9)")
         runs = prg.block_runs(prg.lowering_plan(program, fuse=True))
         n, N = self.sched.n, self.data["xs"].shape[1]
 
-        def global_round(Y, M, key, args):
-            # every step's batch indices in one host draw and one copy
+        def compact_round(Y, M, key, cp, args):
+            k = cp.k
+            rows = cp.idx.astype(np.int64)
             idx = rnd.randint(self._step_keys(key, runs), (n, self.batch),
-                              0, N)
+                              0, N)[:, rows[:k]]
             idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-            return self._run_blocks(Y, M, self.data["xs"], self.data["ys"],
-                                    idx, runs, args, n)
-        return global_round
+            sel = torch.from_numpy(rows).to(self.device)
+            xs, ys = self.data["xs"][sel[:k]], self.data["ys"][sel[:k]]
+            tau_rows = (None if args.tau_dev is None
+                        else args.tau_dev[rows])
+            Mc = M[sel]
+            mi = step = 0
+            for bp, count in runs:
+                gm = args.mats[mi:mi + len(bp.groups)]
+                mi += len(bp.groups)
+                for _ in range(count):
+                    P = Y[sel]
+                    step = self._train_block(P, Mc, xs, ys, idx, step,
+                                             bp.local, k, None, tau_rows)
+                    Y.index_copy_(0, sel, P)
+                    del P
+                    for W in gm:
+                        Y = gossip_mix_rows(W, Y)
+            M.index_copy_(0, sel, Mc)
+            return Y
+        return compact_round
 
     def _lower_streamed(self, program: prg.RoundProgram,
                         per_client: bool = False) -> Callable:
@@ -435,15 +644,15 @@ class FLSimulator:
         state is the hot (S, T) slab, the operators arrive restricted to
         the working set, ``didx`` maps each lane to its data shard,
         ``cids`` holds its client id, and the first ``k`` lanes are the
-        trainers (cold representatives and padding only mix).
+        trainers (cold representatives and padding only mix; an adaptive
+        program's cut-offs are read per lane at ``tau_dev[didx]``).
         ``per_client`` draws each trainer's batch from the step key
         folded with its client id (virtual populations); otherwise the
         enumerated-n draw is gathered by ``didx`` (the resident round's
         batches)."""
-        if program.has_upload or program.adaptive:
+        if program.has_upload:
             raise NotImplementedError(
-                "streamed rounds run plain programs (no upload transforms, "
-                "no adaptive steps)")
+                "streamed rounds run plain programs (no upload transforms)")
         plans = prg.lowering_plan(program, fuse=True)
         if not plans[-1].groups:
             raise ValueError(
@@ -464,18 +673,25 @@ class FLSimulator:
             idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
             sel = torch.from_numpy(np.asarray(didx[:k], np.int64)).to(
                 self.device)
+            tau_rows = (None if args.tau_dev is None
+                        else args.tau_dev[np.asarray(didx, np.int64)])
             return self._run_blocks(Y, M, self.data["xs"][sel],
-                                    self.data["ys"][sel], idx, runs, args, k)
+                                    self.data["ys"][sel], idx, runs, args, k,
+                                    tau_rows=tau_rows)
         return streamed_round
 
     def _get_round(self, kind: str, program: prg.RoundProgram) -> Callable:
         """The lowering of ``program`` for one engine kind ("flat",
-        "streamed", "streamed_pop"), built once per program structure."""
+        "flat_block", "compact", "streamed", "streamed_pop"), built once
+        per program structure."""
         ck = (kind, program.signature)
         fn = self._lowered.get(ck)
         if fn is None:
-            if kind == "flat":
-                fn = self._lower_flat(program)
+            if kind in ("flat", "flat_block"):
+                fn = self._lower_flat(program,
+                                      block_keyed=kind == "flat_block")
+            elif kind == "compact":
+                fn = self._lower_compact(program)
             else:
                 fn = self._lower_streamed(program,
                                           per_client=kind == "streamed_pop")
@@ -487,45 +703,170 @@ class FLSimulator:
         self.key = keys[0]
         return keys[1]
 
+    def _begin_round(self):
+        """Draw the round's plan (moving ``labels`` with an enumerated
+        scenario) and pick its program: the schedule hook's, or the
+        canonical one; ``last_program`` records it for the event
+        clock."""
+        plan = self.engine.step() if self.engine is not None else None
+        if plan is not None and self.pop is None and not self._streamed:
+            self.labels = plan.labels
+        r = self.round_index
+        self.round_index += 1
+        program = (self._schedule_fn(r, plan)
+                   if self._schedule_fn is not None else self._canonical)
+        self.last_program = program
+        return plan, r, program
+
     def step_round(self) -> Optional[RoundPlan]:
-        """Advance ONE global round of the canonical program (q blocks of
-        τ local steps, each closed by its mixing boundary);
-        ``last_program`` records the program for the event clock.
-        Returns the round's plan (a ``CohortPlan`` with a population),
-        or None without a scenario."""
+        """Advance ONE global round.
+
+        With a scenario attached, first realizes the round's plan
+        (mobility re-draws B_t, sampling draws the cohort, faults gate
+        clusters and links); the schedule hook (or the canonical
+        program) then decides the round's RoundProgram, whose resolved
+        operators feed its lowering. A partial cohort of a plain program
+        trains on the compacted gather (``last_bucket`` records its
+        capacity); a fully dark fault round (empty cohort) runs the flat
+        round, whose zero mask freezes training and whose fault-gated
+        operators are the identity. Returns the round's plan (a
+        ``CohortPlan`` with a population), or None without a
+        scenario."""
         if self._streamed:
             if self._pipeline:
                 return self._step_round_streamed_pipelined()
             return self._step_round_streamed()
-        program = self._canonical
-        self.round_index += 1
-        self.last_program = program
-        fn = self._get_round("flat", program)
-        k = self._next_key()
+        plan, _, program = self._begin_round()
+        mask = None if plan is None else plan.mask
+        args = self._resolve_args(program, plan)
+        key = self._next_key()
         b = self.bank
-        b.params = fn(b.params, b.mom, k, self._resolve_args(program))
-        return None
+        k_active = b.n if mask is None else int(np.sum(mask > 0.5))
+        if (not program.has_upload and 0 < k_active < b.n
+                and self._compact_enabled):
+            cp = compact_plan(mask, self._buckets)
+            self.last_bucket = cp.k_pad
+            fn = self._get_round("compact", program)
+            b.params = fn(b.params, b.mom, key, cp, args)
+            return plan
+        self.last_bucket = b.n
+        fn = self._get_round("flat", program)
+        b.params = fn(b.params, b.mom, key, args, mask)
+        return plan
+
+    def step_round_async(self, staleness: int, rt, *,
+                         uplink_ratio: float = 1.0) -> Optional[RoundPlan]:
+        """Advance ONE global round in async bounded-staleness mode.
+
+        The round's blocks execute as a per-cluster *event sequence*:
+        :func:`repro_torch.core.clock.async_program_timeline` schedules
+        when each cluster clears each block under the wait rule (own
+        previous block done AND every dependency neighbor within
+        ``staleness`` blocks), and each event replays that block for its
+        advancing clusters only — local steps masked to their devices,
+        then the block's fused operator gated by
+        :func:`repro_torch.core.gossip.staleness_mask`, one
+        ``gossip_mix_rows`` pass, so a boundary never reads a model more
+        than ``staleness`` blocks away. At ``staleness == 0`` every event
+        advances all clusters in lockstep with the unmodified operator
+        and the barrier's block keys: the flat barrier round, bit for
+        bit.
+
+        ``rt`` is the :class:`repro_torch.core.runtime.RuntimeModel`
+        whose pricing orders the events (the model state depends only on
+        the event order). Plain programs on the resident bank only.
+        Records ``last_async``: the timeline, the staleness bound, the
+        cumulative per-cluster phases and a per-event trace (phases
+        before the advance, realized cross-cluster gossip edges)."""
+        if self._streamed:
+            raise ValueError(
+                "async bounded-staleness execution needs resident rows "
+                "(blocks replay against the full bank, not a paged slab)")
+        plan, _, program = self._begin_round()
+        if program.has_upload:
+            raise NotImplementedError(
+                "async mode runs plain programs (no upload/EF state)")
+        mask = None if plan is None else plan.mask
+        m = self.fl.num_clusters
+        fleet = (None if self.engine is None
+                 else np.asarray(self.engine.speed_multipliers, float)
+                 * rt.hw.device_flops)
+        # the per-cluster timeline is carried across rounds, as the event
+        # clock carries it; s=0 is a pure barrier and forgets it
+        carry = None if staleness == 0 else self._async_carry
+        tl = clk.async_program_timeline(
+            rt, self.fl, program, fleet, mask, self.labels, staleness,
+            uplink_ratio, carry=carry)
+        self._async_carry = None if staleness == 0 else tl["carry_out"]
+        bprogs = prg.block_programs(program)
+        nblocks = len(bprogs)
+        base = [(self._resolve_mats(bp, plan),
+                 np.asarray(bp.tau_dev, np.int32) if bp.adaptive else None)
+                for bp in bprogs]
+        cohort = (np.ones(self.sched.n) if mask is None
+                  else np.asarray(mask, float))
+        # host-side split == the barrier round's split of its key
+        bkeys = rnd.split(self._next_key(), nblocks)
+        b = self.bank
+        self.last_bucket = b.n
+        phases = np.zeros(m, dtype=int)
+        trace: List[Dict] = []
+        for ev in tl["events"]:
+            adv = np.zeros(m, dtype=bool)
+            adv[list(ev.clusters)] = True
+            if not (phases[adv] == ev.block).all():
+                raise RuntimeError("async event found its clusters at "
+                                   "another phase than its block")
+            mats, tau_dev = base[ev.block]
+            if len(mats) != 1:
+                raise RuntimeError("a fused plain block has one MixGroup")
+            Wm = gsp.staleness_mask(mats[0], self.labels, phases,
+                                    staleness, adv)
+            args = prg.RoundArgs((torch.from_numpy(Wm).to(self.device),),
+                                 tau_dev)
+            fn = self._get_round("flat_block", bprogs[ev.block])
+            b.params = fn(b.params, b.mom, bkeys[ev.block], args,
+                          cohort * adv[self.labels])
+            cross = (Wm != 0) & (self.labels[:, None]
+                                 != self.labels[None, :])
+            ii, jj = np.nonzero(cross)
+            edges = sorted({(int(a), int(c)) for a, c in
+                            zip(self.labels[ii], self.labels[jj])})
+            trace.append({"time": ev.time, "block": ev.block,
+                          "clusters": ev.clusters,
+                          "phases": phases.copy(), "edges": edges})
+            phases[adv] += 1
+        if not (phases == nblocks).all():
+            raise RuntimeError("async round left clusters mid-phase")
+        self._async_phases = self._async_phases + phases
+        self.last_async = {"timeline": tl, "trace": trace,
+                           "staleness": int(staleness),
+                           "phases": self._async_phases.copy()}
+        return plan
 
     # -- streamed rounds -----------------------------------------------------
-    def _begin_streamed(self):
-        """Draw the round's plan and program (shared by both streamed
-        drivers)."""
-        plan = self.engine.step() if self.engine is not None else None
-        r = self.round_index
-        self.round_index += 1
-        program = self._canonical
-        self.last_program = program
-        return plan, r, program
+    def _check_streamed_program(self, program: prg.RoundProgram) -> None:
+        if program.has_upload:
+            raise NotImplementedError(
+                "streamed rounds reject upload programs (EF residual and "
+                "DP noise are per-device state the store does not page)")
+        if not program.mask_renorm:
+            raise ValueError("streamed rounds need mask-renormalized "
+                             "operators: unrenormalized rows weight absent "
+                             "cold members")
 
     def _slab_args(self, program: prg.RoundProgram, ws: Dict,
-                   r: int) -> prg.RoundArgs:
+                   r: int, plan) -> prg.RoundArgs:
         """The round's operators restricted to the working set (exact:
         every masked operator row reads participant columns only and is
-        a function of the row's cluster label)."""
+        a function of the row's cluster label), built over the plan's
+        surviving backhaul and fault-gated by the plan's dark
+        clusters."""
         W_i, W_e = make_masked_w(self.fl, ws["ws_labels"], ws["mask_slab"],
-                                 self._backhaul())
+                                 self._scenario_h(plan))
         splan = RoundPlan(r, self.fl.num_clusters, ws["ws_labels"],
-                          ws["mask_slab"], W_i, W_e)
+                          ws["mask_slab"], W_i, W_e, fault=ws["fault"],
+                          H_eff=ws["h_eff"])
         return self._resolve_args(program, splan)
 
     def _finish_streamed(self, S: int, k: int) -> None:
@@ -538,18 +879,23 @@ class FLSimulator:
 
     def _step_round_streamed(self) -> Optional[RoundPlan]:
         """One serial streamed global round: page the working set in on
-        the host (params from each lane's cluster reference, momentum
-        decoded by the host codec for the trainers, zeros on first
-        touch), run the slab-restricted program, page out (each
-        cluster's synced lane becomes its reference; the trainers'
-        momentum is re-encoded). The pipelined driver's oracle."""
+        the host (params from each lane's cluster reference at its last
+        sync, momentum decoded by the host codec for the trainers, zeros
+        on first touch), run the slab-restricted program, page out (each
+        cluster's synced lane becomes its reference, except a fault-dark
+        cluster's, whose gated rows never mixed and which keeps a stale
+        reference; the trainers' momentum is re-encoded). The pipelined
+        driver's oracle."""
         st = self.store
         m = self.fl.num_clusters
-        plan, r, program = self._begin_streamed()
+        plan, r, program = self._begin_round()
+        self._check_streamed_program(program)
         ws = self._working_set(plan)
+        if self.pop is None:
+            self.labels = ws["labels_now"]
         k, S = ws["k"], ws["S"]
         clients, ws_labels = ws["clients"], ws["ws_labels"]
-        args = self._slab_args(program, ws, r)
+        args = self._slab_args(program, ws, r, plan)
         t0 = time.perf_counter()
         params_rows = st.cluster_params[ws["src_labels"]]
         mom_rows = np.zeros((S, self.layout.total), np.float32)
@@ -572,21 +918,35 @@ class FLSimulator:
         # over participants by position) carries the synced reference
         ref_lane = np.full(m, -1, np.int64)
         ref_lane[ws_labels] = np.arange(S)
+        down = self._dark_clusters(ws)
         refs = st.cluster_params.copy()
         for c in range(m):
-            if ref_lane[c] >= 0:
+            if ref_lane[c] >= 0 and not down[c]:
                 refs[c] = Yh[ref_lane[c]]
         st.update_clusters(refs)
         if k:
             st.commit(clients[:k], Mh)
         self._page_seconds += time.perf_counter() - t0
+        if self.pop is None:
+            # the next round's page-in reads the reference of the cluster
+            # a device sat in NOW: the trailing boundary synced every row
+            self._page_labels = self.labels.copy()
         self._finish_streamed(S, k)
         return plan
+
+    def _dark_clusters(self, ws: Dict) -> np.ndarray:
+        """(m,) bool: the working set's fault-dark clusters (their
+        references stay stale at page-out)."""
+        fault = ws["fault"]
+        if fault is None:
+            return np.zeros(self.fl.num_clusters, bool)
+        return np.asarray(fault.cluster_down, bool)
 
     def _working_set(self, plan) -> Dict:
         """One streamed round's working set from its plan — shared by the
         serial and pipelined drivers (identical assembly is half of their
-        bit-identity)."""
+        bit-identity). Reads ``_page_labels`` at enumerated n, so the
+        pipelined prefetch calls it after the previous round set them."""
         m = self.fl.num_clusters
         if self.pop is not None:
             # virtual population: cohort ids from the keyed engine, one
@@ -600,12 +960,28 @@ class FLSimulator:
                  self.engine.home_cluster(reps)])
             src_labels = ws_labels
             didx = clients % self.data["xs"].shape[0]
+            labels_now, h_eff = None, None
         else:
-            # enumerated n without a scenario: every device trains, so
-            # the working set is the whole fleet and has no cold lanes
-            cohort = clients = np.arange(self.sched.n, dtype=np.int64)
-            ws_labels = self.labels
-            src_labels = self._page_labels
+            # enumerated n: the plan's cohort (everyone without a
+            # scenario) plus the first cold member of each cluster as its
+            # representative
+            if plan is not None:
+                labels_now = np.asarray(plan.labels, np.int64)
+                mask = np.asarray(plan.mask)
+                h_eff = plan.H_eff
+            else:
+                labels_now = self.labels
+                mask = np.ones(self.sched.n)
+                h_eff = None
+            cold = mask <= 0
+            cohort = np.nonzero(~cold)[0].astype(np.int64)
+            reps = np.asarray(
+                [np.nonzero(cold & (labels_now == c))[0][0]
+                 for c in range(m)
+                 if (cold & (labels_now == c)).any()], np.int64)
+            clients = np.concatenate([cohort, reps])
+            ws_labels = labels_now[clients]
+            src_labels = self._page_labels[clients]
             didx = clients
         k = int(cohort.shape[0])
         S_raw = int(clients.shape[0])
@@ -626,7 +1002,9 @@ class FLSimulator:
         return {"cohort": cohort, "clients": clients,
                 "ws_labels": ws_labels, "src_labels": src_labels,
                 "didx": didx, "k": k, "S": S, "lane": lane,
-                "mask_slab": lane.astype(float)}
+                "mask_slab": lane.astype(float),
+                "labels_now": labels_now, "h_eff": h_eff,
+                "fault": getattr(plan, "fault", None)}
 
     # -- overlapped streamed driver ------------------------------------------
     def _peek_plan(self):
@@ -784,7 +1162,8 @@ class FLSimulator:
         m = self.fl.num_clusters
         codec, segs = self.store.codec, self.layout.segments
         p = self._pipe_state()
-        plan, r, program = self._begin_streamed()
+        plan, r, program = self._begin_round()
+        self._check_streamed_program(program)
         staged, p["staged"] = p["staged"], None
         if staged is not None:
             if staged["r"] != r or not self._plans_match(staged["plan"],
@@ -798,8 +1177,12 @@ class FLSimulator:
             t0 = time.perf_counter()
             ws = self._stage_pipelined(plan, r)
             self._page_seconds += time.perf_counter() - t0
+        if self.pop is None:
+            # before the next round's staging reads them (serial order)
+            self.labels = ws["labels_now"]
+            self._page_labels = ws["labels_now"].copy()
         k, S = ws["k"], ws["S"]
-        args = self._slab_args(program, ws, r)
+        args = self._slab_args(program, ws, r, plan)
         q_in, s_in = ws["q"], ws["s"]
         if ws["h2d"]:
             stream = torch.cuda.current_stream(self.device)
@@ -828,14 +1211,16 @@ class FLSimulator:
             "streamed_pop" if self.pop is not None else "streamed", program)
         Y = fn(Y0, M, self._next_key(), ws["didx"], ws["clients"], k, args)
         # post, on the device: fold each cluster's synced lane into the
-        # references, encode the slab's momentum; the copy back starts
-        # now and lands at the next drain
+        # references (a fault-dark cluster keeps its stale one), encode
+        # the slab's momentum; the copy back starts now and lands at the
+        # next drain
         ref_lane = np.full(m, -1, np.int64)
         ref_lane[ws["ws_labels"]] = np.arange(S)
-        upd = np.nonzero(ref_lane >= 0)[0]
+        upd = np.nonzero((ref_lane >= 0) & ~self._dark_clusters(ws))[0]
         refs_new = p["refs"].clone()
-        refs_new[torch.from_numpy(upd).to(self.device)] = Y[
-            torch.from_numpy(ref_lane[upd]).to(self.device)]
+        if upd.size:
+            refs_new[torch.from_numpy(upd).to(self.device)] = Y[
+                torch.from_numpy(ref_lane[upd]).to(self.device)]
         q_out, s_out = cold_codec.encode_rows(M, codec, segs)
         p["refs"] = refs_new
         pending = dict(self._download({"q": q_out, "s": s_out,

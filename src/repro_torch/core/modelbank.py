@@ -8,10 +8,12 @@ parameter trees are views made only inside the per-device apply call
 and at evaluation, and every mixing boundary is one streaming pass of
 :func:`repro_torch.kernels.gossip_mix.gossip_mix_rows`. The streamed
 engine wraps each round's paged-in working set as a bank of its own
-(:meth:`ModelBank.from_rows`), sized by :func:`cohort_buckets`.
+(:meth:`ModelBank.from_rows`), sized by :func:`cohort_buckets`; a
+compacted scenario round gathers its cohort by :func:`compact_plan`.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -89,7 +91,7 @@ class ModelBank:
 
 
 # ---------------------------------------------------------------------------
-# slab capacities: static bucket sizes
+# slab and cohort capacities: static bucket sizes, padded gather plans
 # ---------------------------------------------------------------------------
 
 def cohort_buckets(n: int) -> Tuple[int, ...]:
@@ -114,3 +116,38 @@ def bucket_for(k: int, buckets: Tuple[int, ...]) -> int:
         if b >= k:
             return b
     raise ValueError(f"cohort {k} exceeds largest bucket {buckets[-1]}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactPlan:
+    """Padded gather plan for one round's cohort.
+
+    ``idx`` holds ``k_pad`` *distinct* device rows: the k participants
+    first, then non-participants as inert padding; ``lane`` marks the
+    real cohort lanes. Distinctness makes the scatter back into the bank
+    (``index_copy_``) write disjoint rows — deterministic, and the
+    padding lanes write back their untouched values."""
+    idx: np.ndarray     # (k_pad,) int32, distinct
+    lane: np.ndarray    # (k_pad,) bool
+    k: int              # true cohort size
+    k_pad: int          # bucket capacity
+
+
+def compact_plan(mask: np.ndarray,
+                 buckets: Optional[Tuple[int, ...]] = None) -> CompactPlan:
+    """Build the padded cohort gather plan for a 0/1 participation mask."""
+    mask = np.asarray(mask)
+    n = mask.shape[0]
+    if buckets is None:
+        buckets = cohort_buckets(n)
+    cohort = np.nonzero(mask > 0)[0]
+    k = int(cohort.shape[0])
+    assert k >= 1, "compact_plan needs at least one participant"
+    k_pad = bucket_for(k, buckets)
+    pad = k_pad - k
+    if pad:
+        complement = np.nonzero(mask <= 0)[0]
+        cohort = np.concatenate([cohort, complement[:pad]])
+    lane = np.zeros(k_pad, bool)
+    lane[:k] = True
+    return CompactPlan(cohort.astype(np.int32), lane, k, k_pad)

@@ -11,13 +11,16 @@ tiers) and the plan-level directives ``MaskRenorm``/``FaultGate``.
 :func:`lowering_plan` (blocks plus mixing groups, with fusion of adjacent
 mixes) and :func:`block_runs`, and the matrices of one concrete round
 come from :func:`resolve_matrices`, in the order the lowered round
-consumes them. The named non-canonical schedules wait for a later slice.
+consumes them. :func:`block_programs` splits a program into its blocks
+(the unit an async event replays), and :func:`make_schedule` builds the
+named non-canonical schedules (:data:`SCHEDULES`): adaptive per-cluster
+τ_k, time-varying π_t, and their online/feedback variants.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import (Callable, List, NamedTuple, Optional, Sequence, Tuple,
-                    Union)
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 
@@ -227,6 +230,37 @@ class RoundProgram:
         return dataclasses.replace(self, tau_dev=tau_dev)
 
 
+def block_programs(program: RoundProgram) -> Tuple[RoundProgram, ...]:
+    """Split a program into one single-block program per block, in block
+    order — the unit of work an async bounded-staleness round executes
+    per cluster event (``FLSimulator.step_round_async``).
+
+    Each piece keeps the parent's ``MaskRenorm`` directive and, for
+    adaptive blocks, a ``tau_dev`` binding clipped to that block's τ (the
+    per-block effective cutoff, so validation and execution match the
+    parent program's semantics block for block). Identical blocks share
+    a signature, so lowering the pieces reuses one compiled round per
+    distinct block."""
+    prefix: Tuple[Op, ...] = ((MaskRenorm(),) if program.mask_renorm
+                              else ())
+    if program.fault_gate:
+        prefix = prefix + (FaultGate(),)
+    out: List[RoundProgram] = []
+    for b in program.blocks():
+        ops: List[Op] = [b.local]
+        if b.privatize:
+            ops.append(Privatize())
+        if b.compress:
+            ops.append(Compress())
+        ops.extend(b.mixes)
+        td = None
+        if b.local.adaptive and program.tau_dev is not None:
+            td = np.minimum(np.asarray(program.tau_dev),
+                            b.local.tau).astype(np.int32)
+        out.append(RoundProgram(prefix + tuple(ops), tau_dev=td))
+    return tuple(out)
+
+
 def _parse_blocks(ops: Sequence[Op]) -> Tuple[Block, ...]:
     blocks: List[Block] = []
     i, N = 0, len(ops)
@@ -419,6 +453,19 @@ class RoundArgs(NamedTuple):
     tau_dev: Optional[object] = None
 
 
+# ---------------------------------------------------------------------------
+# schedules — ScheduleFn hook + the named non-canonical schedules
+# ---------------------------------------------------------------------------
+
+#: ``(round_idx, RoundPlan | None) -> RoundProgram`` — called once per
+#: global round, BEFORE the round runs, with the realized scenario plan
+#: (mobility/sampling) for that round; returns the program to execute.
+ScheduleFn = Callable[[int, Optional[object]], RoundProgram]
+
+SCHEDULES = ("static", "adaptive_tau", "pi_decay", "adaptive_tau_online",
+             "pi_feedback")
+
+
 def edge_disagreement(sim) -> float:
     """Mean pairwise L2 distance between the current edge (cluster)
     models of a simulator — the observable a feedback schedule adapts
@@ -435,3 +482,202 @@ def edge_disagreement(sim) -> float:
     d = np.sqrt((diffs * diffs).sum(-1))
     iu = np.triu_indices(m, 1)
     return float(d[iu].mean())
+
+
+class OnlineSpeedEstimator:
+    """EMA of realized per-device compute rates, fed by the EventClock.
+
+    ``observe`` takes the step counts and wall-clock compute times a
+    round actually charged and folds rate = steps/time into a per-device
+    EMA; devices outside the cohort keep their last estimate. The EMA is
+    kept in *raw* rate units (not per-round normalized) so observations
+    of different partial cohorts across rounds stay comparable —
+    :func:`adaptive_tau_map` only consumes the ratios exposed by
+    ``multipliers``."""
+
+    def __init__(self, n: int, beta: float = 0.5):
+        self.n = int(n)
+        self.beta = float(beta)
+        self._rate = np.full(self.n, np.nan)
+
+    def observe(self, steps: np.ndarray, times: np.ndarray,
+                mask: Optional[np.ndarray] = None) -> None:
+        steps = np.asarray(steps, float)
+        times = np.asarray(times, float)
+        sel = (steps > 0) & (times > 0)
+        if mask is not None:
+            sel &= np.asarray(mask) > 0
+        if not sel.any():
+            return
+        rate = steps[sel] / times[sel]
+        prev = self._rate[sel]
+        self._rate[sel] = np.where(
+            np.isnan(prev), rate, (1.0 - self.beta) * prev + self.beta * rate)
+
+    @property
+    def ready(self) -> bool:
+        return bool(np.isfinite(self._rate).any())
+
+    @property
+    def multipliers(self) -> np.ndarray:
+        r = self._rate
+        if not np.isfinite(r).any():
+            return np.ones(self.n)
+        return np.where(np.isfinite(r), r / np.nanmean(r), 1.0)
+
+
+def adaptive_tau_map(tau: int, labels: np.ndarray, mask: np.ndarray,
+                     multipliers: np.ndarray, num_clusters: int,
+                     tau_floor: int = 1) -> np.ndarray:
+    """Per-device step cutoffs for the adaptive-τ_k schedule.
+
+    Cluster k's cutoff scales the base τ by the speed of its slowest
+    *participating* device relative to the fastest cluster's slowest
+    device: τ_k = clip(round(τ · c_k / max_j c_j), tau_floor, τ). The
+    round's compute time — the EventClock's max-over-participants
+    τ_k·C/c_d rule — then collapses from τ/min_d c_d to ≈ τ/max_k c_k:
+    a slow cluster no longer paces everyone, it just trains less.
+    """
+    mult = np.asarray(multipliers, float)
+    c = np.full(num_clusters, np.nan)
+    for k in range(num_clusters):
+        sel = (labels == k) & (mask > 0)
+        if sel.any():
+            c[k] = mult[sel].min()
+    ref = np.nanmax(c) if np.isfinite(c).any() else 1.0
+    tau_k = np.where(np.isfinite(c),
+                     np.clip(np.round(tau * c / ref), tau_floor, tau),
+                     tau)
+    return tau_k[labels].astype(np.int32)
+
+
+def make_schedule(name: str, fl: FLConfig, *, engine=None,
+                  speeds: Optional[np.ndarray] = None,
+                  privatize: bool = False, compress: bool = False,
+                  faults: bool = False, sim=None,
+                  tau_floor: int = 1, decay_round: int = 5,
+                  pi_late: Optional[int] = None,
+                  pi_floor: int = 1,
+                  ema_beta: float = 0.5) -> ScheduleFn:
+    """Build a named :data:`ScheduleFn`.
+
+    - ``static``: the canonical program every round (the paper).
+    - ``adaptive_tau``: per-cluster τ_k cutoffs from device speeds
+      (``speeds`` multipliers, or ``engine.speed_multipliers`` of an
+      attached :class:`repro_torch.core.scenario.ScenarioEngine`); re-drawn
+      every round from that round's realized cohort and assignment, so
+      it tracks mobility. Homogeneous speeds reduce to static.
+    - ``pi_decay``: time-varying π_t — the full ``fl.pi`` gossip depth
+      while ``round_idx < decay_round`` (consensus matters early), then
+      ``pi_late`` (default max(1, fl.pi // 5)) to shed backhaul time
+      once the edge models agree.
+    - ``adaptive_tau_online``: adaptive τ_k, but driven by *online*
+      per-device rate estimates (an :class:`OnlineSpeedEstimator` EMA
+      fed by the EventClock's realized compute times) instead of oracle
+      scenario speeds. Round 0 runs the full τ; once observations
+      arrive the cutoffs converge to the oracle schedule's. The
+      estimator is exposed as ``schedule_fn.estimator`` so the wall
+      clock driver can feed it.
+    - ``pi_feedback``: time-varying π_t driven by *observed* edge-model
+      disagreement (:func:`edge_disagreement` of the attached ``sim``,
+      EMA-smoothed): π_t = clip(ceil(π · D_t/D_1), pi_floor, π), so
+      gossip depth decays exactly as fast as the edge models actually
+      agree — the closed-loop counterpart of ``pi_decay``'s open-loop
+      round threshold. Round 0 (no observation yet) runs the full π;
+      ``schedule_fn.state`` holds the EMA/reference (checkpointed by
+      ``RunCheckpoint``), ``schedule_fn.pi_trace`` the realized depths.
+
+    ``faults=True`` compiles every produced program with the
+    :class:`FaultGate` plan-level directive (fault-injecting
+    scenarios).
+    """
+    if name not in SCHEDULES:
+        raise ValueError(
+            f"unknown schedule {name!r}; choose from {SCHEDULES}")
+    canonical = canonical_program(fl, privatize=privatize,
+                                  compress=compress, faults=faults)
+    if name == "static":
+        return lambda r, plan: canonical
+
+    if name in ("adaptive_tau", "adaptive_tau_online"):
+        template = RoundProgram(
+            tuple(dataclasses.replace(o, adaptive=True)
+                  if isinstance(o, LocalSteps) else o
+                  for o in canonical.ops),
+            tau_dev=np.full(fl.n, fl.tau, np.int32))
+        base_labels = np.repeat(np.arange(fl.num_clusters),
+                                fl.devices_per_cluster)
+        full_tau = np.full(fl.n, fl.tau, np.int32)
+
+        if name == "adaptive_tau":
+            mult = None
+            if speeds is not None:
+                mult = np.asarray(speeds, float)
+            elif engine is not None:
+                mult = np.asarray(engine.speed_multipliers, float)
+            if mult is None:
+                mult = np.ones(fl.n)
+
+            def adaptive(r, plan):
+                labels = plan.labels if plan is not None else base_labels
+                mask = plan.mask if plan is not None else np.ones(fl.n)
+                return template.bind(adaptive_tau_map(
+                    fl.tau, labels, mask, mult, fl.num_clusters, tau_floor))
+            return adaptive
+
+        est = OnlineSpeedEstimator(fl.n, ema_beta)
+
+        def online(r, plan):
+            if not est.ready:
+                return template.bind(full_tau)
+            labels = plan.labels if plan is not None else base_labels
+            mask = plan.mask if plan is not None else np.ones(fl.n)
+            return template.bind(adaptive_tau_map(
+                fl.tau, labels, mask, est.multipliers, fl.num_clusters,
+                tau_floor))
+        online.estimator = est
+        return online
+
+    if name == "pi_feedback":
+        at_pi: Dict[int, RoundProgram] = {fl.pi: canonical}
+
+        def _program_at(pi: int) -> RoundProgram:
+            if pi not in at_pi:
+                at_pi[pi] = RoundProgram(tuple(
+                    InterGossip(pi) if isinstance(o, InterGossip) else o
+                    for o in canonical.ops))
+            return at_pi[pi]
+
+        state = {"ref": np.nan, "ema": np.nan}
+
+        def feedback(r, plan):
+            if sim is None or r == 0:
+                return canonical
+            d = edge_disagreement(sim)
+            if not np.isfinite(state["ema"]):
+                state["ema"] = d
+            else:
+                state["ema"] = ((1.0 - ema_beta) * state["ema"]
+                                + ema_beta * d)
+            if not np.isfinite(state["ref"]) or state["ref"] <= 0.0:
+                # first observation anchors the reference disagreement
+                state["ref"] = state["ema"]
+                feedback.pi_trace.append(fl.pi)
+                return canonical
+            frac = min(1.0, state["ema"] / state["ref"])
+            pi_r = int(np.clip(int(np.ceil(fl.pi * frac)),
+                               pi_floor, fl.pi))
+            feedback.pi_trace.append(pi_r)
+            return _program_at(pi_r)
+        feedback.state = state
+        feedback.pi_trace = []
+        return feedback
+
+    lo_pi = max(1, fl.pi // 5) if pi_late is None else pi_late
+    late = RoundProgram(tuple(
+        InterGossip(lo_pi) if isinstance(o, InterGossip) else o
+        for o in canonical.ops))
+
+    def decay(r, plan):
+        return canonical if r < decay_round else late
+    return decay

@@ -14,7 +14,7 @@ Baselines (paper §6.1 adaptation):
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 MBPS = 1e6  # bits/s
 
@@ -121,3 +121,72 @@ def paper_runtime_model(
     return RuntimeModel(HardwareProfile(),
                         WorkloadProfile(6_603_710, 13.30e6 * 50 * 3),
                         device_speeds)
+
+
+def compute_bound_runtime_model(
+        device_speeds: Optional[Sequence[float]] = None) -> RuntimeModel:
+    """A compute-dominated counterpart to :func:`paper_runtime_model`:
+    microcontroller-class devices (100 MFLOP/s — two to three orders
+    below the §6.1 iPhone) behind LAN-class links (50/200/10 Mb/s), the
+    on-premise federated-edge regime where local training, not the
+    uplink, paces the round. This is the profile under which schedule
+    adaptations of the *compute* term (adaptive per-cluster τ_k,
+    ``core.program.make_schedule("adaptive_tau", ...)``) move wall-clock
+    time-to-accuracy; under the paper's uplink-bound §6.1 constants the
+    compute term is milliseconds against minutes of communication."""
+    return RuntimeModel(
+        HardwareProfile(device_flops=0.1e9, b_d2e=50 * MBPS,
+                        b_e2e=200 * MBPS, b_d2c=10 * MBPS),
+        WorkloadProfile(6_603_710, 13.30e6 * 50 * 3),
+        device_speeds)
+
+
+def gossip_traffic_per_round(impl: str, *, num_clusters: int,
+                             devices_per_cluster: int, pi: int,
+                             degrees: Sequence[int],
+                             model_bits: float) -> Dict[str, float]:
+    """Inter-cluster aggregation traffic of one global round, in bits.
+
+    Per-replica received bits (the latency-relevant number) and total
+    network bits, by ``gossip_impl`` backend:
+
+      dense      (R−1)·W   per replica — the (R,R)·(R,…) contraction
+                 all-gathers every other replica's model
+      sparse     π·deg(c)·W per replica (max over clusters reported) — π
+                 gossip rounds, each receiving one model per backhaul edge
+      ringweight (M−1)·W   per replica — M−1 weighted cyclic rotations
+
+    ``degrees`` are the backhaul degrees deg(c) of the M clusters.
+    """
+    M, dpc = num_clusters, devices_per_cluster
+    R = M * dpc
+    W = float(model_bits)
+    deg = list(degrees)
+    assert len(deg) == M, (len(deg), M)
+    if M == 1:
+        return {"per_replica_bits": 0.0, "total_bits": 0.0}
+    if impl == "dense":
+        per, tot = (R - 1) * W, R * (R - 1) * W
+    elif impl == "sparse":
+        per, tot = pi * max(deg) * W, pi * sum(deg) * dpc * W
+    elif impl == "ringweight":
+        per, tot = (M - 1) * W, R * (M - 1) * W
+    else:
+        raise ValueError(impl)
+    return {"per_replica_bits": per, "total_bits": tot}
+
+
+def convergence_bound(T: int, eta: float, L: float, sigma2: float,
+                      eps2: float, eps_i2: float, n: int, m: int,
+                      tau: int, q: int, z: float, pi: int,
+                      f_gap: float = 1.0) -> float:
+    """Theorem 1 RHS (eq. 23) — used to sanity-check parameter effects."""
+    from repro_torch.core.topology import omega1, omega2
+    o1, o2 = omega1(z, pi), omega2(z, pi)
+    t1 = 2 * f_gap / (eta * T)
+    t2 = eta * L * sigma2 / n
+    t3 = 8 * eta**2 * L**2 * (o1 * q * tau + (m - 1) / n * q * tau) * sigma2
+    t4 = 16 * eta**2 * L**2 * q**2 * tau**2 * o2 * eps2
+    t5 = 8 * (n - m) / n * eta**2 * L**2 * tau * sigma2
+    t6 = 16 * L**2 * eta**2 * tau**2 * eps_i2
+    return t1 + t2 + t3 + t4 + t5 + t6

@@ -1,17 +1,21 @@
-"""Scenario plans and virtual populations (port of the population part
-of ``repro.core.scenario``, numpy).
+"""Scenario engines: device heterogeneity, client sampling, mobility and
+infrastructure faults (port of ``repro.core.scenario``, numpy).
 
 - :class:`RoundPlan` and :func:`make_masked_w`: one round's realized
   participation and cluster assignment, and the time-varying eq. 11
   operators they induce (``topology.masked_*``);
+- :class:`ScenarioEngine`: per-round keyed realization of an enumerated
+  fleet (speed multipliers, stratified sampling with dropout, mobility)
+  with an optional :class:`FaultModel` (edge outages, backhaul link
+  loss, straggler timeouts; :class:`FaultPlan` is one round of it);
 - :class:`PopulationEngine`: per-round keyed cohort draws over a virtual
   population of clients (no per-client state), the streamed engine's
-  scenario; :class:`CohortPlan` is one round of it.
+  scenario; :class:`CohortPlan` is one round of it;
+- the named presets :data:`SCENARIOS` and :data:`FAULTS`.
 
 Every draw is keyed by ``np.random.SeedSequence`` exactly as in the
-reference, so cohorts, labels, speeds and cluster sizes are identical.
-The enumerated ``ScenarioEngine``, ``FaultModel`` and the fault presets
-arrive with their slice.
+reference, so plans, fault traces, cohorts, labels, speeds and cluster
+sizes are identical to the reference's.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.config import FLConfig, ScenarioConfig
+from repro_torch.config import FaultConfig, FLConfig, ScenarioConfig
 from repro_torch.core import topology as topo
 
 
@@ -148,6 +152,287 @@ def make_masked_w(fl: FLConfig, labels: np.ndarray, mask: np.ndarray,
         Hp = np.linalg.matrix_power(H, pi)
         return eye, topo.renormalize_rows(Hp, mask)
     raise ValueError(fl.algorithm)
+
+
+class FaultModel:
+    """Keyed per-round fault realization of a
+    :class:`repro_torch.config.FaultConfig`.
+
+    Stateless by construction: every draw reads a counter-based
+    generator keyed by ``(fault seed, round, stream, entity)``, and an
+    outage window active at round t is *recomputed* from the window
+    starts of the last ``outage_len`` rounds rather than carried as
+    state — so ``realize(t, ...)`` is a pure function of (config, t,
+    cohort) and a resumed run replays the identical fault trace.
+
+    >>> import numpy as np
+    >>> from repro_torch.config import FaultConfig, FLConfig
+    >>> fm = FaultModel(FaultConfig(outage_prob=0.3, outage_len=2,
+    ...                             link_drop_prob=0.2, seed=7),
+    ...                 FLConfig(num_clusters=4, devices_per_cluster=2))
+    >>> plan = fm.realize(3, np.ones(8), np.ones(8),
+    ...                   np.repeat(np.arange(4), 2))
+    >>> plan.trace() == fm.realize(3, np.ones(8), np.ones(8),
+    ...                            np.repeat(np.arange(4), 2)).trace()
+    True
+    """
+
+    #: stream tags (disjoint from ScenarioEngine's so a shared seed
+    #: still yields independent draws)
+    _STREAM_OUTAGE = 11
+    _STREAM_OUTAGE_LEN = 12
+    _STREAM_LINK = 13
+
+    def __init__(self, fc: FaultConfig, fl: FLConfig,
+                 adj: Optional[np.ndarray] = None):
+        fc.validate()
+        self.fc, self.fl = fc, fl
+        if adj is None:
+            hier = topo.Hierarchy.from_config(fl)
+            adj = hier.adjacency(1, fl.topology, fl)
+        self.adj = np.asarray(adj, bool)
+
+    def _rng(self, round_idx: int, stream: int,
+             entity: int = 0) -> np.random.Generator:
+        """Counter-based generator keyed by
+        ``(fault seed, round, stream, entity)`` — same keying
+        discipline as ``ScenarioEngine._round_rng``."""
+        return np.random.default_rng(np.random.SeedSequence(
+            [int(self.fc.seed), int(round_idx), int(stream), int(entity)]))
+
+    def cluster_down(self, round_idx: int) -> np.ndarray:
+        """(m,) bool: clusters inside an outage window at ``round_idx``.
+
+        A window starting at round s (prob ``outage_prob``, keyed by
+        (s, cluster)) lasts 1..``outage_len`` rounds (length keyed by
+        the same s) — so membership at t only needs the keyed draws of
+        rounds t-outage_len+1..t, never any carried state."""
+        m = self.fl.num_clusters
+        down = np.zeros(m, bool)
+        if self.fc.outage_prob <= 0.0:
+            return down
+        for c in range(m):
+            for s in range(max(0, round_idx - self.fc.outage_len + 1),
+                           round_idx + 1):
+                if self._rng(s, self._STREAM_OUTAGE, c).random() \
+                        < self.fc.outage_prob:
+                    length = int(self._rng(s, self._STREAM_OUTAGE_LEN, c)
+                                 .integers(1, self.fc.outage_len + 1))
+                    if s + length > round_idx:
+                        down[c] = True
+                        break
+        return down
+
+    def link_up(self, round_idx: int) -> np.ndarray:
+        """(m,m) bool symmetric keep-mask over the backhaul adjacency:
+        each undirected link drops for this round independently with
+        prob ``link_drop_prob`` (keyed per (round, edge))."""
+        m = self.fl.num_clusters
+        up = np.ones((m, m), bool)
+        if self.fc.link_drop_prob <= 0.0:
+            return up
+        for i in range(m):
+            for j in range(i + 1, m):
+                if not self.adj[i, j]:
+                    continue
+                if self._rng(round_idx, self._STREAM_LINK,
+                             i * m + j).random() < self.fc.link_drop_prob:
+                    up[i, j] = up[j, i] = False
+        return up
+
+    def timeouts(self, mask: np.ndarray, speeds: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray, float]:
+        """Straggler-timeout retry ladder over the participating cohort.
+
+        A participant's local compute scales as 1/speed; its attempt-a
+        budget is ``timeout_factor * retry_backoff**a`` times the
+        cohort-*median* compute. Returns ``(attempts, timed_out,
+        ref_mult)``: aborted attempts per device (the smallest a whose
+        budget covers it), the devices no budget covers within
+        ``max_retries`` retries (dropped from the round), and the
+        median multiplier the budgets were derived from. Deterministic
+        given the cohort — no RNG stream needed."""
+        n = speeds.shape[0]
+        attempts = np.zeros(n, np.int64)
+        timed_out = np.zeros(n, bool)
+        active = np.asarray(mask) > 0
+        if self.fc.timeout_factor <= 0.0 or not active.any():
+            return attempts, timed_out, 1.0
+        ref = float(np.median(speeds[active]))
+        # time_d <= budget_a  <=>  ref <= F * backoff^a * speed_d
+        need = ref / (self.fc.timeout_factor * np.maximum(speeds, 1e-12))
+        for a in range(self.fc.max_retries + 1):
+            covered = need <= self.fc.retry_backoff ** a
+            if a == 0:
+                pending = active & ~covered
+            else:
+                attempts[pending] += 1
+                pending = pending & ~covered
+        timed_out = pending
+        attempts[timed_out] += 1  # the final, also-aborted attempt
+        return attempts, timed_out, ref
+
+    def realize(self, round_idx: int, mask: np.ndarray,
+                speeds: np.ndarray, labels: np.ndarray) -> FaultPlan:
+        """The round's full :class:`FaultPlan`: outage windows, link
+        survival (+ component count of the surviving graph) and the
+        timeout ladder over the cohort that outages left standing."""
+        down = self.cluster_down(round_idx)
+        up = self.link_up(round_idx)
+        ncomp = int(topo.connected_components(self.adj & up).max()) + 1
+        cohort = np.asarray(mask) * (~down[np.asarray(labels)])
+        attempts, timed_out, ref = self.timeouts(cohort, speeds)
+        return FaultPlan(round_idx, down, up, ncomp, attempts,
+                         timed_out, ref)
+
+
+class ScenarioEngine:
+    """Stateful per-round realization of a :class:`ScenarioConfig`.
+
+    Deterministic given ``sc.seed``: two engines with the same config
+    produce the same speed draw, cohort sequence and mobility trace, so
+    different algorithms can be compared under identical conditions.
+
+    Every per-round draw is *keyed*, not sequential: mobility and
+    sampling read counter-based generators seeded by
+    ``(seed, round_idx, stream, cluster_id)`` (:meth:`_round_rng`), so
+    a round's realized randomness never depends on how many draws any
+    other round — or any other cluster — consumed before it. That is
+    what keeps async bounded-staleness execution (clusters advancing
+    out of lockstep, ``FLSimulator.step_round_async``) on exactly the
+    same cohort/mobility trace as the barrier run."""
+
+    #: stream tags for :meth:`_round_rng` (distinct per draw purpose)
+    _STREAM_MOBILITY = 1
+    _STREAM_SAMPLING = 2
+
+    def __init__(self, sc: ScenarioConfig, fl: FLConfig):
+        sc.validate()
+        fl.validate()
+        self.sc, self.fl = sc, fl
+        # one-time draws only (the per-device speed multipliers); every
+        # per-round draw goes through the keyed _round_rng streams
+        self.rng = np.random.default_rng(sc.seed)
+        self.labels = np.repeat(np.arange(fl.num_clusters),
+                                fl.devices_per_cluster)
+        # tier-1 backhaul graph, block-diagonal under a depth>2 hierarchy
+        # (same construction as cefedavg.make_w_schedule)
+        hier = topo.Hierarchy.from_config(fl)
+        adj = hier.adjacency(1, fl.topology, fl)
+        self.adj = np.asarray(adj, bool)
+        self.H = topo.mixing_matrix(adj, fl.mixing)
+        self.speed_multipliers = sample_speed_multipliers(sc, fl.n, self.rng)
+        self.faults = (FaultModel(sc.faults, fl, self.adj)
+                       if sc.faults is not None and not sc.faults.trivial
+                       else None)
+        self.round_index = 0
+
+    # -- per-round draws -----------------------------------------------------
+    def _round_rng(self, round_idx: int, stream: int,
+                   cluster: int = 0) -> np.random.Generator:
+        """Counter-based generator keyed by
+        ``(seed, round_idx, stream, cluster)``: the same (round,
+        cluster) always sees the same randomness regardless of draw
+        order, interleaving, or extra draws elsewhere."""
+        return np.random.default_rng(np.random.SeedSequence(
+            [int(self.sc.seed), int(round_idx), int(stream), int(cluster)]))
+
+    def _step_mobility(self) -> None:
+        """Re-associate each device w.p. ``move_prob`` to a uniform other
+        edge. A move that would empty the source cluster is skipped: an
+        edge with no attached devices has no model to gossip, and the
+        operator algebra (and the paper's B_t) assume nonempty clusters.
+
+        Draws are keyed per (round, source cluster) and applied in fixed
+        cluster order, so the re-drawn B_t is identical whether the
+        engine is driven by a barrier or an async round."""
+        m = self.fl.num_clusters
+        if self.sc.move_prob <= 0.0 or m < 2:
+            return
+        labels = self.labels.copy()
+        sizes = np.bincount(labels, minlength=m)
+        for c in range(m):
+            members = np.nonzero(self.labels == c)[0]
+            if members.size == 0:
+                continue
+            rng = self._round_rng(self.round_index, self._STREAM_MOBILITY, c)
+            moves = rng.random(members.size) < self.sc.move_prob
+            dsts = rng.integers(0, m - 1, members.size)
+            for k, moved, dst in zip(members, moves, dsts):
+                if not moved or sizes[labels[k]] <= 1:
+                    continue
+                dst = int(dst)
+                if dst >= labels[k]:
+                    dst += 1
+                sizes[labels[k]] -= 1
+                sizes[dst] += 1
+                labels[k] = dst
+        self.labels = labels
+
+    def _draw_mask(self) -> np.ndarray:
+        """Per-cluster stratified cohort: each cluster samples
+        ⌈fraction·|cluster|⌉ of its members, thinned by straggler
+        dropout, from a generator keyed by (round, cluster). Reduces to
+        the global ⌈fraction·n⌉ cardinality for equal clusters, and
+        guarantees at least one surviving device overall (pathological
+        dropout keeps the first sampled device)."""
+        n = self.fl.n
+        mask = np.zeros(n)
+        first = None
+        for c in range(self.fl.num_clusters):
+            members = np.nonzero(self.labels == c)[0]
+            if members.size == 0:
+                continue
+            rng = self._round_rng(self.round_index, self._STREAM_SAMPLING, c)
+            k = max(1, int(np.ceil(self.sc.sample_fraction * members.size)))
+            cohort = members[rng.choice(members.size, size=k, replace=False)]
+            if first is None:
+                first = int(cohort[0])
+            kept = cohort[rng.random(k) >= self.sc.dropout_prob]
+            mask[kept] = 1.0
+        if mask.sum() == 0:
+            mask[first] = 1.0  # pathological dropout: keep one device
+        return mask
+
+    def step(self) -> RoundPlan:
+        """Advance one global round: mobility, then sampling, then
+        faults (outages silence whole clusters, link loss degrades the
+        round's mixing matrix, timeouts drop stragglers), then the
+        induced (W_intra, W_inter). Fault degradation never raises: a
+        fully-dark round simply yields an all-zero cohort and identity
+        mixing."""
+        self._step_mobility()
+        mask = self._draw_mask()
+        fault, H_eff = None, None
+        H_t = self.H
+        if self.faults is not None:
+            fault = self.faults.realize(self.round_index, mask,
+                                        self.speed_multipliers, self.labels)
+            # dark clusters train nothing; exhausted stragglers drop out
+            mask = (mask * (~fault.cluster_down[self.labels])
+                    * (~fault.timed_out))
+            if not fault.link_up.all():
+                # re-weight over the surviving (maybe partitioned) graph;
+                # mixing_matrix of a disconnected graph is block-diagonal,
+                # i.e. per-component gossip
+                H_eff = topo.mixing_matrix(self.adj & fault.link_up,
+                                           self.fl.mixing)
+                H_t = H_eff
+        W_intra, W_inter = make_masked_w(self.fl, self.labels, mask, H_t)
+        plan = RoundPlan(self.round_index, self.fl.num_clusters,
+                         self.labels.copy(), mask, W_intra, W_inter,
+                         fault=fault, H_eff=H_eff)
+        self.round_index += 1
+        return plan
+
+    def active_speeds(self, plan: RoundPlan) -> np.ndarray:
+        """Speed multipliers of the plan's participating devices.
+
+        Convenience accessor for external analyses; the wall-clock
+        harness itself passes the full ``speed_multipliers`` vector plus
+        the plan's mask to ``EventClock.charge_program``, which needs
+        per-device alignment with adaptive ``tau_dev`` cutoffs."""
+        return self.speed_multipliers[plan.active]
 
 
 # ---------------------------------------------------------------------------
@@ -367,3 +652,24 @@ def get_scenario(name: str) -> ScenarioConfig:
         raise ValueError(
             f"unknown scenario {name!r}; choose from {sorted(SCENARIOS)}")
     return SCENARIOS[name]
+
+
+#: fault presets (docs/FAULT_MODEL.md): attach to any ScenarioConfig via
+#: ``dataclasses.replace(sc, faults=get_faults("outage"))``
+FAULTS: Dict[str, FaultConfig] = {
+    "outage": FaultConfig(outage_prob=0.08, outage_len=2),
+    "flaky_links": FaultConfig(link_drop_prob=0.15),
+    "stragglers": FaultConfig(timeout_factor=1.5, max_retries=2,
+                              retry_backoff=1.5),
+    "chaos": FaultConfig(outage_prob=0.05, outage_len=2,
+                         link_drop_prob=0.1, timeout_factor=1.5,
+                         max_retries=2, retry_backoff=1.5),
+}
+
+
+def get_faults(name: str) -> FaultConfig:
+    """Look up a named fault preset (see :data:`FAULTS`)."""
+    if name not in FAULTS:
+        raise ValueError(
+            f"unknown fault preset {name!r}; choose from {sorted(FAULTS)}")
+    return FAULTS[name]

@@ -1,25 +1,31 @@
-"""Wall-clock time-to-accuracy CLI of the port: algorithms × models (paper §6).
+"""Wall-clock time-to-accuracy CLI of the port: algorithms × scenarios
+(paper §6).
 
 Couples the port's ``FLSimulator`` to its event clock
-(``repro_torch.core.clock``) and reports, for every algorithm, the
-simulated seconds to a target accuracy under the paper's §6.1 hardware
-profile. Runs on the CUDA card unless ``--device`` says otherwise.
+(``repro_torch.core.clock``) under named heterogeneity, mobility and
+sampling scenarios (``repro_torch.core.scenario.SCENARIOS``) and reports,
+for every (scenario, algorithm) pair, the simulated seconds to a target
+accuracy under the paper's §6.1 hardware profile. Runs on the CUDA card
+unless ``--device`` says otherwise.
 
   PYTHONPATH=src python -m repro_torch.launch.time_to_accuracy \\
+      --scenarios homogeneous lognormal mobility \\
       --algorithms ce_fedavg hier_favg fedavg --target 0.75 --rounds 20
 
 ``--model femnist_cnn`` trains the paper's FEMNIST CNN on synthetic
 28×28 images; the default MLP surrogate keeps the same partitioners and
-algorithm orderings at laptop cost. Scenarios arrive with a later slice.
+algorithm orderings at laptop cost.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 from repro_torch.config import FLConfig
 from repro_torch.core.cefedavg import FLSimulator
 from repro_torch.core.clock import run_wall_clock, time_to_accuracy
 from repro_torch.core.runtime import paper_runtime_model
+from repro_torch.core.scenario import SCENARIOS, get_scenario
 from repro_torch.data.federated import (build_fl_data, dirichlet_partition,
                                         make_synthetic_classification,
                                         make_synthetic_images)
@@ -30,7 +36,8 @@ MLP_DIM, MLP_CLASSES = 16, 8
 
 
 def build_sim(fl: FLConfig, model: str, *, noise: float, alpha: float,
-              lr: float, seed: int, device=None) -> FLSimulator:
+              lr: float, seed: int, device=None,
+              scenario=None) -> FLSimulator:
     """The federated task of ``model``: the MLP surrogate on class
     Gaussians, or the FEMNIST CNN on synthetic 62-class images."""
     if model == "femnist_cnn":
@@ -49,13 +56,15 @@ def build_sim(fl: FLConfig, model: str, *, noise: float, alpha: float,
     parts = dirichlet_partition(y, fl.n, alpha, seed)
     data = build_fl_data(x, y, parts, tx, ty, 64)
     return FLSimulator(init, apply, fl, data, lr=lr, batch_size=16,
-                       seed=seed, device=device)
+                       seed=seed, scenario=scenario, device=device)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--algorithms", nargs="+",
                     default=["ce_fedavg", "hier_favg", "fedavg"])
+    ap.add_argument("--scenarios", nargs="+", choices=sorted(SCENARIOS),
+                    default=["homogeneous", "lognormal", "mobility"])
     ap.add_argument("--model", choices=("mlp", "femnist_cnn"),
                     default="mlp")
     ap.add_argument("--device", default=None,
@@ -75,30 +84,36 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     rt = paper_runtime_model()                  # paper §6.1 constants
-    print(f"{'algorithm':13s} {'final_acc':>9s} {'rounds@T':>8s} "
-          f"{'wall@T':>12s}")
+    print(f"{'scenario':14s} {'algorithm':13s} {'final_acc':>9s} "
+          f"{'rounds@T':>8s} {'wall@T':>12s}")
     results = {}
-    for algo in args.algorithms:
-        fl = FLConfig(algorithm=algo, num_clusters=args.clusters,
-                      devices_per_cluster=args.dpc, tau=args.tau,
-                      q=args.q, pi=args.pi, topology=args.topology)
-        sim = build_sim(fl, args.model, noise=args.noise, alpha=args.alpha,
-                        lr=args.lr, seed=args.seed, device=args.device)
-        hist = run_wall_clock(sim, rt, args.rounds)
-        tta = time_to_accuracy(hist, args.target)
-        rounds_at = next((r for r, a in zip(hist["round"], hist["acc"])
-                          if a >= args.target), None)
-        results[algo] = tta
-        print(f"{algo:13s} {hist['acc'][-1]:9.3f} "
-              f"{'-' if rounds_at is None else rounds_at:>8} "
-              f"{'never' if tta is None else f'{tta:,.0f}s':>12}")
-    ce = results.get("ce_fedavg")
-    others = {a: v for a, v in results.items() if a != "ce_fedavg"}
-    if ce is not None and others and all(v is not None
-                                         for v in others.values()):
-        beat = ", ".join(f"{(1 - ce / v) * 100:.0f}% vs {a}"
-                         for a, v in others.items())
-        print(f"CE-FedAvg reaches {args.target:.0%} faster: {beat}")
+    for sname in args.scenarios:
+        sc = dataclasses.replace(get_scenario(sname), seed=args.seed)
+        for algo in args.algorithms:
+            fl = FLConfig(algorithm=algo, num_clusters=args.clusters,
+                          devices_per_cluster=args.dpc, tau=args.tau,
+                          q=args.q, pi=args.pi, topology=args.topology)
+            sim = build_sim(fl, args.model, noise=args.noise,
+                            alpha=args.alpha, lr=args.lr, seed=args.seed,
+                            device=args.device, scenario=sc)
+            hist = run_wall_clock(sim, rt, args.rounds)
+            tta = time_to_accuracy(hist, args.target)
+            rounds_at = next((r for r, a in zip(hist["round"], hist["acc"])
+                              if a >= args.target), None)
+            results[(sname, algo)] = tta
+            print(f"{sname:14s} {algo:13s} {hist['acc'][-1]:9.3f} "
+                  f"{'-' if rounds_at is None else rounds_at:>8} "
+                  f"{'never' if tta is None else f'{tta:,.0f}s':>12}")
+    for sname in args.scenarios:
+        ce = results.get((sname, "ce_fedavg"))
+        others = {a: results.get((sname, a)) for a in args.algorithms
+                  if a != "ce_fedavg"}
+        if ce is not None and others and all(v is not None
+                                             for v in others.values()):
+            beat = ", ".join(f"{(1 - ce / v) * 100:.0f}% vs {a}"
+                             for a, v in others.items())
+            print(f"[{sname}] CE-FedAvg reaches {args.target:.0%} faster: "
+                  f"{beat}")
     return results
 
 

@@ -195,7 +195,9 @@ def test_time_to_accuracy_cli_on_cpu(capsys):
     from repro_torch.launch import time_to_accuracy as cli
     res = cli.main(["--device", "cpu", "--rounds", "1", "--algorithms",
                     "ce_fedavg", "fedavg", "--target", "0.1"])
-    assert set(res) == {"ce_fedavg", "fedavg"}
+    assert set(res) == {(s, a) for s in ("homogeneous", "lognormal",
+                                          "mobility")
+                        for a in ("ce_fedavg", "fedavg")}
     assert "ce_fedavg" in capsys.readouterr().out
 
 

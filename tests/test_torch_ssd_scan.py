@@ -24,6 +24,18 @@ from repro_torch.models.ssm import ssd_chunked as t_ssd_chunked
 
 TOL = {"float32": 1e-4, "bfloat16": 0.15}
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _first_exp_of_the_process():
+    """On a multi-core CPU host the first multi-threaded ``torch.exp`` of
+    a process sometimes returns one worker thread's chunk at about
+    1.5e-4 relative error (every later call is right to an ulp; one
+    thread never shows it). In this file that first call used to be the
+    plain SSD version's exp of the (BK, H, C, C) segment sums, which then
+    missed the 1e-4 oracle bound. One call over all threads here takes
+    that first call before anything is measured (ROADMAP C2)."""
+    torch.exp(torch.zeros(1 << 20))
 SWEEP = [(4, 3, 128, 64, 32), (2, 5, 256, 64, 128), (1, 2, 128, 128, 64)]
 
 

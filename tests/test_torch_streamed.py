@@ -271,10 +271,20 @@ def test_streamed_options_are_checked():
     with pytest.raises(ValueError, match="streamed engine"):
         TSim(lambda g: tree_from_numpy(_init()), t_apply, TFLConfig(**FL_KW),
              _data(), pipeline=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ScenarioEngine"):
+    # an enumerated scenario builds its ScenarioEngine; a round schedule
+    # needs enumerated devices, and async rounds a resident bank
+    from repro_torch.core.scenario import ScenarioEngine
+    sim = TSim(lambda g: tree_from_numpy(_init()), t_apply,
+               TFLConfig(**FL_KW), _data(),
+               scenario=TScenarioConfig(**MOBILE_KW), device="cpu")
+    assert isinstance(sim.engine, ScenarioEngine) and sim.bank is not None
+    _, port_sc = _scenarios("f32")
+    with pytest.raises(ValueError, match="virtual population"):
         TSim(lambda g: tree_from_numpy(_init()), t_apply,
-             TFLConfig(**FL_KW), _data(),
-             scenario=TScenarioConfig(**MOBILE_KW), device="cpu")
+             TFLConfig(**FL_KW), _data(), scenario=port_sc,
+             schedule="adaptive_tau", device="cpu")
+    with pytest.raises(ValueError, match="resident rows"):
+        _port("f32").step_round_async(0, t_runtime())
     with pytest.raises(AttributeError, match="streamed engine"):
         _port("f32").params  # noqa: B018
 
