@@ -84,15 +84,42 @@ Phases, each reported on its own lines; any failure exits non-zero:
 8. lm decode  — the same model in f32: the kernel forward's logits over
                  2 x 512 tokens against 512 decode steps (no kernel),
                  within the reference's atol = rtol = 0.05.
-9. parity     — the quickstart configuration for one round, the small
+9. upload     — the FEMNIST configuration at full width with uploading
+                 devices, two rounds each of int8 (stochastic rounding)
+                 with error feedback, top-k 5% with error feedback and
+                 local DP (clip 1.0, sigma 0.5), through
+                 ``run_wall_clock``: per round the card seconds, the
+                 card seconds of the random draws and of the
+                 compression (or clipping and noise) on lines of their
+                 own, gossip_mix launches (the upload plan's 9 mixing
+                 groups plus one projection an evaluation), loss,
+                 accuracy, peak memory and the residual's norm; finite
+                 losses and cluster-synced rows after the trailing
+                 boundary for int8 and top-k. The DP rounds diverge by
+                 construction at this width (noise norm sigma * sqrt(T)
+                 against a clip of 1): their losses are reported, and the
+                 DP transform is held to its mechanism on a full-width
+                 (64, T) update (rows clipped to the bound, noise of mean
+                 0 and std sigma, a different draw a row).
+10. resume    — kill and resume at full width, bit for bit (cuDNN
+                 deterministic): the resident int8+EF run, 3 rounds
+                 against 2 + save + fresh sim + restore + 1 (params,
+                 momentum, residual, history), and the pipelined
+                 population of 10,000 with an int8 store likewise
+                 (global model, store bytes, history); each checkpoint's
+                 size on disk and its save and restore seconds (written
+                 to a temporary directory, removed afterwards).
+11. parity    — the quickstart configuration for one round, the small
                  population configuration of the CPU tests (f32,
                  pipelined) for two; at its geometry a compacted
                  scenario with chaos faults, the enumerated streamed
                  engine pipelined under outages, an ``adaptive_tau``
-                 schedule and two async rounds at s = 2; and the reduced
-                 Zamba2 forward (f32, 2 groups; kernels on the card,
-                 plain on the CPU), on the card and on the CPU; they must
-                 agree (TF32 off).
+                 schedule, two async rounds at s = 2, one int8+EF upload
+                 round (within the int8 tolerance) and one DP round; the
+                 device threefry bits against the host's at (64, 2^20 +
+                 3), bit for bit; and the reduced Zamba2 forward (f32, 2
+                 groups; kernels on the card, plain on the CPU), on the
+                 card and on the CPU; they must agree (TF32 off).
 
 The line before the last two is ``{"kernels": [...]}``; the card's
 ``name, power.limit`` (from nvidia-smi) follows, and the last line is
@@ -1046,7 +1073,315 @@ def phase_async(dev: torch.device, rounds: int = 2) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the card against the CPU
+# phase 9: the upload path at full width
+# ---------------------------------------------------------------------------
+
+#: the upload phase: int8 (stochastic rounding) with error feedback, top-k
+#: 5% with error feedback, and local DP at clip 1.0, sigma = 0.5
+UPLOADS = (("int8+EF", dict(kind="int8"), None),
+           ("topk 5%+EF", dict(kind="topk", topk_frac=0.05), None),
+           ("DP clip 1.0 sigma 0.5", None,
+            dict(clip_norm=1.0, noise_multiplier=0.5)))
+
+
+class _UploadTimers:
+    """Card seconds of the upload's draws (``random.uniform``/``normal``,
+    outermost call only: ``normal`` calls ``uniform``) and of its
+    transforms (``compress_flat``, ``privatize_update_flat``), from CUDA
+    events recorded around each call and read once the round has
+    synchronized; the transforms' seconds exclude the draws they make."""
+
+    def __init__(self):
+        from repro_torch import random as rnd
+        from repro_torch.core import compress as cmp
+        from repro_torch.core import privacy as prv
+        self.spans = {"draws": [], "transforms": []}
+        self._depth = 0
+        self._patched = []
+        for mod, name, kind in ((rnd, "uniform", "draws"),
+                                (rnd, "normal", "draws"),
+                                (cmp, "compress_flat", "transforms"),
+                                (prv, "privatize_update_flat",
+                                 "transforms")):
+            orig = getattr(mod, name)
+            self._patched.append((mod, name, orig))
+            setattr(mod, name, self._wrap(orig, kind))
+
+    def _wrap(self, fn, kind):
+        def timed(*args, **kw):
+            outer = kind == "transforms" or self._depth == 0
+            if kind == "draws":
+                self._depth += 1
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            try:
+                return fn(*args, **kw)
+            finally:
+                b.record()
+                if kind == "draws":
+                    self._depth -= 1
+                if outer:
+                    self.spans[kind].append((a, b))
+        return timed
+
+    def take(self):
+        """(draw seconds, transform seconds without the draws) since the
+        last take; the caller has synchronized."""
+        sec = {k: sum(a.elapsed_time(b) for a, b in v) / 1e3
+               for k, v in self.spans.items()}
+        self.spans = {k: [] for k in self.spans}
+        return sec["draws"], sec["transforms"] - sec["draws"]
+
+    def close(self):
+        for mod, name, orig in self._patched:
+            setattr(mod, name, orig)
+
+
+def _cluster_spread(sim) -> float:
+    fl = sim.fl
+    Y = sim.bank.params.view(fl.num_clusters, fl.devices_per_cluster, -1)
+    return float((Y - Y[:, :1]).abs().max())
+
+
+def phase_upload(dev: torch.device, rounds: int = 2) -> int:
+    """The FEMNIST experiment at full width with uploading devices: two
+    rounds each of int8+EF, top-k 5%+EF and local DP through
+    ``run_wall_clock``. Returns gossip_mix's launches on this path."""
+    from repro_torch.configs import femnist_cnn as cfg
+    from repro_torch.core import program as prg
+    from repro_torch.core.clock import run_wall_clock
+    from repro_torch.core.compress import CompressionConfig
+    from repro_torch.core.privacy import DPConfig
+    from repro_torch.core.runtime import paper_runtime_model
+    from repro_torch.kernels import gossip_mix as gm
+    fl = cfg.FL
+    rt = paper_runtime_model()
+    total = 0
+    for name, comp, dp in UPLOADS:
+        torch.cuda.synchronize()
+        sim = _femnist_sim(
+            dev, compression=None if comp is None
+            else CompressionConfig(**comp),
+            dp=None if dp is None else DPConfig(**dp))
+        plan_groups = sum(len(bp.groups) for bp in
+                          prg.lowering_plan(sim._canonical, fuse=True))
+        log(f"[upload] {name}: bank {sim.bank.resident_nbytes / 1e9:.2f} GB"
+            f" (params, momentum{', EF residual' if comp else ''}); the "
+            f"upload plan mixes {plan_groups} times a round")
+        assert plan_groups == fl.q + 1, plan_groups
+        timers = _UploadTimers()
+        try:
+            for r in range(rounds):
+                torch.cuda.reset_peak_memory_stats(dev)
+                n0 = gm.launches
+                t0 = time.perf_counter()
+                hist = run_wall_clock(sim, rt, 1)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                draw_s, transform_s = timers.take()
+                got = gm.launches - n0
+                total += got
+                loss, acc = hist["loss"][-1], hist["acc"][-1]
+                res = (float(torch.linalg.vector_norm(sim.bank.residual))
+                       if sim.bank.residual is not None else 0.0)
+                spread = _cluster_spread(sim)
+                log(f"[upload] {name} round {r + 1}: {dt:.3f} s on the card"
+                    f" (step + eval), loss={loss:.4f} acc={acc:.4f}, "
+                    f"gossip_mix launches {got} (plan {plan_groups} + 1 "
+                    f"eval), peak device memory "
+                    f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, "
+                    f"residual norm {res:.4e}, max in-cluster row spread "
+                    f"{spread:.2e}")
+                log(f"[upload] {name} round {r + 1}: draws {draw_s:.3f} s "
+                    f"on the card")
+                log(f"[upload] {name} round {r + 1}: "
+                    f"{'compression' if comp else 'clip + noise'} "
+                    f"{transform_s:.3f} s on the card (without its draws)")
+                assert got == plan_groups + 1, (got, plan_groups)
+                assert (comp is None) == (sim.bank.residual is None)
+                if comp is not None:
+                    assert math.isfinite(loss), f"{name}: loss {loss}"
+                    assert spread <= 1e-6, f"{name}: cluster rows differ " \
+                        f"by {spread}"
+                    assert res > 0 and math.isfinite(res)
+        finally:
+            timers.close()
+        del sim
+        torch.cuda.empty_cache()
+        if dp is not None:
+            _check_dp_transform(dev, fl.n, DPConfig(**dp))
+    return total
+
+
+def _check_dp_transform(dev: torch.device, n: int, dp) -> None:
+    """Local DP at this width adds N(0, sigma^2) to each of T = 6.6e6
+    coordinates of an update clipped to norm ``clip_norm``: a noise norm
+    of sigma * sqrt(T), about 1,285 at sigma 0.5 against a clip of 1, so
+    the DP rounds above diverge by construction (their losses are
+    reported, not held finite). What the port must deliver is the
+    mechanism, checked here at the full width on the card: every row
+    clipped to the bound, and noise of mean 0 and std sigma, a different
+    draw for each row."""
+    from repro_torch import random as rnd
+    from repro_torch.core.privacy import DPConfig, privatize_update_flat
+    g = torch.Generator(device=dev).manual_seed(0)
+    delta = torch.randn((n, FEMNIST_T), generator=g, device=dev).mul_(1e-3)
+    keys = rnd.split(rnd.PRNGKey(3), n)
+    clipped = privatize_update_flat(delta, DPConfig(dp.clip_norm, 0.0),
+                                    keys)
+    noise = privatize_update_flat(delta, dp, keys).sub_(clipped)
+    norms = torch.linalg.vector_norm(clipped, dim=1)
+    sigma = dp.noise_multiplier * dp.clip_norm
+    mean, std = float(noise.mean()), float(noise.std())
+    tail = float((noise.abs() > 1.96 * sigma).float().mean())
+    same = bool(torch.equal(noise[0], noise[1]))
+    log(f"[upload] DP transform at ({n}, {FEMNIST_T}): clipped row norms "
+        f"{float(norms.min()):.6f}..{float(norms.max()):.6f} (bound "
+        f"{dp.clip_norm}), noise mean {mean:.2e} std {std:.6f} (sigma "
+        f"{sigma}), beyond 1.96 sigma {tail:.5f} (0.04999 for a normal), "
+        f"rows drawn alike {same}")
+    assert float(norms.max()) <= dp.clip_norm * (1 + 1e-5)
+    assert abs(mean) < 2e-4 and abs(std - sigma) < 1e-3 * sigma
+    assert abs(tail - 0.0499958) < 1e-3 and not same
+    del delta, clipped, noise
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 10: kill and resume at full width
+# ---------------------------------------------------------------------------
+
+class _CheckpointTimers:
+    """Host seconds of every ``RunCheckpoint.save``/``restore``."""
+
+    def __init__(self):
+        from repro_torch.checkpoint.runckpt import RunCheckpoint
+        self.cls = RunCheckpoint
+        self.orig = (RunCheckpoint.save, RunCheckpoint.restore)
+        self.seconds = {"save": [], "restore": []}
+        for name, fn in zip(("save", "restore"), self.orig):
+            setattr(RunCheckpoint, name, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        def timed(rc, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(rc, *args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds[name].append(time.perf_counter() - t0)
+        return timed
+
+    def close(self):
+        self.cls.save, self.cls.restore = self.orig
+
+
+def _replayable(hist) -> dict:
+    return {k: v for k, v in hist.items()
+            if k not in ("page_s", "compute_s", "eval_s")}
+
+
+def _kill_and_resume(what, make, rounds, kill_at, state, timers):
+    """``rounds`` rounds of a fresh sim through ``run_wall_clock``, then
+    ``kill_at`` rounds of another with a checkpoint at its end, and a
+    third restored from it running the rest; ``state`` reads what must
+    be equal bit for bit. Returns the checkpoint's size in bytes and the
+    killed run's launch counts."""
+    import tempfile
+    from repro_torch.core.clock import run_wall_clock
+    from repro_torch.core.runtime import paper_runtime_model
+    from repro_torch.kernels import cold_codec as cc
+    rt = paper_runtime_model()
+    sim = make()
+    full = run_wall_clock(sim, rt, rounds)
+    want = state(sim)
+    del sim
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-resume-") as d:
+        cc.encode_launches = cc.decode_launches = 0
+        sim = make()
+        run_wall_clock(sim, rt, kill_at, ckpt_dir=d, ckpt_every=kill_at)
+        size = os.path.getsize(os.path.join(d, "run.npz"))
+        del sim
+        torch.cuda.empty_cache()
+        sim = make()
+        got = run_wall_clock(sim, rt, rounds, ckpt_dir=d,
+                             ckpt_every=rounds + 1, resume=True)
+        launches = (cc.encode_launches, cc.decode_launches)
+        have = state(sim)
+        del sim
+        torch.cuda.empty_cache()
+    same_hist = _replayable(full) == _replayable(got)
+    same = [torch.equal(a, b) if isinstance(a, torch.Tensor)
+            else np.array_equal(a, b) for a, b in zip(want, have)]
+    diff = max(float((a - b).abs().max()) if isinstance(a, torch.Tensor)
+               else float(np.abs(a.astype(np.float64)
+                                 - b.astype(np.float64)).max())
+               for a, b in zip(want, have))
+    log(f"[resume] {what}: {rounds} rounds against {kill_at} + save + "
+        f"fresh sim + restore + {rounds - kill_at}: state bitwise equal "
+        f"{all(same)} (max abs diff {diff:.3e}), history equal {same_hist};"
+        f" checkpoint {size / 1e9:.3f} GB on disk, save "
+        f"{timers.seconds['save'][-1]:.2f} s, restore "
+        f"{timers.seconds['restore'][-1]:.2f} s")
+    assert all(same) and same_hist, f"{what}: resume is not bit-identical"
+    return size, launches
+
+
+def phase_resume(dev: torch.device):
+    """Kill-and-resume on the card at full width, bit for bit (cuDNN held
+    to deterministic algorithms): the resident int8+EF run and the
+    pipelined population run. Returns the codec's (encode, decode)
+    launches in the killed population run."""
+    from repro_torch.config import PopulationConfig, ScenarioConfig
+    from repro_torch.configs import femnist_cnn as cfg
+    from repro_torch.core.cefedavg import FLSimulator
+    from repro_torch.core.compress import CompressionConfig
+    from repro_torch.models.cnn import apply_femnist_cnn, init_femnist_cnn
+    fl = cfg.FL
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    timers = _CheckpointTimers()
+    try:
+        def resident():
+            return _femnist_sim(dev, compression=CompressionConfig("int8"))
+
+        def bank(sim):
+            b = sim.bank
+            return [b.params.clone(), b.mom.clone(), b.residual.clone()]
+        _kill_and_resume("resident int8+EF (params, momentum, residual)",
+                         resident, 3, 2, bank, timers)
+        scenario = ScenarioConfig(
+            sample_fraction=1.0, dropout_prob=0.0, move_prob=0.25, seed=7,
+            population=PopulationConfig(clients_per_cluster=1250,
+                                        cohort_per_cluster=7, codec="int8"))
+        data = femnist_data(fl)
+
+        def population():
+            return FLSimulator(init_femnist_cnn, apply_femnist_cnn, fl,
+                               data, lr=0.1, batch_size=16, seed=0,
+                               scenario=scenario, pipeline=True, device=dev)
+
+        def store(sim):
+            snap = sim.store.snapshot()
+            return [_global_row(sim)] + [snap[k] for k in sorted(snap)]
+        _, launches = _kill_and_resume(
+            "pipelined population of 10,000, int8 store (global model, "
+            "store bytes)", population, 3, 2, store, timers)
+    finally:
+        timers.close()
+        torch.backends.cudnn.deterministic = det
+    log(f"[resume] cold_codec launches in the killed and resumed population "
+        f"runs (3 rounds): encode {launches[0]}, decode {launches[1]}")
+    assert launches == (3, 3), launches
+    return launches
+
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the card against the CPU
 # ---------------------------------------------------------------------------
 
 def phase_parity(dev: torch.device) -> None:
@@ -1111,12 +1446,14 @@ def phase_parity(dev: torch.device) -> None:
     assert eg <= PARITY_ATOL and es <= PARITY_ATOL, \
         "card and CPU population runs disagree"
     _parity_scenarios(dev, pfl, pdata, pinit)
+    _parity_upload(dev, pfl, pdata, pinit)
     _parity_lm(dev)
 
 
-def _card_vs_cpu(dev: torch.device, what: str, build, run, read) -> None:
+def _card_vs_cpu(dev: torch.device, what: str, build, run, read,
+                 atol: float = PARITY_ATOL) -> None:
     """Build, run and read one small simulation on the card and on the
-    CPU; every array ``read`` returns must agree within PARITY_ATOL."""
+    CPU; every array ``read`` returns must agree within ``atol``."""
     out = {}
     for where in (dev, torch.device("cpu")):
         sim = build(where)
@@ -1125,8 +1462,8 @@ def _card_vs_cpu(dev: torch.device, what: str, build, run, read) -> None:
     err = max(float(np.abs(a - b).max())
               for a, b in zip(out["cuda"], out["cpu"]))
     log(f"[parity] {what}: card vs CPU max abs diff {err:.3e} (atol "
-        f"{PARITY_ATOL}){note}")
-    assert err <= PARITY_ATOL, f"card and CPU disagree: {what}"
+        f"{atol}){note}")
+    assert err <= atol, f"card and CPU disagree: {what}"
 
 
 def _parity_scenarios(dev: torch.device, fl, data, init) -> None:
@@ -1189,6 +1526,59 @@ def _parity_scenarios(dev: torch.device, fl, data, init) -> None:
     _card_vs_cpu(dev, "async rounds at staleness 2 (lognormal), 2 rounds, "
                  "bank", sim_of(scenario=scenario("lognormal")),
                  async_rounds, bank)
+
+
+def _parity_upload(dev: torch.device, fl, data, init) -> None:
+    """The upload path at the small population's geometry: one int8+EF
+    round (within the int8 tolerance: a floor may flip on a last-ulp
+    difference of its input) and one DP round (1e-5), card against CPU;
+    then the device threefry bits against the host numpy path, bit for
+    bit, at (64, 2^20 + 3)."""
+    from repro_torch import random as rnd
+    from repro_torch.core.cefedavg import FLSimulator
+    from repro_torch.core.compress import CompressionConfig
+    from repro_torch.core.privacy import DPConfig
+    from repro_torch.models.cnn import apply_mlp_classifier
+
+    def sim_of(**kw):
+        return lambda where: FLSimulator(
+            lambda g: init, apply_mlp_classifier, fl, data, lr=0.1,
+            batch_size=16, seed=1, device=where, **kw)
+
+    def one_round(sim):
+        sim.step_round()
+        return ""
+
+    def bank(sim):
+        b = sim.bank
+        return [t.cpu().numpy() for t in (b.params, b.mom, b.residual)
+                if t is not None]
+    _card_vs_cpu(dev, "int8+EF upload, 1 round, bank and residual",
+                 sim_of(compression=CompressionConfig("int8")), one_round,
+                 bank, atol=INT8_ATOL)
+    _card_vs_cpu(dev, "local DP upload (clip 1.0, sigma 0.5), 1 round, bank",
+                 sim_of(dp=DPConfig(clip_norm=1.0, noise_multiplier=0.5)),
+                 one_round, bank)
+    keys = rnd.split(rnd.PRNGKey(17), 64)
+    shape = (2**20 + 3,)
+    t0 = time.perf_counter()
+    host = rnd.random_bits(keys, shape)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = rnd.device_bits(keys, shape, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    bad = int((card.cpu().numpy().view(np.uint32) != host).sum())
+    log(f"[parity] threefry bits at (64, 2^20 + 3): card vs host numpy "
+        f"{bad} of {host.size} words differ ({card_s:.3f} s on the card "
+        f"with its first launches, {host_s:.2f} s on the host)")
+    assert bad == 0, "device bits differ from the host stream"
+    u = rnd.uniform(keys, shape, dev).cpu().numpy().view(np.uint32)
+    exp = ((host >> np.uint32(9)) | np.uint32(0x3F800000)).view(
+        np.float32) - np.float32(1)
+    assert np.array_equal(u, exp.view(np.uint32)), \
+        "device uniforms differ from the host's"
 
 
 def _parity_lm(dev: torch.device) -> None:
@@ -1615,9 +2005,12 @@ def main() -> int:
         phase_population(dev)
     gossip_scn = phase_scenario(dev)
     gossip_async = phase_async(dev)
+    gossip_upload = phase_upload(dev)
+    resume_codec = phase_resume(dev)
     log(f"[done] gossip_mix launches: main path {entry['launches']}, "
         f"population path {gossip_pop}, scenario path {gossip_scn}, "
-        f"async path {gossip_async}")
+        f"async path {gossip_async}, upload path {gossip_upload}; "
+        f"cold_codec encode/decode on the resume path {resume_codec}")
     attn["launches"], ssd["launches"] = phase_lm(dev)
     phase_lm_decode(dev)
     phase_parity(dev)

@@ -39,9 +39,15 @@ into a hot (S, T) slab. ``pipeline=True`` overlaps that paging with
 compute: the cold codec runs on the card
 (:mod:`repro_torch.kernels.cold_codec`), the cluster references stay on
 the card, round t's page-out copies back on a side stream while round
-t+1 is staged and its encoded rows copied in. Upload transforms, the
-legacy pytree engine and the sharded streamed bank wait for later
-slices.
+t+1 is staged and its encoded rows copied in.
+
+With ``compression=`` or ``dp=`` the canonical program uploads: each
+block's device deltas are privatized (:mod:`repro_torch.core.privacy`)
+and compressed with error feedback (:mod:`repro_torch.core.compress`,
+the residual a third (n, T) buffer of the bank) before the first mix,
+on the flat path only — compacted, streamed and async rounds reject
+upload programs, as the reference's do. The legacy pytree engine and the
+sharded streamed bank wait for later slices.
 """
 from __future__ import annotations
 
@@ -57,7 +63,9 @@ from repro_torch import random as rnd
 from repro_torch import tree as tr
 from repro_torch.config import FLConfig
 from repro_torch.core import clock as clk
+from repro_torch.core import compress as cmp
 from repro_torch.core import gossip as gsp
+from repro_torch.core import privacy as prv
 from repro_torch.core import program as prg
 from repro_torch.core import topology as topo
 from repro_torch.core.clientstore import ClientStore
@@ -188,6 +196,10 @@ class FLSimulator:
           t's page-out copies back while round t+1 is staged. Bitwise
           the serial streamed driver at f32 (to codec tolerance at f16
           and int8); requires streaming.
+    compression: optional ``compress.CompressionConfig``: devices upload
+          compressed deltas (with error feedback, a residual row each).
+    dp: optional ``privacy.DPConfig``: devices clip and noise their
+          deltas before upload (before compression).
     device: where the bank or slab lives and every round runs; None
           means the CUDA card, and raises without one (pass "cpu" to run
           there).
@@ -196,6 +208,8 @@ class FLSimulator:
     def __init__(self, init_fn: Callable, apply_fn: Callable, fl: FLConfig,
                  data: Dict[str, object], *, lr: float = 0.05,
                  momentum: float = 0.9, batch_size: int = 50, seed: int = 0,
+                 compression: Optional[cmp.CompressionConfig] = None,
+                 dp: Optional[prv.DPConfig] = None,
                  scenario=None, schedule=None, streaming: bool = False,
                  codec: str = "f32", pipeline: bool = False,
                  device: Optional[Union[str, torch.device]] = None):
@@ -213,6 +227,7 @@ class FLSimulator:
             raise ValueError(f"data holds {self.data['xs'].shape[0]} device "
                              f"shards for n={n} devices")
         self.lr, self.momentum, self.batch = lr, momentum, batch_size
+        self.compression, self.dp = compression, dp
         # an enumerated scenario re-draws each round's plan; a virtual
         # population swaps in the keyed cohort engine and forces the
         # streamed engine
@@ -234,6 +249,9 @@ class FLSimulator:
         self.store: Optional[ClientStore] = None
         self._streamed = bool(streaming)
         if self._streamed:
+            if compression is not None or dp is not None:
+                raise ValueError("streamed rounds run plain programs (no "
+                                 "upload transforms)")
             if fl.algorithm == "dec_local_sgd":
                 raise ValueError("dec_local_sgd ties devices to clusters "
                                  "(n == m): no cold rows to stream")
@@ -255,7 +273,10 @@ class FLSimulator:
             self._page_labels = self.labels.copy()
             self._pipe: Optional[Dict] = None
         else:
-            self.bank = ModelBank.from_model(one, n, device=self.device)
+            self.bank = ModelBank.from_model(
+                one, n, device=self.device,
+                with_residual=(compression is not None
+                               and compression.error_feedback))
             self._buckets = cohort_buckets(n)
         # a partial cohort trains on a compacted (k_pad, T) gather of its
         # rows; False keeps it on the mask-frozen full bank
@@ -277,11 +298,15 @@ class FLSimulator:
         # FaultGate directive under a fault-injecting scenario), or what
         # the schedule hook picks for the round
         faulted = self.engine is not None and self.engine.faults is not None
-        self._canonical = prg.canonical_program(fl, faults=faulted)
+        upload = dict(privatize=dp is not None,
+                      compress=compression is not None)
+        self._canonical = prg.canonical_program(fl, faults=faulted,
+                                                **upload)
         self._schedule_fn: Optional[prg.ScheduleFn] = None
         if isinstance(schedule, str):
             self._schedule_fn = prg.make_schedule(
-                schedule, fl, engine=self.engine, faults=faulted, sim=self)
+                schedule, fl, engine=self.engine, faults=faulted, sim=self,
+                **upload)
         elif isinstance(schedule, prg.RoundProgram):
             def _fixed(r, plan, _program=schedule):
                 return _program
@@ -332,6 +357,15 @@ class FLSimulator:
         return self.layout.unflatten_stack(self.bank.mom)
 
     @property
+    def residual(self):
+        """Error-feedback residual tree (views of the flat bank), or None
+        when compression with error feedback is off (and in the streamed
+        engine, whose rounds reject upload programs)."""
+        if self.bank is None or self.bank.residual is None:
+            return None
+        return self.layout.unflatten_stack(self.bank.residual)
+
+    @property
     def peak_slab_bytes(self) -> int:
         """Largest hot slab (params + momentum) a streamed round held — the
         O(cohort) resident bound; 0 for the resident engine."""
@@ -343,14 +377,21 @@ class FLSimulator:
 
     # -- one round -----------------------------------------------------------
     @staticmethod
-    def _step_keys(key: np.ndarray, runs, block_keyed: bool = False
+    def _block_keys(key: np.ndarray, runs, block_keyed: bool = False
+                    ) -> np.ndarray:
+        """(blocks, 2) keys of one round's blocks: the round key split per
+        block; ``block_keyed`` (one-block programs of an async event)
+        takes ``key`` as the block key itself."""
+        nblocks = sum(count for _, count in runs)
+        return key[None] if block_keyed else rnd.split(key, nblocks)
+
+    @classmethod
+    def _step_keys(cls, key: np.ndarray, runs, block_keyed: bool = False
                    ) -> np.ndarray:
         """(steps, 2) keys of every local step of one round, from the
-        reference's schedule: the round key split per block, each block
-        key split per local step. ``block_keyed`` (one-block programs of
-        an async event) takes ``key`` as the block key itself."""
-        nblocks = sum(count for _, count in runs)
-        bkeys = key[None] if block_keyed else rnd.split(key, nblocks)
+        reference's schedule: each block key (:meth:`_block_keys`) split
+        per local step."""
+        bkeys = cls._block_keys(key, runs, block_keyed)
         out = []
         ki = 0
         for bp, count in runs:
@@ -417,21 +458,58 @@ class FLSimulator:
 
     def _run_blocks(self, Y, M, xs, ys, idx, runs, args, k: int,
                     act: Optional[np.ndarray] = None,
-                    tau_rows: Optional[np.ndarray] = None):
+                    tau_rows: Optional[np.ndarray] = None,
+                    bkeys: Optional[np.ndarray] = None,
+                    R: Optional[torch.Tensor] = None):
         """The blocks of one lowered round: τ local steps of the trainers
         (:meth:`_train_block`), then one streaming pass of each
-        MixGroup's operator over all rows. Returns Y (the same tensor on
-        the card, where the square mix writes in place)."""
-        mi = step = 0
+        MixGroup's operator over all rows. An upload block (which needs
+        the round's block keys ``bkeys``) mixes the uploaded deltas
+        instead: Y0 + W₀·upload(Y - Y0), then its remaining groups; the
+        EF residual ``R`` is updated in place. Returns Y (the same tensor
+        on the card for a plain program, where the square mix writes in
+        place)."""
+        mi = step = ki = 0
         for bp, count in runs:
             gm = args.mats[mi:mi + len(bp.groups)]
             mi += len(bp.groups)
             for _ in range(count):
+                Y0 = Y.clone() if bp.upload else None
                 step = self._train_block(Y, M, xs, ys, idx, step, bp.local,
                                          k, act, tau_rows)
-                for W in gm:
+                if bp.upload:
+                    delta = self._upload_deltas(Y.sub_(Y0), R,
+                                                rnd.fold_in(bkeys[ki], 7),
+                                                bp)
+                    Y = gossip_mix_rows(gm[0], delta).add_(Y0)
+                    del delta, Y0
+                    groups = gm[1:]
+                else:
+                    groups = gm
+                for W in groups:
                     Y = gossip_mix_rows(W, Y)
+                ki += 1
         return Y
+
+    def _upload_deltas(self, delta: torch.Tensor,
+                       R: Optional[torch.Tensor], key: np.ndarray,
+                       bp: prg.BlockPlan) -> torch.Tensor:
+        """The devices' uploads of one block: DP (keys ``split(key, n)``),
+        then compression (keys ``split(fold_in(key, 1), n)``), row-wise
+        with the reference's per-device and per-leaf key schedule.
+        Returns the uploaded deltas; the EF residual ``R`` is updated in
+        place."""
+        n = delta.shape[0]
+        dp, comp = self.dp, self.compression
+        if bp.privatize and dp is not None and dp.enabled:
+            delta = prv.privatize_update_flat(delta, dp, rnd.split(key, n))
+        if bp.compress and comp is not None and comp.kind != "none":
+            delta, R_new = cmp.compress_flat(
+                comp, delta, R, rnd.split(rnd.fold_in(key, 1), n),
+                self.layout.segments)
+            if R is not None:
+                R.copy_(R_new)
+        return delta
 
     # -- operators of one round ----------------------------------------------
     def _scenario_h(self, plan=None) -> np.ndarray:
@@ -560,35 +638,36 @@ class FLSimulator:
     # -- lowerings -----------------------------------------------------------
     def _lower_flat(self, program: prg.RoundProgram,
                     block_keyed: bool = False) -> Callable:
-        """Lower a plain RoundProgram to the flat global round
-        ``global_round(Y, M, key, args, mask) -> Y``: all state stays
+        """Lower a RoundProgram to the flat global round
+        ``global_round(Y, M, key, args, mask, R) -> Y``: all state stays
         (n, T); each block runs τ local steps of the rows whose ``mask``
         entry is set (None: all), then one streaming pass
         (``gossip_mix_rows``) of each MixGroup's fused operator — for the
         canonical program the final τ-boundary coincides with the
-        qτ-boundary and arrives pre-fused as ``W_inter @ W_intra``. M is
-        updated in place; the returned Y is the bank's params (the same
-        tensor on the card, where the square mix writes in place).
-        ``block_keyed`` lowers a one-block program that takes the passed
-        key as its block key (an async event replays one block with the
-        barrier's key of that block)."""
-        if program.has_upload:
-            raise NotImplementedError(
-                "upload programs (compression, privacy) arrive with a "
-                "later slice (ROADMAP A9)")
+        qτ-boundary and arrives pre-fused as ``W_inter @ W_intra`` (the
+        upload path keeps the first mix separate, where the fold is
+        invalid: it mixes the uploaded deltas). M and the EF residual R
+        are updated in place; the returned Y is the bank's params (the
+        same tensor on the card for a plain program, where the square mix
+        writes in place). ``block_keyed`` lowers a one-block program that
+        takes the passed key as its block key (an async event replays
+        one block with the barrier's key of that block)."""
         runs = prg.block_runs(prg.lowering_plan(program, fuse=True))
         if block_keyed and sum(c for _, c in runs) != 1:
             raise ValueError("block_keyed lowers one-block programs")
         n, N = self.sched.n, self.data["xs"].shape[1]
 
-        def global_round(Y, M, key, args, mask=None):
+        def global_round(Y, M, key, args, mask=None, R=None):
             # every step's batch indices in one host draw and one copy
             idx = rnd.randint(self._step_keys(key, runs, block_keyed),
                               (n, self.batch), 0, N)
             idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
             act = None if mask is None else np.asarray(mask) > 0.5
+            bkeys = (self._block_keys(key, runs, block_keyed)
+                     if program.has_upload else None)
             return self._run_blocks(Y, M, self.data["xs"], self.data["ys"],
-                                    idx, runs, args, n, act, args.tau_dev)
+                                    idx, runs, args, n, act, args.tau_dev,
+                                    bkeys, R)
         return global_round
 
     def _lower_compact(self, program: prg.RoundProgram) -> Callable:
@@ -605,8 +684,7 @@ class FLSimulator:
         (steps, n, batch) draw is taken at ``idx[:, cp.idx]``."""
         if program.has_upload:
             raise NotImplementedError(
-                "compacted rounds run plain programs (upload programs "
-                "arrive with ROADMAP A9)")
+                "compacted rounds are for plain programs only")
         runs = prg.block_runs(prg.lowering_plan(program, fuse=True))
         n, N = self.sched.n, self.data["xs"].shape[1]
 
@@ -751,7 +829,7 @@ class FLSimulator:
             return plan
         self.last_bucket = b.n
         fn = self._get_round("flat", program)
-        b.params = fn(b.params, b.mom, key, args, mask)
+        b.params = fn(b.params, b.mom, key, args, mask, b.residual)
         return plan
 
     def step_round_async(self, staleness: int, rt, *,
@@ -785,7 +863,8 @@ class FLSimulator:
         plan, _, program = self._begin_round()
         if program.has_upload:
             raise NotImplementedError(
-                "async mode runs plain programs (no upload/EF state)")
+                "async mode supports plain programs only (no upload/EF "
+                "state)")
         mask = None if plan is None else plan.mask
         m = self.fl.num_clusters
         fleet = (None if self.engine is None

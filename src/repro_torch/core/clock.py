@@ -30,6 +30,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.runckpt import RunCheckpoint
 from repro_torch.config import FLConfig
 from repro_torch.core import program as prg
 from repro_torch.core import topology as topo
@@ -449,7 +450,10 @@ class EventClock:
 def run_wall_clock(sim, rt: RuntimeModel, rounds: int, *,
                    eval_every: int = 1, eval_batch: int = 512,
                    uplink_ratio: float = 1.0,
-                   async_staleness: Optional[int] = None
+                   async_staleness: Optional[int] = None,
+                   ckpt_dir: Optional[str] = None,
+                   ckpt_every: int = 0,
+                   resume: bool = False
                    ) -> Dict[str, List[float]]:
     """Drive ``sim`` (an FLSimulator) for ``rounds`` global rounds under
     the event clock, returning a history dict with ``round``,
@@ -480,15 +484,29 @@ def run_wall_clock(sim, rt: RuntimeModel, rounds: int, *,
     rounds have finished on the device, taken before the window's
     evaluation); ``eval_s`` is the evaluation's own host seconds (for a
     pipelined streamed sim it includes landing the in-flight page-out,
-    which every store reader waits for)."""
+    which every store reader waits for).
+
+    ``ckpt_dir`` + ``ckpt_every`` make the loop crash-consistent: every
+    k-th round the full run state (bank buffers with the EF residual or
+    the streamed store, key, scenario cursor, async carries, clock,
+    schedule state, this history) is written atomically by
+    :class:`repro_torch.checkpoint.runckpt.RunCheckpoint`; ``resume=True``
+    restores the checkpoint there (if any) and continues from its round,
+    bit for bit the uninterrupted run (the host-seconds columns aside)."""
     clock = EventClock(rt, sim.fl)
     on_card = sim.device.type == "cuda"
     hist: Dict[str, List[float]] = {
         "round": [], "wall_time": [], "acc": [], "loss": [],
         "participants": [], "page_s": [], "compute_s": [], "eval_s": []}
+    rc = None if ckpt_dir is None else RunCheckpoint(ckpt_dir)
+    start_round = 0
+    if rc is not None and resume and rc.exists():
+        meta = rc.restore(sim, clock=clock, hist=hist,
+                          staleness=async_staleness)
+        start_round = int(meta["round"])
     window_t0 = time.perf_counter()
     page0 = sim._page_seconds
-    for r in range(rounds):
+    for r in range(start_round, rounds):
         if async_staleness is None:
             plan = sim.step_round()
         else:
@@ -554,6 +572,9 @@ def run_wall_clock(sim, rt: RuntimeModel, rounds: int, *,
             hist["compute_s"].append(max(wall - page_s, 0.0))
             window_t0 = time.perf_counter()
             page0 = sim._page_seconds
+        if rc is not None and ckpt_every and (r + 1) % ckpt_every == 0:
+            rc.save(sim, round_idx=r + 1, clock=clock, hist=hist,
+                    staleness=async_staleness)
     return hist
 
 

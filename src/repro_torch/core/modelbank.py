@@ -2,8 +2,9 @@
 (port of ``repro.core.modelbank``).
 
 The paper-faithful engine materializes all n device models (eq. 10
-stacks them row-wise). The bank keeps params and momentum as single
-contiguous ``(n, T)`` float32 tensors on one device for the whole run;
+stacks them row-wise). The bank keeps params, momentum and, with
+error-feedback compression, the uplink residual as single contiguous
+``(n, T)`` float32 tensors on one device for the whole run;
 parameter trees are views made only inside the per-device apply call
 and at evaluation, and every mixing boundary is one streaming pass of
 :func:`repro_torch.kernels.gossip_mix.gossip_mix_rows`. The streamed
@@ -24,29 +25,35 @@ from repro_torch.kernels.gossip_mix import FlatLayout, gossip_mix_rows
 
 
 class ModelBank:
-    """Params and momentum of all n devices as (n, T) f32 tensors.
+    """Params, momentum and EF residual of all n devices as (n, T) f32
+    tensors.
 
-    ``layout`` is the :class:`FlatLayout` of one device model. The
+    ``layout`` is the :class:`FlatLayout` of one device model;
+    ``residual`` is None unless error-feedback compression is on. The
     buffers are plain attributes: the round updates them in place on the
     card and reassigns them where an operation returns a new tensor."""
 
     def __init__(self, layout: FlatLayout, n: int, params_row: torch.Tensor,
-                 *, device: Optional[Union[str, torch.device]] = None):
+                 *, device: Optional[Union[str, torch.device]] = None,
+                 with_residual: bool = False):
         dev = resolve_device(device)
         self.layout = layout
         self.n = n
         self.params = params_row.to(dev, torch.float32)[None, :].repeat(n, 1)
         self.mom = torch.zeros((n, layout.total), dtype=torch.float32,
                                device=dev)
+        self.residual = (torch.zeros_like(self.mom) if with_residual
+                         else None)
 
     @classmethod
     def from_model(cls, one_model, n: int, *,
-                   device: Optional[Union[str, torch.device]] = None
-                   ) -> "ModelBank":
+                   device: Optional[Union[str, torch.device]] = None,
+                   with_residual: bool = False) -> "ModelBank":
         """Broadcast a single init model to all n rows (Algorithm 1's
         shared init)."""
         layout = FlatLayout.for_tree(one_model)
-        return cls(layout, n, layout.flatten_one(one_model), device=device)
+        return cls(layout, n, layout.flatten_one(one_model), device=device,
+                   with_residual=with_residual)
 
     @classmethod
     def from_rows(cls, layout: FlatLayout, params_rows, mom_rows, *,
@@ -68,12 +75,34 @@ class ModelBank:
         self.n = S
         self.params = params.to(dev, copy=True)
         self.mom = mom.to(dev, copy=True)
+        self.residual = None
         return self
 
     @property
     def resident_nbytes(self) -> int:
         """Device-resident bytes of the bank's buffers."""
-        return int(self.params.nbytes + self.mom.nbytes)
+        total = self.params.nbytes + self.mom.nbytes
+        if self.residual is not None:
+            total += self.residual.nbytes
+        return int(total)
+
+    def load_rows(self, params: np.ndarray, mom: np.ndarray,
+                  residual: Optional[np.ndarray] = None) -> None:
+        """Overwrite the resident (n, T) buffers in place from host arrays
+        (a run checkpoint's restore); ``residual`` is required iff the
+        bank carries one."""
+        bufs = [(self.params, params), (self.mom, mom)]
+        if self.residual is not None:
+            if residual is None:
+                raise ValueError("the bank carries an EF residual and the "
+                                 "restored state has none")
+            bufs.append((self.residual, residual))
+        for buf, host in bufs:
+            a = np.asarray(host, np.float32)
+            if a.shape != tuple(buf.shape):
+                raise ValueError(f"restored rows {a.shape} do not match "
+                                 f"the bank's {tuple(buf.shape)}")
+            buf.copy_(torch.from_numpy(a))
 
     def params_tree(self):
         """The (n, ...)-leaved tree view of the params (eval edge)."""

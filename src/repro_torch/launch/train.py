@@ -8,13 +8,16 @@ cold state pages through the compressed host store. ``--pipeline``
 overlaps that paging with compute, with the cold codec on the card. The
 task is the reference's: an MLP 16-32-8 on synthetic class Gaussians,
 16 enumerated data shards (client id mod 16). Runs on the CUDA card
-unless ``--device`` says otherwise.
+unless ``--device`` says otherwise. ``--ckpt-dir`` writes the run's
+state (store, key, scenario cursor) atomically every ``--ckpt-every``
+rounds, and ``--resume`` continues from it, bit for bit the
+uninterrupted run.
 
   PYTHONPATH=src python -m repro_torch.launch.train --population 10000 \\
-      --cohort 8 --codec int8 --pipeline --rounds 5
+      --cohort 8 --codec int8 --pipeline --rounds 5 --ckpt-dir ckpt
 
-The sharded streamed bank (``--data-parallel > 1``) and run checkpoints
-(``--ckpt-dir``) arrive with later slices and raise here.
+The sharded streamed bank (``--data-parallel > 1``, ROADMAP A14) raises
+here.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import argparse
 import dataclasses
 import time
 
+from repro_torch.checkpoint.runckpt import RunCheckpoint
 from repro_torch.config import FLConfig, PopulationConfig
 from repro_torch.core.cefedavg import FLSimulator
 from repro_torch.core.clientstore import resident_slab_nbytes
@@ -66,15 +70,22 @@ def main(argv=None) -> FLSimulator:
     ap.add_argument("--data-parallel", type=int, default=1,
                     help="row-shard the slab over R cards (not ported yet)")
     ap.add_argument("--ckpt-dir", default="",
-                    help="run checkpoint directory (not ported yet)")
+                    help="crash-consistent run checkpoint directory: the "
+                         "full run state written atomically every "
+                         "--ckpt-every rounds")
+    ap.add_argument("--ckpt-every", type=int, default=1,
+                    help="rounds between run checkpoints (with "
+                         "--ckpt-dir)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the checkpoint in --ckpt-dir "
+                         "(bit-identical to the uninterrupted run)")
     args = ap.parse_args(argv)
     if args.data_parallel > 1:
         raise NotImplementedError(
-            "the sharded streamed bank (--data-parallel > 1) arrives with "
-            "slice 4 of the port")
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "run checkpoints (--ckpt-dir) arrive with slice 3 of the port")
+            "the sharded streamed bank (--data-parallel > 1) is not "
+            "ported yet (ROADMAP A14)")
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume needs --ckpt-dir")
 
     m = args.clusters or 4
     # enumerated *data shards* (client_id mod n picks one) — a small
@@ -105,7 +116,12 @@ def main(argv=None) -> FLSimulator:
           f"{sim.device}), slab cap {cap} rows x T={sim.layout.total} = "
           f"{resident_slab_nbytes(cap, sim.layout.total)} B resident",
           flush=True)
-    for r in range(args.rounds):
+    rc = RunCheckpoint(args.ckpt_dir) if args.ckpt_dir else None
+    start = 0
+    if args.resume and rc.exists():
+        start = rc.restore(sim)["round"]
+        print(f"resumed from {rc.path} at round {start}")
+    for r in range(start, args.rounds):
         t0 = time.time()
         plan = sim.step_round()
         acc, loss = sim.evaluate(256)
@@ -113,6 +129,8 @@ def main(argv=None) -> FLSimulator:
               f"cohort={plan.clients.shape[0]} slab={sim.last_bucket} rows "
               f"store={sim.store.nbytes / 1e6:.2f}MB "
               f"({time.time() - t0:.1f}s)", flush=True)
+        if rc is not None and (r + 1) % max(args.ckpt_every, 1) == 0:
+            rc.save(sim, round_idx=r + 1)
     print(f"peak resident slab: {sim.peak_slab_bytes} B (population "
           f"{eng.population}, cold store {sim.store.nbytes / 1e6:.2f}MB "
           f"host)")

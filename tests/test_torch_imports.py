@@ -1,5 +1,7 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, its entry points default to the CUDA
+"""The port stands alone: ``repro_torch``, its examples and
+``chip_smoke.py`` import neither JAX nor the JAX package (nor
+``ml_dtypes``, which the GPU machine lacks), its entry points default to
+the CUDA
 card (raising without one instead of falling back to the CPU), and
 ``chip_smoke.py`` fails, printing no result, where there is no card or
 no repository around it."""
@@ -18,7 +20,9 @@ import repro_torch
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PKG = os.path.join(REPO, "src", "repro_torch")
 STANDALONE = [os.path.join(REPO, "chip_smoke.py"),
-              os.path.join(REPO, "examples", "quickstart_torch.py")]
+              os.path.join(REPO, "examples", "quickstart_torch.py"),
+              os.path.join(REPO, "examples",
+                           "compressed_federated_torch.py")]
 
 
 def _modules():
@@ -42,16 +46,22 @@ def _env():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert {"repro_torch.core.cefedavg", "repro_torch.kernels.gossip_mix",
-            "repro_torch.random", "repro_torch.launch.time_to_accuracy"} \
-        <= set(mods)
-    code = ("import sys, importlib\n"
+            "repro_torch.random", "repro_torch.launch.time_to_accuracy",
+            "repro_torch.core.compress", "repro_torch.core.privacy",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+            "repro_torch.checkpoint.runckpt"} <= set(mods)
+    code = ("import sys, importlib, runpy\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
+            "sys.modules['ml_dtypes'] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             f"sys.path.insert(0, {REPO!r})\n"
             "import chip_smoke\n"
-            "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+            f"for p in {STANDALONE[1:]!r}:\n"
+            "    runpy.run_path(p, run_name='example')\n"
+            "assert not any(k in ('jax', 'ml_dtypes')\n"
+            "               or k.startswith(('jax.', 'repro.'))\n"
             "               for k, v in sys.modules.items() if v)\n"
             "print('imported', len(sys.modules))\n")
     res = subprocess.run([sys.executable, "-c", code], env=_env(),

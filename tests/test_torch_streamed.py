@@ -289,13 +289,25 @@ def test_streamed_options_are_checked():
         _port("f32").params  # noqa: B018
 
 
-def test_population_launcher_on_cpu(capsys):
+def test_population_launcher_on_cpu(capsys, tmp_path):
     from repro_torch.launch import train
-    train.main(["--device", "cpu", "--population", "2000", "--cohort", "3",
-                "--rounds", "2", "--pipeline", "--codec", "int8"])
+    base = ["--device", "cpu", "--population", "2000", "--cohort", "3",
+            "--pipeline", "--codec", "int8"]
+    full = train.main(base + ["--rounds", "3"])
     out = capsys.readouterr().out
     assert "N=2000 virtual clients" in out and "round 1:" in out
-    for argv, what in ((["--data-parallel", "2"], "slice 4"),
-                       (["--ckpt-dir", "x"], "slice 3")):
-        with pytest.raises(NotImplementedError, match=what):
-            train.main(["--device", "cpu", "--population", "100"] + argv)
+    # killed after round 2 (its checkpoint), resumed for round 3: the
+    # global model and the store equal the uninterrupted run's bit for bit
+    ck = ["--ckpt-dir", str(tmp_path)]
+    train.main(base + ck + ["--rounds", "2"])
+    resumed = train.main(base + ck + ["--rounds", "3", "--resume"])
+    out = capsys.readouterr().out
+    assert "at round 2" in out and "round 2:" in out
+    assert torch.equal(full.layout.flatten_one(full.global_model()),
+                       resumed.layout.flatten_one(resumed.global_model()))
+    a, b = full.store.snapshot(), resumed.store.snapshot()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+        train.main(["--device", "cpu", "--population", "100",
+                    "--data-parallel", "2"])
