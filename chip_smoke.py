@@ -39,7 +39,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  (y only; y and the chunk states) in the model's strided
                  layout; each timed beside its plain
                  version (and B4 beside one
-                 ``scaled_dot_product_attention`` call).
+                 ``scaled_dot_product_attention`` call). B4 also at the
+                 seven attention shapes of the MoE, encoder-decoder and
+                 VLM prefills (FA_FAMILY_PATHS), with its bound over the
+                 pairs the mask lets through.
 3. main       — the paper's FEMNIST experiment (``configs/femnist_cnn``:
                  64 devices, 8 edge servers on a ring, tau=2, q=8, pi=10)
                  with the LEAF CNN at full width (6,603,710 params), two
@@ -81,9 +84,20 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  (device time by kernel), then the port's serve driver at
                  the reference's defaults (batch 4, prompt 32, 16 decoded
                  tokens, max-seq 256).
+7b. lm_families — mixtral-8x7b (8 of its 32 layers), llama4-maverick
+                 (1 of its 24 (dense, MoE) pairs), whisper-medium and
+                 pixtral-12b at full width (bf16, seeded generator on
+                 the card), one at a time: a prefill forward (B4
+                 launches as LM_FAMILIES says, finite logits, each MoE
+                 layer's dropped assignments, peak memory), a second
+                 under the profiler (B4, GEMMs, the rest; device busy
+                 share), then the serve driver at the reference's
+                 defaults.
 8. lm decode  — the same model in f32: the kernel forward's logits over
                  2 x 512 tokens against 512 decode steps (no kernel),
-                 within the reference's atol = rtol = 0.05.
+                 within the reference's atol = rtol = 0.05; then the
+                 reduced mixtral, llama4 and whisper likewise over 2 x
+                 128 tokens (MoE capacity never binding: 0 drops).
 9. upload     — the FEMNIST configuration at full width with uploading
                  devices, two rounds each of int8 (stochastic rounding)
                  with error feedback, top-k 5% with error feedback and
@@ -117,9 +131,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  schedule, two async rounds at s = 2, one int8+EF upload
                  round (within the int8 tolerance) and one DP round; the
                  device threefry bits against the host's at (64, 2^20 +
-                 3), bit for bit; and the reduced Zamba2 forward (f32, 2
-                 groups; kernels on the card, plain on the CPU), on the
-                 card and on the CPU; they must agree (TF32 off).
+                 3), bit for bit; and the reduced Zamba2, mixtral,
+                 llama4, whisper and pixtral forwards (f32; kernels on
+                 the card, plain on the CPU), on the card and on the
+                 CPU; they must agree (TF32 off).
 
 The line before the last two is ``{"kernels": [...]}``; the card's
 ``name, power.limit`` (from nvidia-smi) follows, and the last line is
@@ -192,6 +207,32 @@ DECODE_SEQ = 512
 #: reduced Zamba2 forward, card (kernels) against CPU (plain) at f32:
 #: sums in other orders over 4 Mamba-2 blocks and 2 attention layers
 LM_PARITY_TOL = 1e-4
+#: the MoE, encoder-decoder and VLM prefills at full width: arch ->
+#: (layers run, None for all; batch; text tokens; B4 launches a
+#: forward). mixtral's 32 layers of experts (93 GB in bf16) and
+#: llama4-maverick's 24 (dense, MoE) pairs (32.2 GB of experts a pair)
+#: are cut to what one card holds; whisper-medium and pixtral-12b run
+#: whole (pixtral: 1024 patches + 3072 tokens = 4096 positions)
+LM_FAMILIES = {
+    "mixtral-8x7b": (8, 1, 8192, 8),
+    "llama4-maverick-400b-a17b": (2, 2, 4096, 2),
+    "whisper-medium": (None, 2, 448, 24 + 24 + 24),
+    "pixtral-12b": (None, 2, 3072, 40),
+}
+#: B4 at those prefills' shapes: (what, B, Sq, Sk, H, Hkv, D, causal,
+#: window)
+FA_FAMILY_PATHS = (
+    ("mixtral-8x7b", 1, 8192, 8192, 32, 8, 128, True, 4096),
+    ("llama4 dense, window 8192", 2, 4096, 4096, 40, 8, 128, True, 8192),
+    ("llama4 MoE layer", 2, 4096, 4096, 40, 8, 128, True, 0),
+    ("whisper encoder", 2, 1500, 1500, 16, 16, 64, False, 0),
+    ("whisper decoder", 2, 448, 448, 16, 16, 64, True, 0),
+    ("whisper cross", 2, 448, 1500, 16, 16, 64, False, 0),
+    ("pixtral-12b", 2, 4096, 4096, 32, 8, 128, True, 0),
+)
+#: the reduced families' decode against prefill: tokens a row (past the
+#: reduced sliding window of 64)
+FAMILY_DECODE_SEQ = 128
 #: serial (host codec) against pipelined (card codec) at int8: the
 #: reference's own bound (tests/test_clientstore.py)
 INT8_ATOL = 5e-3
@@ -1448,6 +1489,7 @@ def phase_parity(dev: torch.device) -> None:
     _parity_scenarios(dev, pfl, pdata, pinit)
     _parity_upload(dev, pfl, pdata, pinit)
     _parity_lm(dev)
+    _parity_lm_families(dev)
 
 
 def _card_vs_cpu(dev: torch.device, what: str, build, run, read,
@@ -1744,6 +1786,7 @@ def phase_flash_attention(dev: torch.device) -> dict:
         f"achieved {flops / ms / 1e9:.1f} TFLOP/s)")
     del q, k, v, qh, kh, vh
     torch.cuda.empty_cache()
+    err = max(err, _fa_family_paths(dev, gen))
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:70",
@@ -1751,6 +1794,72 @@ def phase_flash_attention(dev: torch.device) -> dict:
             "max_abs_err": max(err, *worst.values()), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms}
+
+
+def _attended_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs a mask lets through (q_offset 0): what the
+    attention's two products must compute."""
+    i = np.arange(Sq)
+    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(Sq)
+    assert causal or not window, "a window without the causal band"
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _fa_family_paths(dev: torch.device, gen: torch.Generator) -> float:
+    """B4 at the shapes of the MoE, encoder-decoder and VLM prefills
+    (bf16, the model's (B, S, H, D) layout with Hkv kv heads) against its
+    plain version, timed beside it and beside one
+    ``scaled_dot_product_attention`` call on the kv heads expanded
+    (outside the timing; the window as a boolean mask). Returns the worst
+    error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    worst = 0.0
+    for what, B, Sq, Sk, H, Hkv, D, causal, window in FA_FAMILY_PATHS:
+        q = torch.randn((B, Sq, H, D), device=dev, generator=gen).to(
+            torch.bfloat16)
+        k, v = (torch.randn((B, Sk, Hkv, D), device=dev, generator=gen
+                            ).to(torch.bfloat16) for _ in range(2))
+        kw = dict(causal=causal, window=window)
+        err = max_err(fa.flash_attention_bshd(q, k, v, **kw),
+                      ref.flash_attention_bshd_ref(q, k, v, **kw),
+                      FA_PATH_ATOL, f"flash_attention at the {what} shape",
+                      rtol=FA_PATH_RTOL)
+        worst = max(worst, err)
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: fa.flash_attention_bshd(q, k, v, **kw))
+        plain_ms = time_ms(lambda: ref.flash_attention_bshd_ref(q, k, v,
+                                                                **kw),
+                           reps=3, warmup=1)
+        torch.cuda.empty_cache()
+        qh = q.transpose(1, 2).contiguous()
+        kh, vh = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        if window:
+            diff = torch.arange(Sq, device=dev)[:, None] - torch.arange(
+                Sk, device=dev)[None]
+            mask = (diff >= 0) & (diff < window)
+            lib = lambda: sdpa(qh, kh, vh, attn_mask=mask)  # noqa: E731
+        else:
+            lib = lambda: sdpa(qh, kh, vh, is_causal=causal)  # noqa: E731
+        library_ms = time_ms(lib)
+        pairs = _attended_pairs(Sq, Sk, causal, window)
+        nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D)
+        flops = 2 * 2 * B * H * D * pairs
+        b_ms, b_by = _bound(nbytes, flops, BF16_FLOPS)
+        log(f"[kernels] flash_attention {what} (B={B}, Sq={Sq}, Sk={Sk}, "
+            f"H/Hkv={H}/{Hkv}, D={D}, causal={causal}, window={window}, "
+            f"bf16): max abs err {err:.3e} (atol {FA_PATH_ATOL}, rtol "
+            f"{FA_PATH_RTOL}); {ms:.4f} ms (plain {plain_ms:.4f}, "
+            f"scaled_dot_product_attention {library_ms:.4f}, bound "
+            f"{b_ms:.4f} by {b_by}: {flops / 1e9:.1f} GFLOP over "
+            f"{pairs:,} attended pairs a head, {nbytes / 1e6:.1f} MB; "
+            f"achieved {flops / ms / 1e9:.1f} TFLOP/s)")
+        del q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+    return worst
 
 
 def _ssd_inputs(gen, dev, BK, H, C, P, N, dt):
@@ -1851,10 +1960,10 @@ def phase_ssd_scan(dev: torch.device) -> dict:
 # phase 7: Zamba2-2.7B at full width
 # ---------------------------------------------------------------------------
 
-def _lm_breakdown(prof, wall_s: float) -> None:
+def _lm_breakdown(prof, wall_s: float, tag: str = "lm") -> None:
     """The profiled forward's device time: the two kernels and the GEMMs
     by name, then the top kernels."""
-    device_breakdown(prof, wall_s, top=12, tag="lm")
+    device_breakdown(prof, wall_s, top=12, tag=tag)
     sums = defaultdict(lambda: [0.0, 0])
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or e.is_user_annotation:
@@ -1868,7 +1977,7 @@ def _lm_breakdown(prof, wall_s: float) -> None:
                else "other")
         sums[key][0] += e.time_range.elapsed_us() / 1e3
         sums[key][1] += 1
-    log("[lm] forward device time by part: " + ", ".join(
+    log(f"[{tag}] forward device time by part: " + ", ".join(
         f"{k} {t:.2f} ms x{c}" for k, (t, c) in sorted(
             sums.items(), key=lambda kv: -kv[1][0])))
 
@@ -1934,6 +2043,115 @@ def phase_lm(dev: torch.device):
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: the MoE, encoder-decoder and VLM families at full width
+# ---------------------------------------------------------------------------
+
+def _family_batch(cfg, B: int, S: int, dev, seed: int) -> dict:
+    """Tokens and labels (B, S), and encdec frames or vlm patch
+    embeddings as seeded normals x 0.02 (the reference's
+    ``_reduced_batch``), made on ``dev``."""
+    from repro_torch.data.lm import synthetic_lm_batch
+    batch = synthetic_lm_batch((B, S), cfg.vocab_size, seed=seed)
+    gen = torch.Generator(dev).manual_seed(seed)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                      device=dev, generator=gen) * 0.02
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (B, cfg.num_patches, cfg.d_model), device=dev,
+            generator=gen) * 0.02
+    return batch
+
+
+def _moe_layers(cfg) -> int:
+    """MoE layers in a forward of ``cfg`` (llama4: one a pair)."""
+    if cfg.family != "moe":
+        return 0
+    return cfg.num_layers // (2 if cfg.moe_shared_expert else 1)
+
+
+def phase_lm_families(dev: torch.device) -> int:
+    """mixtral-8x7b, llama4-maverick, whisper-medium and pixtral-12b at
+    full width (bf16, seeded generator on the card, depth cut where one
+    card cannot hold the model): one prefill forward (B4 launches as in
+    LM_FAMILIES, each MoE layer's dropped assignments, finite logits,
+    peak memory), a second under the profiler, then the serve driver at
+    the reference's defaults. Returns the B4 launches of the four
+    prefills."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import model as mdl
+    total = 0
+    for arch, (layers, B, S, want) in LM_FAMILIES.items():
+        cfg = get_model_config(arch)
+        cut = layers is not None and layers != cfg.num_layers
+        if cut:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        tag = f"lm_families {arch}"
+        with torch.inference_mode():
+            batch = _family_batch(cfg, B, S, dev, seed=0)
+            t0 = time.perf_counter()
+            params = mdl.init_model(torch.Generator(dev).manual_seed(0),
+                                    cfg, dev)
+            torch.cuda.synchronize()
+            log(f"[{tag}] {mdl.param_count(params):,} params "
+                f"({cfg.family}, {cfg.num_layers} layers"
+                f"{' (cut)' if cut else ''}, {cfg.param_dtype}, "
+                f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB on the "
+                f"card) in {time.perf_counter() - t0:.2f} s; prefill {B} x "
+                f"{S} tokens" + (f" + {cfg.num_patches} patches"
+                                 if cfg.family == "vlm" else "")
+                + (f", {cfg.encoder_seq} frames" if cfg.family == "encdec"
+                   else ""))
+            torch.cuda.reset_peak_memory_stats(dev)
+            fa.launches = 0
+            drops = []
+            t0 = time.perf_counter()
+            logits, aux = mdl.forward(cfg, params, batch, drops=drops)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            launches = fa.launches
+            peak = torch.cuda.max_memory_allocated(dev)
+            finite = bool(torch.isfinite(logits).all())
+            shape = tuple(logits.shape)
+            dropped = [int(d) for d in drops]
+            del logits
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                mdl.forward(cfg, params, batch)
+                torch.cuda.synchronize()
+                second = time.perf_counter() - t0
+        S_out = S + (cfg.num_patches if cfg.family == "vlm" else 0)
+        assigned = B * S * cfg.experts_per_token
+        log(f"[{tag}] prefill forward: {first:.3f} s (first), "
+            f"{second:.3f} s (second, under the profiler); logits {shape} "
+            f"finite={finite}; flash_attention launches {launches} (want "
+            f"{want}); peak device memory {peak / 1e9:.2f} GB"
+            + (f"; aux {float(aux):.4f}; dropped assignments a MoE layer "
+               f"{dropped} of {assigned:,}" if cfg.family == "moe" else ""))
+        assert finite and shape == (B, S_out, mdl.padded_vocab(cfg)), shape
+        assert launches == want, (arch, launches)
+        assert len(dropped) == _moe_layers(cfg), (arch, dropped)
+        _lm_breakdown(prof, second, tag=tag)
+        total += launches
+        del params, prof, batch
+        torch.cuda.empty_cache()
+
+        out = serve.main(["--arch", arch, "--device", str(dev)]
+                         + (["--num-layers", str(layers)] if cut else []))
+        log(f"[{tag}] serve (batch 4, prompt 32, 16 decoded tokens, "
+            f"max-seq 256{f', {layers} layers' if cut else ''}): prefill "
+            f"{out['prefill_s']:.3f} s ({out['prefill_tok_s']:.1f} "
+            f"tok/s), decode {out['decode_s']:.3f} s "
+            f"({out['decode_tok_s']:.1f} tok/s), finite={out['finite']}")
+        assert out["finite"] and tuple(out["tokens"].shape) == (4, 17)
+        torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 8: prefill (kernels) against decode steps (no kernel), f32
 # ---------------------------------------------------------------------------
 
@@ -1983,6 +2201,106 @@ def phase_lm_decode(dev: torch.device) -> None:
     torch.cuda.empty_cache()
 
 
+def _fill_cross_caches(cfg, params, frames, cache) -> None:
+    """An encdec decode cache's xk/xv from the encoder output, as the
+    reference's tests/test_models.py fills them (its serve driver
+    decodes against zeros)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as mdl
+    enc = mdl._encode(cfg, params, frames)
+    ks, vs = zip(*(L.qkv_project(cfg, mdl._layer(params["dec_layers"], i)[
+        "cross_attn"], enc, enc)[1:] for i in range(cfg.num_layers)))
+    cache["xk"], cache["xv"] = torch.stack(ks), torch.stack(vs)
+
+
+def phase_lm_decode_families(dev: torch.device) -> None:
+    """mixtral, llama4 and whisper reduced, in f32 on the card: the
+    kernel forward's logits over 2 x FAMILY_DECODE_SEQ tokens against as
+    many decode steps (no kernel), within DECODE_TOL. The property holds
+    only where no assignment is dropped (a decode step never drops), so
+    MoE runs at capacity_factor E / k, more than T slots an expert:
+    asserted 0 drops."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as mdl
+    for arch in ("mixtral-8x7b", "llama4-maverick-400b-a17b",
+                 "whisper-medium"):
+        cfg = get_model_config(arch).reduced()
+        if cfg.family == "moe":
+            cfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+        B, S = LM_BATCH, FAMILY_DECODE_SEQ
+        with torch.inference_mode():
+            batch = _family_batch(cfg, B, S, dev, seed=2)
+            params = mdl.init_model(torch.Generator(dev).manual_seed(2),
+                                    cfg, dev)
+            fa.launches = 0
+            drops = []
+            full, _ = mdl.forward(cfg, params, batch, drops=drops)
+            fwd_launches = fa.launches
+            cache = mdl.init_decode_cache(cfg, B, S, device=dev)
+            if cfg.family == "encdec":
+                _fill_cross_caches(cfg, params, batch["frames"], cache)
+            tt = torch.from_numpy(batch["tokens"]).to(dev)
+            dec = torch.empty_like(full)
+            fa.launches = 0
+            for i in range(S):
+                lg, cache = mdl.decode_step(cfg, params, cache,
+                                            tt[:, i:i + 1], i)
+                dec[:, i] = lg[:, 0]
+            dec_launches = fa.launches
+        diff = (dec - full).abs()
+        err = float(diff.max())
+        bad = int((diff > DECODE_TOL + DECODE_TOL * full.abs()).sum())
+        dropped = [int(d) for d in drops]
+        log(f"[lm decode] {arch} reduced ({cfg.family}, f32, "
+            f"{cfg.num_layers} layers, window {cfg.sliding_window}), {B} x "
+            f"{S} tokens: forward (flash_attention x{fwd_launches}) "
+            f"against {S} decode steps (flash_attention x{dec_launches}); "
+            f"logits max abs diff {err:.3e}, {bad} over atol = rtol = "
+            f"{DECODE_TOL}; dropped assignments {dropped}")
+        assert fwd_launches > 0 and dec_launches == 0
+        assert len(dropped) == _moe_layers(cfg) and not any(dropped)
+        assert bad == 0 and math.isfinite(err), \
+            f"{arch}: prefill and decode disagree"
+        del params, cache, full, dec
+    torch.cuda.empty_cache()
+
+
+def _parity_lm_families(dev: torch.device) -> None:
+    """The reduced mixtral, llama4, whisper and pixtral (f32, the CPU
+    tests' configs) over 2 x 96 positions: the card's forward (B4)
+    against the CPU's (plain), same weights."""
+    from repro_torch.configs import get_model_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as mdl
+    from repro_torch import tree as tr
+    for arch, want in (("mixtral-8x7b", 2), ("llama4-maverick-400b-a17b", 2),
+                       ("whisper-medium", 6), ("pixtral-12b", 2)):
+        cfg = get_model_config(arch).reduced()
+        S = 96 - (cfg.num_patches if cfg.family == "vlm" else 0)
+        cpu = torch.device("cpu")
+        batch = _family_batch(cfg, 2, S, cpu, seed=5)
+        params = mdl.init_model(torch.Generator().manual_seed(5), cfg, "cpu")
+        with torch.inference_mode():
+            host, host_aux = mdl.forward(cfg, params, batch)
+            on_card = tr.tree_map(lambda t: t.to(dev), params)
+            fa.launches = 0
+            card, card_aux = mdl.forward(
+                cfg, on_card, {k: torch.as_tensor(v).to(dev)
+                               for k, v in batch.items()})
+            launches = fa.launches
+        err = max_err(card.cpu(), host, LM_PARITY_TOL,
+                      f"reduced {arch} forward, card vs CPU")
+        aerr = abs(float(card_aux) - float(host_aux))
+        log(f"[parity] reduced {arch} ({cfg.family}, {cfg.num_layers} "
+            f"layers, 2 x 96 positions, f32): card (flash_attention "
+            f"x{launches}) vs CPU (plain) logits max abs diff {err:.3e}, aux "
+            f"{aerr:.3e} (atol = rtol = {LM_PARITY_TOL})")
+        assert launches == want, (arch, launches)
+        assert aerr <= LM_PARITY_TOL, (arch, aerr)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; this smoke run "
@@ -2012,7 +2330,12 @@ def main() -> int:
         f"async path {gossip_async}, upload path {gossip_upload}; "
         f"cold_codec encode/decode on the resume path {resume_codec}")
     attn["launches"], ssd["launches"] = phase_lm(dev)
+    family_attn = phase_lm_families(dev)
+    log(f"[done] flash_attention launches: zamba2-2.7b prefill "
+        f"{attn['launches']}, the four family prefills {family_attn}")
+    attn["launches"] += family_attn
     phase_lm_decode(dev)
+    phase_lm_decode_families(dev)
     phase_parity(dev)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [entry, encode, decode, attn, ssd]}))

@@ -5,14 +5,20 @@ cache. Runs on the CUDA card unless ``--device`` says otherwise.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
       --reduced --device cpu
 
-As in the reference, the prompt fills the cache through decode steps
-(one token at a time), so neither kernel of the full-sequence forward
-runs here. Weights are random, from seed 0; everything runs under
-``torch.inference_mode()``.
+Every arch of ``repro_torch.configs`` serves. As in the reference, the
+prompt fills the cache through decode steps (one token at a time), so
+neither kernel of the full-sequence forward runs here, and an
+encoder-decoder model (whisper-medium) decodes against the zero
+cross-attention cache that ``init_decode_cache`` makes. Weights are
+random, from seed 0; everything runs under ``torch.inference_mode()``.
+``--num-layers N`` cuts the depth at full width, for a model one card
+cannot hold (mixtral-8x7b's experts are 93 GB in bf16; llama4-maverick
+counts its (dense, MoE) pairs as 2 layers each).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -36,6 +42,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--decode-tokens", type=int, default=16)
     ap.add_argument("--max-seq", type=int, default=256)
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut the (decoder) depth to this many layers")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
@@ -46,6 +54,8 @@ def main(argv=None) -> dict:
     cfg = get_model_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     with torch.inference_mode():
         gen = torch.Generator(device).manual_seed(0)
         params = mdl.init_model(gen, cfg, device)
@@ -78,7 +88,8 @@ def main(argv=None) -> dict:
 
     tok_s = args.decode_tokens * args.batch / max(t_decode, 1e-9)
     prefill_tok_s = args.prompt_len * args.batch / max(t_prefill, 1e-9)
-    print(f"arch={cfg.name} batch={args.batch} device={device}")
+    print(f"arch={cfg.name} layers={cfg.num_layers} batch={args.batch} "
+          f"device={device}")
     print(f"prefill: {args.prompt_len} steps in {t_prefill:.2f}s "
           f"({prefill_tok_s:.1f} tok/s)")
     print(f"decode:  {args.decode_tokens} tokens in {t_decode:.2f}s "

@@ -46,7 +46,7 @@ def dense_init(gen: torch.Generator, fan_in: int, shape, dtype: torch.dtype,
     scale = 1.0 / math.sqrt(max(fan_in, 1))
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)  # in place: one f32 copy at a time
 
 
 def pad_to_multiple(n: int, m: int = 256) -> int:

@@ -1,7 +1,7 @@
-"""Language models of the port (``repro.models.model`` for the ``dense``,
-``ssm`` and ``hybrid`` families).
+"""Language models of the port (``repro.models.model``): the ``dense``,
+``moe``, ``ssm``, ``hybrid``, ``encdec`` and ``vlm`` families.
 
-One interface for every ported family:
+One interface for every family:
   init_model(gen, cfg, device)             -> params
   forward(cfg, params, batch)              -> (logits, aux)
   lm_loss(cfg, params, batch)              -> scalar
@@ -9,15 +9,19 @@ One interface for every ported family:
   decode_step(cfg, params, cache, tok, pos) -> (logits, cache)
 
 Layers are stacked on a leading axis, as in the reference's tree
-(``(layers, ...)``; ``(groups, attn_every, ...)`` for the hybrid stack),
-and applied by a Python loop over it where the reference scans. On the
-card the full-sequence forward runs the flash-attention kernel in every
-attention layer and the SSD kernel in every Mamba-2 block; decoding
-runs neither. The ``moe``, ``encdec`` and ``vlm`` families arrive with a
-later slice (ROADMAP A15) and raise NotImplementedError.
+(``(layers, ...)``; ``(groups, attn_every, ...)`` for the hybrid stack;
+llama4-style MoE models ``{"dense": ..., "moe": ...}`` stacks of
+``num_layers / 2`` pairs; the encoder-decoder ``enc_layers`` and
+``dec_layers``), and applied by a Python loop over it where the
+reference scans. On the card the full-sequence forward runs the
+flash-attention kernel in every attention call (self, cross and the
+encoder's) and the SSD kernel in every Mamba-2 block; decoding runs
+neither. The ``cnn`` family is the FL path's (``models/cnn.py``) and
+raises here, as in the reference.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -26,19 +30,28 @@ from repro_torch import tree as tr
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 Params = Dict[str, Any]
 Device = Union[str, torch.device, None]
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-            f"port runs {PORTED_FAMILIES}; the rest is ROADMAP A15")
+        raise ValueError(f"unknown family {cfg.family}")
+
+
+def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(S,) positions -> (S, d) f32 [sin | cos] embeddings (whisper)."""
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device)
+        / max(half - 1, 1))
+    ang = positions[:, None].to(torch.float32) * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -63,11 +76,29 @@ def _init_dense_block(gen, cfg: ModelConfig, device, lead=()) -> Params:
 
 
 def _apply_dense_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-                       window: Optional[int] = None) -> torch.Tensor:
+                       window: Optional[int] = None,
+                       causal: bool = True) -> torch.Tensor:
+    h = L.apply_norm(cfg, lp["norm1"], x)
+    x = x + L.apply_attention(cfg, lp["attn"], h, causal=causal,
+                              window=window)
+    h = L.apply_norm(cfg, lp["norm2"], x)
+    return x + L.apply_mlp(cfg, lp["mlp"], h)
+
+
+def _init_moe_block(gen, cfg: ModelConfig, device, lead=()) -> Params:
+    return {"attn": L.init_attention(gen, cfg, device, lead),
+            "moe": M.init_moe(gen, cfg, cfg.d_model, cfg.d_ff, device, lead),
+            "norm1": L.init_norm(cfg, cfg.d_model, device, lead),
+            "norm2": L.init_norm(cfg, cfg.d_model, device, lead)}
+
+
+def _apply_moe_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                     window: Optional[int] = None, drops=None):
     h = L.apply_norm(cfg, lp["norm1"], x)
     x = x + L.apply_attention(cfg, lp["attn"], h, causal=True, window=window)
     h = L.apply_norm(cfg, lp["norm2"], x)
-    return x + L.apply_mlp(cfg, lp["mlp"], h)
+    y, aux = M.apply_moe(cfg, lp["moe"], h, drops)
+    return x + y, aux
 
 
 def _init_ssm_block(gen, cfg: ModelConfig, device, lead=()) -> Params:
@@ -79,6 +110,14 @@ def _apply_ssm_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                      intra_fn=None) -> torch.Tensor:
     h = L.apply_norm(cfg, lp["norm1"], x)
     return x + S.apply_mamba(cfg, lp["mamba"], h, intra_fn=intra_fn)
+
+
+def _init_encdec_dec_block(gen, cfg: ModelConfig, device, lead=()) -> Params:
+    return {"self_attn": L.init_attention(gen, cfg, device, lead),
+            "cross_attn": L.init_attention(gen, cfg, device, lead),
+            "mlp": L.init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, device, lead),
+            **{f"norm{i}": L.init_norm(cfg, cfg.d_model, device, lead)
+               for i in (1, 2, 3)}}
 
 
 # ---------------------------------------------------------------------------
@@ -103,10 +142,30 @@ def init_model(gen: torch.Generator, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, cfg.d_model, (cfg.d_model, V),
                                          dt, device)
-    if cfg.family == "dense":
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
         params["layers"] = _init_dense_block(gen, cfg, device,
                                              (cfg.num_layers,))
-    elif cfg.family == "ssm":
+        if fam == "vlm":
+            params["vision_proj"] = L.dense_init(
+                gen, cfg.d_model, (cfg.d_model, cfg.d_model), dt, device)
+    elif fam == "moe":
+        if cfg.moe_shared_expert:  # llama4-style: (dense, moe) layer pairs
+            assert cfg.num_layers % 2 == 0
+            half = (cfg.num_layers // 2,)
+            params["layers"] = {
+                "dense": _init_dense_block(gen, cfg, device, half),
+                "moe": _init_moe_block(gen, cfg, device, half)}
+        else:  # mixtral-style: every layer MoE
+            params["layers"] = _init_moe_block(gen, cfg, device,
+                                               (cfg.num_layers,))
+    elif fam == "encdec":
+        params["enc_layers"] = _init_dense_block(gen, cfg, device,
+                                                 (cfg.encoder_layers,))
+        params["dec_layers"] = _init_encdec_dec_block(gen, cfg, device,
+                                                      (cfg.num_layers,))
+        params["enc_final_norm"] = L.init_norm(cfg, cfg.d_model, device)
+    elif fam == "ssm":
         params["layers"] = _init_ssm_block(gen, cfg, device,
                                            (cfg.num_layers,))
     else:  # hybrid: (groups, attn_every) Mamba-2 blocks + one shared block
@@ -126,12 +185,15 @@ def param_count(params: Params) -> int:
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ModelConfig, params: Params,
-           tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+           pos: int = 0) -> torch.Tensor:
+    """Token embeddings of (B, S) tokens at positions pos.., plus
+    sinusoidal positions when the model has no rope (whisper)."""
+    x = params["tok_embed"][tokens].to(L.torch_dtype(cfg.dtype))
     if not cfg.use_rope:
-        raise NotImplementedError("sinusoidal positions (encdec) are "
-                                  "ROADMAP A15")
-    return params["tok_embed"][tokens].to(L.torch_dtype(cfg.dtype))
+        at = torch.arange(pos, pos + tokens.shape[1], device=x.device)
+        x = x + _sinusoidal(at, cfg.d_model)[None].to(x.dtype)
+    return x
 
 
 def _logits(cfg: ModelConfig, params: Params,
@@ -146,19 +208,74 @@ def _tokens(batch, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(batch["tokens"], device=device).long()
 
 
+def _encode(cfg: ModelConfig, params: Params, frames) -> torch.Tensor:
+    """The encoder of an encdec model: (B, encoder_seq, d) frame
+    embeddings (the stub frontend's) -> normed (B, encoder_seq, d)."""
+    dt = L.torch_dtype(cfg.dtype)
+    enc = torch.as_tensor(frames, device=params["tok_embed"].device).to(dt)
+    at = torch.arange(enc.shape[1], device=enc.device)
+    enc = enc + _sinusoidal(at, cfg.d_model)[None].to(dt)
+    for i in range(cfg.encoder_layers):
+        enc = _apply_dense_block(cfg, _layer(params["enc_layers"], i), enc,
+                                 causal=False)
+    return L.apply_norm(cfg, params["enc_final_norm"], enc)
+
+
+def _apply_dec_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                     enc: torch.Tensor) -> torch.Tensor:
+    h = L.apply_norm(cfg, lp["norm1"], x)
+    x = x + L.apply_attention(cfg, lp["self_attn"], h, causal=True)
+    h = L.apply_norm(cfg, lp["norm2"], x)
+    x = x + L.apply_attention(cfg, lp["cross_attn"], h, kv_input=enc)
+    h = L.apply_norm(cfg, lp["norm3"], x)
+    return x + L.apply_mlp(cfg, lp["mlp"], h)
+
+
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            intra_fn=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            intra_fn=None, drops: Optional[list] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, padded_vocab), aux_loss). ``batch["tokens"]``
-    is (B, S) int (numpy or tensor); the run is on the params' device."""
+    is (B, S) int (numpy or tensor); encdec also takes ``frames`` (B,
+    encoder_seq, d) and vlm ``patch_embeds`` (B, num_patches, d), whose
+    projections come before the tokens (S grows by num_patches). The run
+    is on the params' device. ``drops``, a list, receives each MoE
+    layer's count of dropped assignments (``models.moe``)."""
     _check_family(cfg)
+    fam = cfg.family
     device = params["tok_embed"].device
-    x = _embed(cfg, params, _tokens(batch, device))
     aux = torch.zeros((), dtype=torch.float32, device=device)
+    if fam == "encdec":
+        enc = _encode(cfg, params, batch["frames"])
+        x = _embed(cfg, params, _tokens(batch, device))
+        for i in range(cfg.num_layers):
+            x = _apply_dec_block(cfg, _layer(params["dec_layers"], i), x,
+                                 enc)
+        return _logits(cfg, params, x), aux
+
+    x = _embed(cfg, params, _tokens(batch, device))
+    if fam == "vlm":
+        dt = L.torch_dtype(cfg.dtype)
+        patches = torch.as_tensor(batch["patch_embeds"], device=device
+                                  ).to(dt) @ params["vision_proj"]
+        x = torch.cat([patches, x], dim=1)
     layers = params["layers"]
-    if cfg.family == "dense":
+    if fam in ("dense", "vlm"):
         for i in range(cfg.num_layers):
             x = _apply_dense_block(cfg, _layer(layers, i), x)
-    elif cfg.family == "ssm":
+    elif fam == "moe" and cfg.moe_shared_expert:
+        # llama4: (dense with SWA at sliding_window, MoE with full
+        # attention) pairs
+        for i in range(cfg.num_layers // 2):
+            x = _apply_dense_block(cfg, _layer(layers["dense"], i), x,
+                                   window=cfg.sliding_window)
+            x, a = _apply_moe_block(cfg, _layer(layers["moe"], i), x,
+                                    window=0, drops=drops)
+            aux = aux + a
+    elif fam == "moe":
+        for i in range(cfg.num_layers):
+            x, a = _apply_moe_block(cfg, _layer(layers, i), x, drops=drops)
+            aux = aux + a
+    elif fam == "ssm":
         for i in range(cfg.num_layers):
             x = _apply_ssm_block(cfg, _layer(layers, i), x,
                                  intra_fn=intra_fn)
@@ -174,9 +291,12 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
 
 def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             aux_weight: float = 0.01) -> torch.Tensor:
-    """Mean next-token cross entropy (f32) plus ``aux_weight`` x aux."""
+    """Mean next-token cross entropy (f32) plus ``aux_weight`` x aux; a
+    vlm model's loss is over the text positions only."""
     logits, aux = forward(cfg, params, batch)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    if cfg.family == "vlm":
+        logits = logits[:, -labels.shape[1]:]
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     picked = torch.gather(lf, -1, labels[..., None])[..., 0]
@@ -192,7 +312,11 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq: int,
                       device: Device = None) -> Params:
     """The per-family decode cache; ``seq`` is the max KV length. Hybrid
     Mamba caches are (groups, attn_every, ...), its KV caches (groups,
-    ...): one per application of the shared block."""
+    ...): one per application of the shared block. llama4-style MoE
+    caches are (num_layers / 2, 2, ...): the pair's dense then MoE
+    layer. Encdec adds the cross-attention caches ``xk``/``xv``,
+    (layers, batch, encoder_seq, num_heads, head_dim), zero until the
+    caller fills them from the encoder."""
     _check_family(cfg)
     device = resolve_device(device)
     dt = dtype or L.torch_dtype(cfg.dtype)
@@ -201,9 +325,20 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq: int,
     def kv(n):
         return torch.zeros((n, batch, seq, hk, hd), dtype=dt, device=device)
 
-    if cfg.family == "dense":
+    fam = cfg.family
+    if fam in ("dense", "vlm") or (fam == "moe"
+                                   and not cfg.moe_shared_expert):
         return {"k": kv(cfg.num_layers), "v": kv(cfg.num_layers)}
-    if cfg.family == "ssm":
+    if fam == "moe":
+        half = cfg.num_layers // 2
+        return {n: torch.zeros((half, 2, batch, seq, hk, hd), dtype=dt,
+                               device=device) for n in ("k", "v")}
+    if fam == "encdec":
+        x = (cfg.num_layers, batch, cfg.encoder_seq, cfg.num_heads, hd)
+        return {"k": kv(cfg.num_layers), "v": kv(cfg.num_layers),
+                "xk": torch.zeros(x, dtype=dt, device=device),
+                "xv": torch.zeros(x, dtype=dt, device=device)}
+    if fam == "ssm":
         return S.init_mamba_cache(cfg, cfg.num_layers, batch, dt, device)
     groups = cfg.num_layers // cfg.attn_every
     mc = S.init_mamba_cache(cfg, groups * cfg.attn_every, batch, dt, device)
@@ -223,13 +358,42 @@ def _decode_ssm_block(cfg, lp, x, cache, idx):
     return x + y
 
 
-def _decode_dense_block(cfg, lp, x, cache, idx, pos):
-    """One attention block of a decode step; writes its KV slot at pos."""
+def _decode_attn(cfg, lp, x, cache, idx, pos, window=None):
+    """Pre-norm self-attention of a decode step (residual added); writes
+    its KV slot at pos."""
     h = L.apply_norm(cfg, lp["norm1"], x)
     a, _, _ = L.decode_attention(cfg, lp["attn"], h, cache["k"][idx],
-                                 cache["v"][idx], pos)
+                                 cache["v"][idx], pos, window=window)
+    return x + a
+
+
+def _decode_dense_block(cfg, lp, x, cache, idx, pos, window=None):
+    """One attention block of a decode step; writes its KV slot at pos."""
+    x = _decode_attn(cfg, lp, x, cache, idx, pos, window)
+    h = L.apply_norm(cfg, lp["norm2"], x)
+    return x + L.apply_mlp(cfg, lp["mlp"], h)
+
+
+def _decode_moe_block(cfg, lp, x, cache, idx, pos, window=None):
+    x = _decode_attn(cfg, lp, x, cache, idx, pos, window)
+    h = L.apply_norm(cfg, lp["norm2"], x)
+    return x + M.apply_moe(cfg, lp["moe"], h)[0]
+
+
+def _decode_dec_block(cfg, lp, x, cache, i, pos):
+    """One decoder block of an encdec decode step: self-attention on the
+    KV cache, cross-attention on ``xk``/``xv`` at their last position,
+    no cache write."""
+    h = L.apply_norm(cfg, lp["norm1"], x)
+    a, _, _ = L.decode_attention(cfg, lp["self_attn"], h, cache["k"][i],
+                                 cache["v"][i], pos)
     x = x + a
     h = L.apply_norm(cfg, lp["norm2"], x)
+    xk, xv = cache["xk"][i], cache["xv"][i]
+    a, _, _ = L.decode_attention(cfg, lp["cross_attn"], h, xk, xv,
+                                 xk.shape[1] - 1, update_cache=False)
+    x = x + a
+    h = L.apply_norm(cfg, lp["norm3"], x)
     return x + L.apply_mlp(cfg, lp["mlp"], h)
 
 
@@ -242,13 +406,31 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     _check_family(cfg)
     device = params["tok_embed"].device
     pos = int(pos)
-    x = _embed(cfg, params, torch.as_tensor(tokens, device=device).long())
+    x = _embed(cfg, params, torch.as_tensor(tokens, device=device).long(),
+               pos)
+    fam = cfg.family
+    if fam == "encdec":
+        for i in range(cfg.num_layers):
+            x = _decode_dec_block(cfg, _layer(params["dec_layers"], i), x,
+                                  cache, i, pos)
+        return _logits(cfg, params, x), cache
     layers = params["layers"]
-    if cfg.family == "dense":
+    if fam in ("dense", "vlm"):
         for i in range(cfg.num_layers):
             x = _decode_dense_block(cfg, _layer(layers, i), x, cache, (i,),
                                     pos)
-    elif cfg.family == "ssm":
+    elif fam == "moe" and cfg.moe_shared_expert:
+        for i in range(cfg.num_layers // 2):
+            x = _decode_dense_block(cfg, _layer(layers["dense"], i), x,
+                                    cache, (i, 0), pos,
+                                    window=cfg.sliding_window)
+            x = _decode_moe_block(cfg, _layer(layers["moe"], i), x, cache,
+                                  (i, 1), pos, window=0)
+    elif fam == "moe":
+        for i in range(cfg.num_layers):
+            x = _decode_moe_block(cfg, _layer(layers, i), x, cache, (i,),
+                                  pos)
+    elif fam == "ssm":
         for i in range(cfg.num_layers):
             x = _decode_ssm_block(cfg, _layer(layers, i), x, cache, (i,))
     else:  # hybrid: groups, then blocks, then the shared block

@@ -1,14 +1,16 @@
 """The port's configuration registry against ``repro.configs``.
 
-Every arch the port registers has a ``ModelConfig`` equal, field by
-field, to the reference's, and the paper experiments' configs match.
-The dense archs ``minitron-8b`` (squared-ReLU MLP) and ``qwen2.5-14b``
-(QKV bias, rope_theta 1e6), and ``mistral-large-123b``, run their
-reduced forward on the CPU through the plain kernels: logits within
-1e-4 of the reference's on the reference's own parameters (sums in
-another order over two layers). At full width their parameter counts
-equal the reference's, counted from ``meta`` tensors on the port's side
-(mistral-large-123b is about 246 GB in bf16, more than one card holds).
+The port registers the reference's ten archs, each with a
+``ModelConfig`` equal, field by field, to the reference's, and the
+paper experiments' configs match. The dense archs ``minitron-8b``
+(squared-ReLU MLP) and ``qwen2.5-14b`` (QKV bias, rope_theta 1e6), and
+``mistral-large-123b``, run their reduced forward on the CPU through
+the plain kernels: logits within 1e-4 of the reference's on the
+reference's own parameters (sums in another order over two layers).
+At full width the parameter counts of those three and of the MoE,
+encoder-decoder and VLM archs equal the reference's, counted from
+``meta`` tensors on the port's side (mistral-large-123b is about 246 GB
+in bf16 and llama4-maverick about 800 GB, more than one card holds).
 """
 import dataclasses
 
@@ -27,6 +29,9 @@ from repro_torch.data.lm import synthetic_lm_batch
 from repro_torch.models import model as tm
 
 DENSE_NEW = ("minitron-8b", "qwen2.5-14b", "mistral-large-123b")
+#: the archs of the moe, encdec and vlm families
+FAMILIES_NEW = ("mixtral-8x7b", "llama4-maverick-400b-a17b",
+                "whisper-medium", "pixtral-12b")
 
 
 @pytest.mark.parametrize("arch", sorted(tcfg.ARCHS))
@@ -35,24 +40,14 @@ def test_registered_configs_equal_reference(arch):
     a = dataclasses.asdict(tcfg.get_model_config(arch))
     b = dataclasses.asdict(rcfg.get_model_config(arch))
     assert a == b
-    assert tcfg.get_model_config(arch).family in ("dense", "ssm", "hybrid")
+    assert tcfg.get_model_config(arch).family in tm.PORTED_FAMILIES
 
 
 def test_registry_covers_every_ported_family_arch():
-    """Every reference arch is registered or named as unported, and the
-    unported ones are exactly the MoE, encoder-decoder and VLM archs."""
-    assert set(tcfg.ARCHS) | set(tcfg.UNPORTED) == set(rcfg.ARCHS)
-    assert not set(tcfg.ARCHS) & set(tcfg.UNPORTED)
-    for arch in tcfg.UNPORTED:
-        assert rcfg.get_model_config(arch).family in ("moe", "encdec",
-                                                      "vlm")
-        with pytest.raises(KeyError, match="A15") as err:
-            tcfg.get_model_config(arch)
-        assert arch in str(err.value)
-    for arch in rcfg.ARCHS:
-        if rcfg.get_model_config(arch).family in ("dense", "ssm",
-                                                  "hybrid"):
-            assert arch in tcfg.ARCHS
+    """The registry is the reference's: every arch, every LM family."""
+    assert tcfg.ARCHS == rcfg.ARCHS
+    assert {tcfg.get_model_config(a).family for a in tcfg.ARCHS} == set(
+        tm.PORTED_FAMILIES)
     with pytest.raises(KeyError, match="unknown arch"):
         tcfg.get_model_config("gpt-5")
 
@@ -94,7 +89,7 @@ def test_reduced_forward_matches_reference(arch):
                                rtol=1e-4)
 
 
-@pytest.mark.parametrize("arch", DENSE_NEW)
+@pytest.mark.parametrize("arch", DENSE_NEW + FAMILIES_NEW)
 def test_full_width_param_count_equals_reference(arch):
     cfg = tcfg.get_model_config(arch)
     params = tm.init_model(torch.Generator().manual_seed(0), cfg, "meta")

@@ -1,15 +1,22 @@
 """The port's language models (``repro_torch.models.model``) against the
-reference (``repro.models.model``) on the CPU, for the ported families:
-reduced zamba2-2.7b (hybrid, 4 layers = 2 groups), mamba2-2.7b (ssm)
-and qwen2-0.5b (dense, GQA with QKV bias), at f32.
+reference (``repro.models.model``) on the CPU, at f32, for every family:
+reduced zamba2-2.7b (hybrid, 4 layers = 2 groups), mamba2-2.7b (ssm),
+qwen2-0.5b (dense, GQA with QKV bias), mixtral-8x7b (moe, sliding
+window), llama4-maverick (moe: a (dense SWA, MoE full) pair with the
+shared expert), whisper-medium (encdec: layernorm, gelu, sinusoidal
+positions, cross-attention) and pixtral-12b (vlm: patch embeddings
+before the tokens).
 
 The port runs the reference's own parameters, carried across with
 ``repro_torch.convert``. Tolerances: logits 1e-4 and loss 1e-5 against
-the reference (sums in another order over a few layers); decode against
-forward inside the port 1e-4; the init's tree, shapes and dtypes
-exactly; Zamba2-2.7B's full-width parameter count exactly, from meta
-tensors. Also: bf16 trees cross bit for bit, the serve driver runs on
-the CPU, and unported archs and families raise.
+the reference (sums in another order over a few layers); 16 decode
+steps 1e-4 (logits and caches); decode against forward inside the port
+1e-4 (every family but vlm, whose decode never sees the patches, as in
+the reference; encdec with its cross caches filled from the encoder);
+the init's tree, shapes and dtypes exactly; Zamba2-2.7B's full-width
+parameter count exactly, from meta tensors. Also: bf16 trees cross bit
+for bit, the serve driver runs on the CPU, and the ``cnn`` family
+raises.
 """
 import dataclasses
 
@@ -28,10 +35,13 @@ from repro_torch.configs import get_model_config as t_config
 from repro_torch.convert import tree_from_numpy
 from repro_torch.data.lm import TokenStream, synthetic_lm_batch
 from repro_torch.launch import serve
+from repro_torch.models import layers as L
 from repro_torch.models import model as tm
 
 ARCHS = {"zamba2-2.7b": dict(num_layers=4), "mamba2-2.7b": {},
-         "qwen2-0.5b": {}}
+         "qwen2-0.5b": {}, "mixtral-8x7b": {},
+         "llama4-maverick-400b-a17b": {}, "whisper-medium": {},
+         "pixtral-12b": {}}
 ZAMBA2_PARAMS = 2_422_670_240
 
 
@@ -45,6 +55,23 @@ def _params(rc, seed=0):
     return jax.tree.map(jnp.asarray, host), tree_from_numpy(host)
 
 
+def _batch(cfg, B, S, seed):
+    """The reference's ``_reduced_batch`` (tests/test_models.py) from
+    numpy: tokens and labels, encdec frames and vlm patch embeddings
+    (seeded normals x 0.02; vlm keeps S - num_patches text tokens)."""
+    batch = synthetic_lm_batch((B, S), cfg.vocab_size, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    if cfg.family == "encdec":
+        batch["frames"] = (rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = (rng.standard_normal(
+            (B, cfg.num_patches, cfg.d_model)) * 0.02).astype(np.float32)
+        batch["tokens"] = batch["tokens"][:, :S - cfg.num_patches]
+        batch["labels"] = batch["labels"][:, :S - cfg.num_patches]
+    return batch
+
+
 def _close(t, j, tol):
     np.testing.assert_allclose(t.detach().to(torch.float32).numpy(),
                                np.asarray(j, np.float32), atol=tol, rtol=tol)
@@ -54,31 +81,44 @@ def _close(t, j, tol):
 def test_forward_and_loss_match_reference(arch):
     rc, tc = _cfgs(arch)
     jp, tp = _params(rc)
-    batch = synthetic_lm_batch((2, 96), tc.vocab_size, seed=1)
+    batch = _batch(tc, 2, 96, seed=1)
     ref = r_batch((2, 96), rc.vocab_size, seed=1)
-    assert all(np.array_equal(batch[k], ref[k]) for k in batch)
+    assert all(np.array_equal(batch[k][:, :ref[k].shape[1]], ref[k][
+        :, :batch[k].shape[1]]) for k in ref)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     logits, aux = tm.forward(tc, tp, batch)
-    exp, _ = rm.forward(rc, jp, {k: jnp.asarray(v) for k, v in ref.items()})
+    exp, exp_aux = rm.forward(rc, jp, jbatch)
     assert tuple(logits.shape) == exp.shape == (2, 96, tm.padded_vocab(tc))
-    assert float(aux) == 0.0
+    if tc.family == "moe":
+        assert float(aux) > 0.0
+        assert abs(float(aux) - float(exp_aux)) <= 1e-6
+    else:
+        assert float(aux) == 0.0
     _close(logits, exp, 1e-4)
     loss = tm.lm_loss(tc, tp, batch)
-    exp_loss = rm.lm_loss(rc, jp, {k: jnp.asarray(v) for k, v in ref.items()})
+    exp_loss = rm.lm_loss(rc, jp, jbatch)
     assert abs(float(loss) - float(exp_loss)) <= 1e-5 * abs(float(exp_loss))
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_decode_steps_match_reference(arch):
-    """Eight decode steps from an empty cache, logits and caches step for
+    """Sixteen decode steps from an empty cache (encdec: cross caches
+    filled with the same seeded normals), logits and caches step for
     step."""
     rc, tc = _cfgs(arch)
     jp, tp = _params(rc, seed=1)
-    B, S = 2, 8
+    B, S = 2, 16
     toks = synthetic_lm_batch((B, S), tc.vocab_size, seed=2)["tokens"]
     jc, _ = rm.init_decode_cache(rc, B, S, dtype=jnp.float32)
     tcache = tm.init_decode_cache(tc, B, S, dtype=torch.float32,
                                   device="cpu")
     assert sorted(tcache) == sorted(jc)
+    rng = np.random.default_rng(2)
+    for k in ("xk", "xv"):
+        if k in jc:
+            fill = rng.standard_normal(jc[k].shape).astype(np.float32)
+            jc[k] = jnp.asarray(fill)
+            tcache[k].copy_(torch.from_numpy(fill))
     for i in range(S):
         lj, jc = rm.decode_step(rc, jp, jc, jnp.asarray(toks[:, i:i + 1]),
                                 jnp.asarray(i, jnp.int32))
@@ -89,17 +129,41 @@ def test_decode_steps_match_reference(arch):
         _close(tcache[k], jc[k], 1e-4)
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+def _cross_caches(cfg, params, frames, cache):
+    """Fill an encdec cache's xk/xv from the encoder output, as the
+    reference's tests/test_models.py does."""
+    enc = tm._encode(cfg, params, frames)
+    ks, vs = zip(*(L.qkv_project(cfg, tm._layer(params["dec_layers"], i)[
+        "cross_attn"], enc, enc)[1:] for i in range(cfg.num_layers)))
+    cache["xk"], cache["xv"] = torch.stack(ks), torch.stack(vs)
+
+
+@pytest.mark.parametrize("arch", sorted(
+    a for a in ARCHS if t_config(a).family != "vlm"))
 def test_decode_matches_forward_in_port(arch):
     """Incremental decode logits == the full-sequence forward's, in the
-    port alone (the reference's property, tests/test_models.py)."""
+    port alone (the reference's property, tests/test_models.py). It holds
+    only where no assignment is dropped (a decode step never drops), so
+    MoE runs at capacity_factor E / k, whose capacity of more than T
+    slots an expert cannot bind: asserted."""
     _, tc = _cfgs(arch)
+    if tc.family == "moe":
+        tc = dataclasses.replace(
+            tc, capacity_factor=tc.num_experts / tc.experts_per_token)
     gen = torch.Generator().manual_seed(3)
     params = tm.init_model(gen, tc, "cpu")
     B, S = 2, 20
-    toks = synthetic_lm_batch((B, S), tc.vocab_size, seed=3)["tokens"]
-    full, _ = tm.forward(tc, params, {"tokens": toks})
+    batch = _batch(tc, B, S, seed=3)
+    toks = batch["tokens"]
+    drops = []
+    full, _ = tm.forward(tc, params, batch, drops=drops)
+    assert len(drops) == (tc.num_layers // (2 if tc.moe_shared_expert
+                                             else 1)
+                          if tc.family == "moe" else 0)
+    assert all(int(d) == 0 for d in drops)
     cache = tm.init_decode_cache(tc, B, S, device="cpu")
+    if tc.family == "encdec":
+        _cross_caches(tc, params, batch["frames"], cache)
     outs = []
     for i in range(S):
         lg, cache = tm.decode_step(tc, params, cache, toks[:, i:i + 1], i)
@@ -159,6 +223,18 @@ def test_serve_driver_on_cpu(capsys):
     assert "tok/s" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b",
+                                  "llama4-maverick-400b-a17b",
+                                  "whisper-medium", "pixtral-12b"])
+def test_serve_driver_new_families_on_cpu(arch, capsys):
+    out = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "6",
+                      "--decode-tokens", "3", "--max-seq", "12",
+                      "--num-layers", "2"])
+    assert out["finite"] and tuple(out["tokens"].shape) == (2, 4)
+    assert "layers=2" in capsys.readouterr().out
+
+
 def test_token_stream_matches_reference():
     from repro.data.lm import TokenStream as RStream
     cluster_of = lambda r: r // 2  # noqa: E731
@@ -169,11 +245,16 @@ def test_token_stream_matches_reference():
 
 
 def test_unported_archs_and_families_raise():
-    with pytest.raises(KeyError, match="A15"):
-        t_config("mixtral-8x7b")
-    moe = dataclasses.replace(t_config("qwen2-0.5b").reduced(), family="moe")
-    with pytest.raises(NotImplementedError, match="A15"):
-        tm.init_model(torch.Generator(), moe, "cpu")
+    """Every LM family runs; ``cnn`` (the FL path's models) raises in
+    ``init_model`` as in the reference; entry points need a card unless
+    asked for the CPU."""
+    cnn = dataclasses.replace(t_config("qwen2-0.5b").reduced(), family="cnn")
+    with pytest.raises(ValueError, match="cnn"):
+        tm.init_model(torch.Generator(), cnn, "cpu")
+    r_cnn = dataclasses.replace(r_config("qwen2-0.5b").reduced(),
+                                family="cnn")
+    with pytest.raises(ValueError, match="cnn"):
+        rm.init_model(jax.random.PRNGKey(0), r_cnn)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tm.init_model(torch.Generator(), t_config("qwen2-0.5b").reduced())
