@@ -123,6 +123,32 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  (global model, store bytes, history); each checkpoint's
                  size on disk and its save and restore seconds (written
                  to a temporary directory, removed afterwards).
+10b. sharded  — the device-parallel bank engine (``core/sharded.py``):
+                 8 rank processes of one gloo world share the card, each
+                 holding one full-width FEMNIST-CNN bank row (the
+                 configuration's tau, q, pi on a ring, its fleet cut to 4
+                 clusters x 2 devices, lr 0.01; a last static round at
+                 the configuration's lr 0.1 shows both engines diverge
+                 there), cuDNN deterministic in every engine: one block
+                 (static, and under ``mobile_sampled`` with ``chaos``
+                 faults), 2 static rounds, 2 under ``mobile_sampled`` +
+                 ``chaos``, 1 depth-3 (2, 2, 2) round and 1 async round
+                 at s = 2. Every round within 2e-4 of the single-process
+                 engine on the card from the same seeds, taking its SGD
+                 steps one row at a time and summing each boundary in
+                 the sharded lowering's order, as the ranks do; one
+                 block also of the engine as it stands, whose gap over
+                 whole rounds is printed beside its two causes (its
+                 n-row vmap against one row at a time, B1 against the
+                 lowering's order of sums). Every boundary lowering
+                 within 2e-4 of B1 on the same rows; per round the
+                 seconds (max over ranks: gloo on one card, rows staged
+                 through host memory, not a multi-card speed) and a
+                 rank's bytes by collective; each rank's peak memory;
+                 (1, T) rows on every rank, no gather in the static and
+                 depth-3 rounds, no kernel launch.
+                 Every phase starts by collecting the earlier phases'
+                 garbage and printing what is still allocated.
 11. parity    — the quickstart configuration for one round, the small
                  population configuration of the CPU tests (f32,
                  pipelined) for two; at its geometry a compacted
@@ -240,6 +266,33 @@ INT8_ATOL = 5e-3
 #: dark cluster, a dropped link and a timed-out device (asserted)
 SCENARIO_SEED, SCENARIO_FAULT_SEED, SCENARIO_ROUNDS = 7, 3, 3
 ASYNC_STALENESS = 2
+#: the sharded phase: configs/femnist_cnn.py's tau = 2, q = 8, pi = 10 on
+#: a ring, its fleet cut to 4 clusters x 2 devices, one rank process a
+#: bank row (one card cannot host 64 rank processes); (name, FLConfig
+#: changes, rounds, options) of each run
+SHARDED_RANKS = 8
+SHARDED_RUNS = (
+    ("one fused block", {}, 1, {"block": True}),
+    ("one fused block, mobile_sampled + chaos", {}, 1, {
+        "block": True, "scenario": "mobile_sampled", "faults": "chaos"}),
+    ("static", {}, 2, {}),
+    ("mobile_sampled + chaos", {}, 2, {"scenario": "mobile_sampled",
+                                       "faults": "chaos"}),
+    ("depth 3 (2, 2, 2)", {"hierarchy": (2, 2, 2)}, 1, {}),
+    ("async s=2", {}, 1, {"scenario": "lognormal", "staleness": 2}),
+    ("static at the configuration's lr 0.1", {}, 1, {"lr": 0.1}),
+)
+#: sharded rows against the single-process engine: the reference's own
+#: bound for its sharded engine (tests/test_sharded_bank.py)
+SHARDED_ATOL = 2e-4
+#: at 2 devices a cluster the CNN's local steps diverge at the
+#: configuration's lr 0.1 (the last run of SHARDED_RUNS shows it in both
+#: engines); the other sharded runs train at 0.01
+SHARDED_LR = 0.01
+#: the dense operator the sharded phase's weighted rotations are held to
+#: B1 with (a seeded row-stochastic 8 x 8)
+PROBE_W = (lambda w: (w / w.sum(1, keepdims=True)).astype(np.float32))(
+    np.random.default_rng(19).random((SHARDED_RANKS, SHARDED_RANKS)))
 
 
 def log(msg: str) -> None:
@@ -252,6 +305,20 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return res.stdout.strip().splitlines()[0]
+
+
+def phase_start(dev: torch.device, name: str) -> None:
+    """Release what earlier phases left for the cyclic collector (a
+    simulator is a reference cycle: its lowered rounds and vmapped loss
+    hold it, so ``del sim`` alone frees no bank) and print what is still
+    allocated on the card as the phase starts."""
+    import gc
+    before = torch.cuda.memory_allocated(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{name}] start: {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+        f"allocated on the card ({before / 1e9:.2f} GB before collecting "
+        f"the earlier phases' garbage)")
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1422,6 +1489,396 @@ def phase_resume(dev: torch.device):
 
 
 # ---------------------------------------------------------------------------
+# phase 10b: the device-parallel bank engine, 8 gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+def _sharded_config(fl_changes: dict, opt: dict):
+    """(FLConfig, simulator kwargs) of one sharded run; ``block`` runs
+    the canonical program's last block alone (τ local steps and the
+    fused τ∘qτ boundary)."""
+    from repro_torch.configs import femnist_cnn as cfg
+    from repro_torch.core import program as prg
+    from repro_torch.core import scenario as scn
+    changes = dict(num_clusters=4, devices_per_cluster=2, **fl_changes)
+    fl = dataclasses.replace(cfg.FL, **changes)
+    kw = {}
+    if "scenario" in opt:
+        kw["scenario"] = scn.get_scenario(opt["scenario"])
+    if "faults" in opt:
+        kw["scenario"] = dataclasses.replace(
+            kw["scenario"], faults=scn.get_faults(opt["faults"]))
+    if opt.get("block"):
+        kw["schedule"] = prg.block_programs(prg.canonical_program(
+            fl, faults="faults" in opt))[-1]
+    return fl, kw
+
+
+def _run_rounds(sim, rounds: int, opt: dict, rt, after=None) -> None:
+    for r in range(rounds):
+        if "staleness" in opt:
+            sim.step_round_async(opt["staleness"], rt)
+        else:
+            sim.step_round()
+        if after is not None:
+            after(r)
+
+
+def _boundary_probe(sim, Y: torch.Tensor, structured: bool):
+    """This rank's rows ``Y`` through the sharded lowerings of a mixing
+    boundary: each gossip tier's grouped mean and gossip matchings
+    (structured runs), or the weighted rotations of a seeded dense
+    operator (``PROBE_W``); the parent holds them against B1 on the
+    stacked rows."""
+    from repro_torch.core import gossip as gsp
+    reg = sim.registry
+    if not structured:
+        return {"dense": gsp.dense_mix_rows(PROBE_W, Y, sim.mesh).cpu()
+                .numpy()}
+    return {lvl: reg.gossip_in_body(reg.mean_in_body(Y, lvl), lvl,
+                                    sim.fl.pi).cpu().numpy()
+            for lvl in range(1, reg.depth)}
+
+
+def _sharded_rank(runs) -> list:
+    """One rank of the sharded phase: every run of ``runs`` on this
+    rank's bank row of the full-width FEMNIST CNN, cuDNN held to
+    deterministic algorithms. Returns, a run, the rank's rows after each
+    round, buffer shapes, per-round seconds (synchronized) and traffic
+    by op, its peak device memory, gossip_mix launches and the boundary
+    probe of its final row."""
+    import gc
+    from repro_torch.core.runtime import compute_bound_runtime_model
+    from repro_torch.core.sharded import ShardedBankCEFedAvg
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.launch.mesh import make_replica_mesh
+    from repro_torch.models.cnn import apply_femnist_cnn, init_femnist_cnn
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mesh = make_replica_mesh(SHARDED_RANKS, device="cuda")
+    dev = mesh.device
+    rt = compute_bound_runtime_model()
+    out = []
+    for name, fl_changes, rounds, opt in runs:
+        fl, kw = _sharded_config(fl_changes, opt)
+        sim = ShardedBankCEFedAvg(init_femnist_cnn, apply_femnist_cnn, fl,
+                                  femnist_data(fl), mesh,
+                                  lr=opt.get("lr", SHARDED_LR),
+                                  batch_size=16, seed=0, **kw)
+        b = sim.bank
+        shapes = [tuple(t.shape) for t in (b.params, b.mom, b.residual)
+                  if t is not None]
+        per_round = []
+        t0 = [0.0]
+
+        def after(_r):
+            torch.cuda.synchronize(dev)
+            per_round.append({
+                "seconds": time.perf_counter() - t0[0],
+                "traffic": {k: dict(v) for k, v in mesh.traffic.items()},
+                "params": sim.bank.params.cpu().numpy()})
+            mesh.reset_traffic()
+            t0[0] = time.perf_counter()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        gm.launches = 0
+        mesh.reset_traffic()
+        t0[0] = time.perf_counter()
+        _run_rounds(sim, rounds, opt, rt, after)
+        launches = gm.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        acc, loss = sim.evaluate()
+        probe = _boundary_probe(sim, sim.bank.params,
+                                structured="scenario" not in opt)
+        out.append({"name": name, "T": sim.layout.total, "shapes": shapes,
+                    "rounds": per_round, "launches": launches, "peak": peak,
+                    "acc": acc, "loss": loss, "probe": probe,
+                    "operators": {lvl: sim.registry.operator(lvl, fl.pi)
+                                  for lvl in range(1, sim.registry.depth)},
+                    "transport": mesh.transport})
+        del sim, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _one_row_at_a_time(sim) -> None:
+    """Make ``sim`` take each SGD step one row at a time, on a fresh (1,
+    T) copy of the row through the same vmapped gradient, as a rank of
+    the sharded engine takes it. The engine's n-row vmap hands cuDNN one
+    grouped convolution (and cuBLAS batched GEMMs), whose sums run in
+    another order than n convolutions of one row."""
+    step = sim._sgd_step
+
+    def one_at_a_time(Y, M, xs, ys, idx, lr):
+        for i in range(Y.shape[0]):
+            y, m = Y[i:i + 1].clone(), M[i:i + 1].clone()
+            step(y, m, xs[i:i + 1], ys[i:i + 1], idx[i:i + 1], lr)
+            Y[i:i + 1].copy_(y)
+            M[i:i + 1].copy_(m)
+    sim._sgd_step = one_at_a_time
+
+
+def _lowering_order_mixing(sim) -> None:
+    """Make ``sim`` mix its stacked rows as the sharded engine's ranks
+    mix theirs, sum for sum: the same operators (the registry's tier
+    means and gossip matchings on the static ``ce_fedavg`` path, each
+    dense operator's weighted rotations otherwise), each row's terms
+    added in the order its rank adds them. B1 and ``torch.matmul`` sum
+    the same products in other orders. Like the ranks, whose rows are
+    pinned, it trains a partial cohort mask-frozen, not compacted."""
+    from repro_torch.core import gossip as gsp
+    from repro_torch.core import topology as topo
+    fl, n = sim.fl, sim.sched.n
+    hier = topo.Hierarchy.from_config(fl)
+    me = torch.arange(n)
+    scheds = {}
+
+    def rotations(W, Y):
+        """``dense_mix_rows``: rank d starts from W[d, d]·x_d and adds
+        W[d, (d+s) % n]·x_{(d+s) % n} for s = 1 .. n-1."""
+        Wt = torch.as_tensor(np.asarray(
+            W.cpu() if isinstance(W, torch.Tensor) else W, np.float32))
+        acc = Y * Wt[me, me][:, None].to(Y.device)
+        for s in range(1, n):
+            src = (me + s) % n
+            acc = acc + Y[src.to(Y.device)] * Wt[me, src][:, None].to(
+                Y.device)
+        return acc
+
+    def mean(Y, level):
+        """``group_mean_in_body``: each group's rows summed in rank order
+        (what gloo's sum of a pair gives either rank), times 1/size."""
+        size = hier.group_size(level)
+        G = Y.view(n // size, size, -1)
+        tot = G[:, 0]
+        for j in range(1, size):
+            tot = tot + G[:, j]
+        return (tot * (1.0 / size)).repeat_interleave(size, 0)
+
+    def gossip(Y, level, pi):
+        """``gossip_in_body`` (rounds): π times w_self·x plus each
+        matching's received row times its weight, in matching order."""
+        key = (level, pi)
+        if key not in scheds:
+            scheds[key] = gsp.GossipSchedule.build(
+                hier.mixing(level, fl.topology, fl.mixing, fl), pi,
+                hier.node_size(level))
+        sc = scheds[key]
+        c = me // sc.devices_per_cluster
+        ws = torch.from_numpy(sc.w_self.astype(np.float32))[c][:, None]
+        wk = torch.from_numpy(np.asarray(sc.weights, np.float32))[:, c]
+        ws, wk = ws.to(Y.device), wk.to(Y.device)
+        for _ in range(sc.pi):
+            acc = Y * ws
+            for k, perm in enumerate(sc.perms):
+                recv = torch.zeros_like(Y)
+                recv[[d for _, d in perm]] = Y[[s for s, _ in perm]]
+                acc = acc + recv * wk[k][:, None]
+            Y = acc
+        return Y
+
+    def mixer(program, block_keyed=False):
+        if not (sim.engine is None and fl.algorithm == "ce_fedavg"
+                and not block_keyed):
+            def dense(bp, mats, Y, lo=0, hi=None):
+                for W in mats[lo:hi]:
+                    Y = rotations(W, Y)
+                return Y
+            return dense
+
+        def structured(bp, mats, Y, lo=0, hi=None):
+            usize = 1   # ShardedBankCEFedAvg._mixer's dedupe of means
+            for g in bp.groups[lo:hi]:
+                for op in g.ops:
+                    size = hier.group_size(op.level)
+                    if usize < size:
+                        Y = mean(Y, op.level) if size > 1 else Y
+                        usize = size
+                    if op.level >= 1 and hier.num_siblings(op.level) > 1:
+                        Y = gossip(Y, op.level, op.pi)
+                        usize = size
+            return Y
+        return structured
+    sim._mixer = mixer
+    sim._compact_enabled = False
+
+
+def _single_rounds(dev, fl_changes, rounds, opt, rt, one_row: bool = False,
+                   lowering_order: bool = False):
+    """The single-process engine's params after each round of one run,
+    on the card from the phase's seeds (each SGD step one row at a time
+    where ``one_row``; each boundary summed in the sharded lowering's
+    order where ``lowering_order``), and its loss at the end."""
+    import gc
+    from repro_torch.core.cefedavg import FLSimulator
+    from repro_torch.models.cnn import apply_femnist_cnn, init_femnist_cnn
+    fl, kw = _sharded_config(fl_changes, opt)
+    sim = FLSimulator(init_femnist_cnn, apply_femnist_cnn, fl,
+                      femnist_data(fl), lr=opt.get("lr", SHARDED_LR),
+                      batch_size=16, seed=0, device=dev, **kw)
+    if one_row:
+        _one_row_at_a_time(sim)
+    if lowering_order:
+        _lowering_order_mixing(sim)
+    rows = []
+    _run_rounds(sim, rounds, opt, rt,
+                lambda r: rows.append(sim.bank.params.cpu().numpy()))
+    loss = sim.evaluate()[1]
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, loss
+
+
+def _gap(a: np.ndarray, b: np.ndarray) -> float:
+    """Max abs difference; inf where exactly one side is not finite, 0
+    where both are not finite in the same places and agree elsewhere."""
+    fa, fb = np.isfinite(a), np.isfinite(b)
+    if (fa != fb).any():
+        return math.inf
+    return float(np.abs(a[fa] - b[fb]).max(initial=0.0))
+
+
+def phase_sharded(dev: torch.device) -> None:
+    """The device-parallel bank engine (``ShardedBankCEFedAvg``) at the
+    FEMNIST CNN's full width: 8 rank processes of one gloo world share
+    the card, each holding one bank row, for each run of
+    ``SHARDED_RUNS``, cuDNN held to deterministic algorithms in every
+    engine. Every round's rows are held within ``SHARDED_ATOL`` to the
+    single-process engine from the same seeds taking its SGD steps one
+    row at a time and summing each boundary in the sharded lowering's
+    order, as the ranks do; one block (the first two runs) also to the
+    engine as it stands. The gap to that engine is printed beside its
+    two causes, each measured in the single-process engine alone: the
+    n-row vmap against one row at a time (one grouped convolution sums
+    in another order than n convolutions of one row) and B1 against the
+    lowering's order of sums, both amplified by the CNN's local steps.
+    Each boundary lowering (the grouped means and gossip matchings of
+    every tier, the weighted rotations of a dense operator) is held to
+    B1 on the same full-width rows."""
+    from repro_torch.core.runtime import compute_bound_runtime_model
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.launch.mesh import run_local_ranks
+    rt = compute_bound_runtime_model()
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        single = {}
+        for name, fl_changes, rounds, opt in SHARDED_RUNS:
+            t0 = time.perf_counter()
+            eng, loss = _single_rounds(dev, fl_changes, rounds, opt, rt)
+            again, _ = _single_rounds(dev, fl_changes, rounds, opt, rt)
+            one, _ = _single_rounds(dev, fl_changes, rounds, opt, rt,
+                                    one_row=True)
+            wit, wloss = _single_rounds(dev, fl_changes, rounds, opt, rt,
+                                        one_row=True, lowering_order=True)
+            causes = [(_gap(e, a), _gap(e, o), _gap(o, w)) for e, a, o, w
+                      in zip(eng, again, one, wit)]
+            single[name] = (eng, wit, causes)
+            log(f"[sharded] {name}: the single-process engine, {rounds} "
+                f"round(s) of n = {SHARDED_RANKS} on the card at lr "
+                f"{opt.get('lr', SHARDED_LR)}, cuDNN deterministic, four "
+                f"times in {time.perf_counter() - t0:.3f} s; loss "
+                f"{loss:.4f} (one row at a time, in the lowering's order "
+                f"of sums {wloss:.4f}); by round, two runs apart "
+                f"{', '.join(f'{c[0]:.3e}' for c in causes)}, the n-row "
+                f"vmap against one row at a time "
+                f"{', '.join(f'{c[1]:.3e}' for c in causes)}, then B1 "
+                f"against the lowering's order of sums "
+                f"{', '.join(f'{c[2]:.3e}' for c in causes)}")
+        log(f"[sharded] {SHARDED_RANKS} rank processes of one gloo world "
+            f"on this one card, one full-width FEMNIST-CNN bank row each "
+            f"(configs/femnist_cnn.py's tau, q, pi on a ring, batch 16, lr "
+            f"{SHARDED_LR} but where a run says; its 64 devices cut to 4 "
+            f"clusters x 2: one card cannot host 64 rank processes)")
+        t0 = time.perf_counter()
+        ranks = run_local_ranks(_sharded_rank, SHARDED_RANKS,
+                                args=(SHARDED_RUNS,), backend="gloo",
+                                device="cuda", timeout_s=900)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    log(f"[sharded] world of {SHARDED_RANKS} ranks: "
+        f"{time.perf_counter() - t0:.1f} s from spawn to the last result")
+    bad = []
+    for i, (name, _, rounds, opt) in enumerate(SHARDED_RUNS):
+        res = [r[i] for r in ranks]
+        T = res[0]["T"]
+        assert T == FEMNIST_T, T
+        for r in res:
+            assert r["shapes"] and all(s == (1, T) for s in r["shapes"]), \
+                (name, r["shapes"])
+        eng, wit, causes = single[name]
+        for k in range(rounds):
+            secs = max(r["rounds"][k]["seconds"] for r in res)
+            rows = np.concatenate([r["rounds"][k]["params"] for r in res])
+            gap_w, gap_e = _gap(rows, wit[k]), _gap(rows, eng[k])
+            traffic = [r["rounds"][k]["traffic"] for r in res]
+            ops = sorted({op for t in traffic for op in t})
+
+            def most(op, what):
+                return max(t[op][what] for t in traffic)
+            by_op = "; ".join(
+                f"{op} x{most(op, 'calls')} sent "
+                f"{most(op, 'sent') / 1e6:.1f} MB recv "
+                f"{most(op, 'recv') / 1e6:.1f} MB" for op in ops)
+            held = f" (atol {SHARDED_ATOL})" if opt.get("block") else ""
+            log(f"[sharded] {name} round {k + 1}: {secs:.3f} s (max over "
+                f"ranks; gloo on one card, not a multi-card speed), "
+                f"transport {res[0]['transport']}; a rank's traffic (max "
+                f"over ranks): {by_op}; finite rows "
+                f"{bool(np.isfinite(rows).all())}; rows against the "
+                f"single-process engine one row at a time in the "
+                f"lowering's order of sums {gap_w:.3e} (atol "
+                f"{SHARDED_ATOL}), against the engine as it stands "
+                f"{gap_e:.3e}{held} (its causes above: {causes[k][1]:.3e} and "
+                f"{causes[k][2]:.3e})")
+            if not gap_w <= SHARDED_ATOL:
+                bad.append((name, k + 1, "in the lowering's order", gap_w))
+            if opt.get("block") and not gap_e <= SHARDED_ATOL:
+                bad.append((name, k + 1, "the engine as it stands", gap_e))
+            if "scenario" not in opt and any(
+                    op in ("gather", "all_gather") for op in ops):
+                bad.append((name, k + 1, "gathered", ops))
+        # the boundary lowerings against B1 on the same full-width rows
+        Y = torch.from_numpy(np.concatenate(
+            [r["rounds"][-1]["params"] for r in res])).to(dev)
+        errs = []
+        for key in res[0]["probe"]:
+            W = PROBE_W if key == "dense" else res[0]["operators"][key]
+            exp = gm.gossip_mix_rows(
+                torch.from_numpy(np.asarray(W, np.float32)).to(dev),
+                Y.clone()).cpu().numpy()
+            got = np.concatenate([r["probe"][key] for r in res])
+            errs.append(_gap(got, exp))
+            what = ("weighted rotations of a dense operator"
+                    if key == "dense" else f"tier {key} grouped mean + "
+                    "gossip")
+            log(f"[sharded] {name}: boundary lowering {what} against B1 on "
+                f"the 8 full-width rows: max abs err {errs[-1]:.3e} (atol "
+                f"{SHARDED_ATOL})")
+        del Y
+        peaks = ", ".join(f"{r['peak'] / 1e9:.3f}" for r in res)
+        log(f"[sharded] {name}: rows (1, {T}) on every rank; loss "
+            f"{res[0]['loss']:.4f} acc {res[0]['acc']:.4f}; peak device "
+            f"memory by rank {peaks} GB; gossip_mix launches in the ranks "
+            f"{sum(r['launches'] for r in res)} (collectives carry every "
+            f"boundary)")
+        if not max(errs) <= SHARDED_ATOL:
+            bad.append((name, "boundary lowerings", errs))
+        if "lr" not in opt and not math.isfinite(res[0]["loss"]):
+            bad.append((name, "loss", res[0]["loss"]))
+        assert sum(r["launches"] for r in res) == 0
+    del ranks, single
+    torch.cuda.empty_cache()
+    assert not bad, bad
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -2314,28 +2771,41 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
     phase_build()
+    phase_start(dev, "kernels")
     entry = phase_kernels(dev)
     encode, decode = phase_codec(dev)
     attn = phase_flash_attention(dev)
     ssd = phase_ssd_scan(dev)
+    phase_start(dev, "main")
     entry["launches"] = phase_main(dev)
+    phase_start(dev, "population")
     gossip_pop, encode["launches"], decode["launches"] = \
         phase_population(dev)
+    phase_start(dev, "scenario")
     gossip_scn = phase_scenario(dev)
+    phase_start(dev, "async")
     gossip_async = phase_async(dev)
+    phase_start(dev, "upload")
     gossip_upload = phase_upload(dev)
+    phase_start(dev, "resume")
     resume_codec = phase_resume(dev)
     log(f"[done] gossip_mix launches: main path {entry['launches']}, "
         f"population path {gossip_pop}, scenario path {gossip_scn}, "
         f"async path {gossip_async}, upload path {gossip_upload}; "
         f"cold_codec encode/decode on the resume path {resume_codec}")
+    phase_start(dev, "sharded")
+    phase_sharded(dev)
+    phase_start(dev, "lm")
     attn["launches"], ssd["launches"] = phase_lm(dev)
+    phase_start(dev, "lm_families")
     family_attn = phase_lm_families(dev)
     log(f"[done] flash_attention launches: zamba2-2.7b prefill "
         f"{attn['launches']}, the four family prefills {family_attn}")
     attn["launches"] += family_attn
+    phase_start(dev, "lm decode")
     phase_lm_decode(dev)
     phase_lm_decode_families(dev)
+    phase_start(dev, "parity")
     phase_parity(dev)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [entry, encode, decode, attn, ssd]}))

@@ -20,7 +20,10 @@ rounds k..R exactly as the uninterrupted run would have.
 The tree has the reference's paths and dtypes (the key a (2,) uint32
 array, the bank's (n, T) f32 buffers, the streamed store's encoded
 snapshot), so a checkpoint written by either package restores into the
-other's simulator of the same configuration.
+other's simulator of the same configuration. A sharded engine
+(``core/sharded.py``) writes the same file: its ranks gather their rows
+into rank 0's host memory and rank 0 writes; on restore every rank
+reads the file and keeps its own rows.
 """
 from __future__ import annotations
 
@@ -28,16 +31,9 @@ import os
 from typing import Any, Dict, Optional
 
 import numpy as np
-import torch
 
 from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
-
-
-def _host(x) -> np.ndarray:
-    """A device tensor (or array) as a host numpy array."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+from repro_torch.core import collectives as col
 
 
 def _capture(sim, round_idx: int, clock, hist, staleness: Optional[int],
@@ -63,7 +59,8 @@ def _capture(sim, round_idx: int, clock, hist, staleness: Optional[int],
         "phases": np.asarray(sim._async_phases, np.int64),
     }
     if sim.bank is not None:
-        host = (lambda t: np.empty(0, np.float32)) if paths_only else _host
+        host = ((lambda t: np.empty(0, np.float32)) if paths_only
+                else sim._host_rows)
         bank = {"params": host(sim.bank.params),
                 "mom": host(sim.bank.mom)}
         if sim.bank.residual is not None:
@@ -152,6 +149,13 @@ def _assign(sim, state: Dict[str, Any], clock, hist) -> None:
                          for i in range(ncols)]}
         else:
             clock._async_carry = None
+        # the sim's own async timeline carry is the clock's (both replay
+        # the same per-cluster timeline each round); without it the first
+        # resumed round would order its events from a cold timeline
+        carry = clock._async_carry
+        sim._async_carry = None if carry is None else {
+            "T_end": carry["T_end"].copy(),
+            "cols": [c.copy() for c in carry["cols"]]}
     if hist is not None and "hist" in state:
         for c, col in state["hist"].items():
             vals = [float(v) for v in np.asarray(col)]
@@ -182,11 +186,18 @@ class RunCheckpoint:
 
     def save(self, sim, *, round_idx: int, clock=None, hist=None,
              staleness: Optional[int] = None) -> None:
+        """Write the run state; a sharded sim's ranks all call this, rank
+        0 writes, and every rank returns once the file is complete."""
         state = _capture(sim, round_idx, clock, hist, staleness)
-        save_checkpoint(self.path, state, meta={
-            "round": int(round_idx),
-            "staleness": (None if staleness is None else int(staleness)),
-            "engine": "bank" if sim.bank is not None else "streamed"})
+        mesh = getattr(sim, "mesh", None)
+        if mesh is None or mesh.rank == 0:
+            save_checkpoint(self.path, state, meta={
+                "round": int(round_idx),
+                "staleness": (None if staleness is None
+                              else int(staleness)),
+                "engine": "bank" if sim.bank is not None else "streamed"})
+        if mesh is not None:
+            col.barrier(mesh)
 
     def restore(self, sim, *, clock=None, hist=None,
                 staleness: Optional[int] = None) -> Dict[str, Any]:

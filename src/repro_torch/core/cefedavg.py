@@ -273,10 +273,9 @@ class FLSimulator:
             self._page_labels = self.labels.copy()
             self._pipe: Optional[Dict] = None
         else:
-            self.bank = ModelBank.from_model(
-                one, n, device=self.device,
-                with_residual=(compression is not None
-                               and compression.error_feedback))
+            self.bank = self._make_bank(
+                one, n, with_residual=(compression is not None
+                                       and compression.error_feedback))
             self._buckets = cohort_buckets(n)
         # a partial cohort trains on a compacted (k_pad, T) gather of its
         # rows; False keeps it on the mask-frozen full bank
@@ -336,6 +335,17 @@ class FLSimulator:
         # a gradient through the flat row would materialize a zero-filled
         # (n, T) gradient per leaf and sum them
         self._grad_rows = vmap(grad(self._loss))
+
+    def _make_bank(self, one, n: int, with_residual: bool) -> ModelBank:
+        """The resident bank: every row broadcast from the shared init
+        ``one`` on this sim's device."""
+        return ModelBank.from_model(one, n, device=self.device,
+                                    with_residual=with_residual)
+
+    def _host_rows(self, buf: torch.Tensor) -> np.ndarray:
+        """A bank buffer as the host (n, T) array a run checkpoint
+        stores."""
+        return buf.detach().cpu().numpy()
 
     # -- state as trees ------------------------------------------------------
     @property
@@ -457,7 +467,7 @@ class FLSimulator:
         return step
 
     def _run_blocks(self, Y, M, xs, ys, idx, runs, args, k: int,
-                    act: Optional[np.ndarray] = None,
+                    mix: Callable, act: Optional[np.ndarray] = None,
                     tau_rows: Optional[np.ndarray] = None,
                     bkeys: Optional[np.ndarray] = None,
                     R: Optional[torch.Tensor] = None):
@@ -466,9 +476,9 @@ class FLSimulator:
         MixGroup's operator over all rows. An upload block (which needs
         the round's block keys ``bkeys``) mixes the uploaded deltas
         instead: Y0 + W₀·upload(Y - Y0), then its remaining groups; the
-        EF residual ``R`` is updated in place. Returns Y (the same tensor
-        on the card for a plain program, where the square mix writes in
-        place)."""
+        EF residual ``R`` is updated in place. ``mix`` applies a block's
+        groups (:meth:`_mixer`). Returns Y (the same tensor on the card
+        for a plain program, where the square mix writes in place)."""
         mi = step = ki = 0
         for bp, count in runs:
             gm = args.mats[mi:mi + len(bp.groups)]
@@ -481,15 +491,26 @@ class FLSimulator:
                     delta = self._upload_deltas(Y.sub_(Y0), R,
                                                 rnd.fold_in(bkeys[ki], 7),
                                                 bp)
-                    Y = gossip_mix_rows(gm[0], delta).add_(Y0)
+                    Y = mix(bp, gm, delta, 0, 1).add_(Y0)
                     del delta, Y0
-                    groups = gm[1:]
+                    Y = mix(bp, gm, Y, 1)
                 else:
-                    groups = gm
-                for W in groups:
-                    Y = gossip_mix_rows(W, Y)
+                    Y = mix(bp, gm, Y)
                 ki += 1
         return Y
+
+    def _mixer(self, program: prg.RoundProgram,
+               block_keyed: bool = False) -> Callable:
+        """How a lowering of ``program`` applies a block's MixGroups
+        ``lo:hi`` to the rows Y, ``mix(bp, mats, Y, lo=0, hi=None)``: one
+        streaming ``gossip_mix_rows`` pass of each group's resolved
+        operator ``mats[j]`` (the sharded engine lowers them to
+        collectives)."""
+        def mix(bp, mats, Y, lo=0, hi=None):
+            for W in mats[lo:hi]:
+                Y = gossip_mix_rows(W, Y)
+            return Y
+        return mix
 
     def _upload_deltas(self, delta: torch.Tensor,
                        R: Optional[torch.Tensor], key: np.ndarray,
@@ -498,14 +519,16 @@ class FLSimulator:
         then compression (keys ``split(fold_in(key, 1), n)``), row-wise
         with the reference's per-device and per-leaf key schedule.
         Returns the uploaded deltas; the EF residual ``R`` is updated in
-        place."""
-        n = delta.shape[0]
+        place. The rows are the bank's ``rows`` of the n devices, and
+        take those devices' keys."""
+        n, rows = self.sched.n, self.bank.rows
         dp, comp = self.dp, self.compression
         if bp.privatize and dp is not None and dp.enabled:
-            delta = prv.privatize_update_flat(delta, dp, rnd.split(key, n))
+            delta = prv.privatize_update_flat(delta, dp,
+                                              rnd.split(key, n)[rows])
         if bp.compress and comp is not None and comp.kind != "none":
             delta, R_new = cmp.compress_flat(
-                comp, delta, R, rnd.split(rnd.fold_in(key, 1), n),
+                comp, delta, R, rnd.split(rnd.fold_in(key, 1), n)[rows],
                 self.layout.segments)
             if R is not None:
                 R.copy_(R_new)
@@ -656,18 +679,23 @@ class FLSimulator:
         if block_keyed and sum(c for _, c in runs) != 1:
             raise ValueError("block_keyed lowers one-block programs")
         n, N = self.sched.n, self.data["xs"].shape[1]
+        rows = self.bank.rows
+        mix = self._mixer(program, block_keyed)
 
         def global_round(Y, M, key, args, mask=None, R=None):
-            # every step's batch indices in one host draw and one copy
+            # every step's batch indices in one host draw and one copy;
+            # the bank's rows take theirs (all n but on a sharded rank)
             idx = rnd.randint(self._step_keys(key, runs, block_keyed),
-                              (n, self.batch), 0, N)
+                              (n, self.batch), 0, N)[:, rows]
             idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-            act = None if mask is None else np.asarray(mask) > 0.5
+            act = None if mask is None else (np.asarray(mask) > 0.5)[rows]
+            tau_rows = (None if args.tau_dev is None
+                        else np.asarray(args.tau_dev)[rows])
             bkeys = (self._block_keys(key, runs, block_keyed)
                      if program.has_upload else None)
             return self._run_blocks(Y, M, self.data["xs"], self.data["ys"],
-                                    idx, runs, args, n, act, args.tau_dev,
-                                    bkeys, R)
+                                    idx, runs, args, Y.shape[0], mix, act,
+                                    tau_rows, bkeys, R)
         return global_round
 
     def _lower_compact(self, program: prg.RoundProgram) -> Callable:
@@ -738,6 +766,7 @@ class FLSimulator:
                 "reads cluster-synced rows back as the references)")
         runs = prg.block_runs(plans)
         n, N = self.sched.n, self.data["xs"].shape[1]
+        mix = self._mixer(program)
 
         def streamed_round(Y, M, key, didx, cids, k, args):
             skeys = self._step_keys(key, runs)
@@ -755,7 +784,7 @@ class FLSimulator:
                         else args.tau_dev[np.asarray(didx, np.int64)])
             return self._run_blocks(Y, M, self.data["xs"][sel],
                                     self.data["ys"][sel], idx, runs, args, k,
-                                    tau_rows=tau_rows)
+                                    mix, tau_rows=tau_rows)
         return streamed_round
 
     def _get_round(self, kind: str, program: prg.RoundProgram) -> Callable:

@@ -1,0 +1,209 @@
+"""Collectives over the flat replica axis (port of
+``repro.core.collectives``).
+
+The mesh's replica axes (``pod`` × ``data``) are ONE flattened logical
+axis, the flat index ``pod_idx * data_size + data_idx`` being the rank
+(:class:`repro_torch.launch.mesh.ReplicaMesh`). The reference issues
+its collectives inside a ``shard_map`` body; here every rank calls the
+same function on its own tensor, so each function below is a collective
+call: every rank of the world makes it, in the same order.
+
+- :func:`ppermute`: one ``batch_isend_irecv`` of the (src, dst) pairs
+  that touch this rank; a rank that no pair sends to gets zeros.
+- :func:`psum_groups`: an ``all_reduce`` over this rank's group of a
+  partition of the ranks. Each partition's subgroups are made once per
+  mesh, on first use (``new_group`` is collective: every rank makes
+  every group, in the same order), and cached on the mesh.
+- :func:`all_reduce`, :func:`gather_rows`, :func:`barrier`: the world
+  sum (the sharded engine's evaluation), rows to rank 0 (a checkpoint's
+  save) and a barrier.
+
+The transport is the mesh's backend's: under NCCL a CUDA tensor moves
+as it is; under gloo, whose point-to-point ops carry host memory only, a
+CUDA tensor is staged through a pinned host buffer kept on the mesh, and
+the result copied back. Every call counts itself in ``mesh.traffic[op]``
+(``calls``, and the payload bytes this rank ``sent`` and ``recv``): the
+tests hold the traffic contract to these counts where the reference
+inspects the compiled HLO.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import ReplicaMesh
+
+
+def flat_axis_size(mesh: ReplicaMesh) -> int:
+    return mesh.pods * mesh.data
+
+
+def flat_axis_index(mesh: ReplicaMesh) -> int:
+    """Flattened replica index of this rank (``pod_idx * data_size +
+    data_idx``: the global replica id of ``ReplicaGeometry``)."""
+    return mesh.replica
+
+
+def rotate_perm(mesh: ReplicaMesh, shift: int = 1
+                ) -> Tuple[Tuple[int, int], ...]:
+    """Cyclic (src, dst) pairs on the flat replica axis: after one
+    application of the returned perm, rank d holds what rank
+    ``(d + shift) % R`` held — the building block of the weighted-rotation
+    mixes (``core.gossip.dense_mix_rows``)."""
+    R = flat_axis_size(mesh)
+    return tuple(((d + shift) % R, d) for d in range(R))
+
+
+def _count(mesh: ReplicaMesh, op: str, sent: int, recv: int) -> None:
+    c = mesh.traffic.setdefault(op, {"calls": 0, "sent": 0, "recv": 0})
+    c["calls"] += 1
+    c["sent"] += int(sent)
+    c["recv"] += int(recv)
+
+
+def _pinned(mesh: ReplicaMesh, like: torch.Tensor,
+            tag: str) -> torch.Tensor:
+    """The mesh's pinned host buffer for ``tag`` at ``like``'s shape and
+    dtype, made on first use (staged transports only)."""
+    key = (tag, tuple(like.shape), like.dtype)
+    buf = mesh.staging.get(key)
+    if buf is None:
+        buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+        mesh.staging[key] = buf
+    return buf
+
+
+def _stage(mesh: ReplicaMesh, x: torch.Tensor, tag: str) -> torch.Tensor:
+    """The tensor a collective carries for ``x``: ``x`` itself, or under
+    a staged transport a pinned host buffer holding a copy of it."""
+    if not mesh.staged:
+        return x
+    return _pinned(mesh, x, tag).copy_(x)
+
+
+def _recv_buffer(mesh: ReplicaMesh, like: torch.Tensor,
+                 tag: str) -> torch.Tensor:
+    """A buffer to receive a tensor like ``like`` into."""
+    if not mesh.staged:
+        return torch.empty_like(like)
+    return _pinned(mesh, like, tag)
+
+
+def _unstage(mesh: ReplicaMesh, buf: torch.Tensor) -> torch.Tensor:
+    """``buf``'s values on the rank's device (a copy of a staged pinned
+    buffer, which the next collective reuses)."""
+    if not mesh.staged:
+        return buf
+    return buf.to(mesh.device)
+
+
+def ppermute(x: torch.Tensor, mesh: ReplicaMesh,
+             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Permute over the flat replica axis: rank ``dst`` of each (src,
+    dst) pair gets rank ``src``'s ``x``; unmatched receivers get zeros.
+    Sources are distinct and so are destinations (a partial
+    permutation)."""
+    me = flat_axis_index(mesh)
+    srcs = [s for s, d in perm if d == me]
+    dsts = [d for s, d in perm if s == me]
+    if len({s for s, _ in perm}) != len(perm) or \
+            len({d for _, d in perm}) != len(perm):
+        raise ValueError(f"perm {perm} is not a partial permutation")
+    x = x.contiguous()
+    nbytes = x.numel() * x.element_size()
+    if srcs and dsts and srcs[0] == me:
+        # a self pair: no transfer
+        _count(mesh, "ppermute", 0, 0)
+        return x.clone()
+    ops = []
+    if dsts:
+        ops.append(dist.P2POp(dist.isend, _stage(mesh, x, "send"), dsts[0]))
+    recv = None
+    if srcs:
+        recv = _recv_buffer(mesh, x, "recv")
+        ops.append(dist.P2POp(dist.irecv, recv, srcs[0]))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    _count(mesh, "ppermute", nbytes if dsts else 0, nbytes if srcs else 0)
+    if recv is None:
+        return torch.zeros_like(x)
+    return _unstage(mesh, recv)
+
+
+def subgroup(mesh: ReplicaMesh, groups: Sequence[Sequence[int]]):
+    """This rank's process group in the partition ``groups`` of the flat
+    replica ids, made (for every group of the partition, on every rank)
+    the first time the partition is asked for on this mesh."""
+    key = tuple(tuple(int(r) for r in g) for g in groups)
+    pg = mesh.groups.get(key)
+    if pg is None:
+        if sorted(r for g in key for r in g) != list(range(
+                flat_axis_size(mesh))):
+            raise ValueError(f"groups {key} do not partition the "
+                             f"{flat_axis_size(mesh)} replicas")
+        pg, _ = dist.new_subgroups_by_enumeration(
+            [list(g) for g in key], backend=mesh.backend)
+        mesh.groups[key] = pg
+    return pg
+
+
+def psum_groups(x: torch.Tensor, mesh: ReplicaMesh,
+                groups: Sequence[Sequence[int]]) -> torch.Tensor:
+    """Grouped sum over the flat replica axis (flat replica ids): every
+    rank gets the sum of ``x`` over its own group."""
+    pg = subgroup(mesh, groups)
+    buf = _stage(mesh, x.contiguous(), "psum")
+    if not mesh.staged:
+        buf = buf.clone()
+    dist.all_reduce(buf, group=pg)
+    nbytes = buf.numel() * buf.element_size()
+    _count(mesh, "all_reduce", nbytes, nbytes)
+    return _unstage(mesh, buf)
+
+
+def all_reduce(x: torch.Tensor, mesh: ReplicaMesh) -> torch.Tensor:
+    """Sum of ``x`` over every rank of the world."""
+    buf = _stage(mesh, x.contiguous(), "all_reduce")
+    if not mesh.staged:
+        buf = buf.clone()
+    dist.all_reduce(buf)
+    nbytes = buf.numel() * buf.element_size()
+    _count(mesh, "all_reduce", nbytes, nbytes)
+    return _unstage(mesh, buf)
+
+
+def gather_rows(x: torch.Tensor, mesh: ReplicaMesh
+                ) -> Optional[np.ndarray]:
+    """Every rank's rows ``x`` stacked in rank order into rank 0's host
+    memory (a host numpy array there; None on the other ranks). The
+    rows travel one rank at a time, so rank 0 never holds more than the
+    result and one rank's rows on its device."""
+    x = x.detach().contiguous()
+    nbytes = x.numel() * x.element_size()
+    R = flat_axis_size(mesh)
+    if mesh.rank != 0:
+        dist.send(_stage(mesh, x, "gather"), 0)
+        _count(mesh, "gather", nbytes, 0)
+        return None
+    own = x.cpu().numpy()
+    out = np.empty((R * own.shape[0],) + own.shape[1:], own.dtype)
+    rows = own.shape[0]
+    out[:rows] = own
+    buf = _recv_buffer(mesh, x, "gather")
+    for r in range(1, R):
+        dist.recv(buf, r)
+        out[r * rows:(r + 1) * rows] = buf.cpu().numpy()
+    _count(mesh, "gather", 0, nbytes * (R - 1))
+    return out
+
+
+def barrier(mesh: ReplicaMesh) -> None:
+    """Every rank waits until all have arrived (a one-element
+    ``all_reduce``, which every backend carries)."""
+    one = torch.ones(1, device=mesh.device)
+    dist.all_reduce(_stage(mesh, one, "barrier"))
+

@@ -1,4 +1,4 @@
-"""Host-side gossip plans (port of the numpy half of
+"""Gossip plans and their lowerings over the replica ranks (port of
 ``repro.core.gossip``).
 
 - :func:`staleness_mask` gates a dense (n, n) mixing operator for one
@@ -10,9 +10,15 @@
   applications of a backhaul mixing matrix H (``rounds``) or H^π in M−1
   weighted rotations (``exact``), with their traffic counts.
 
-The device-side lowerings of a schedule (``gossip_in_body``,
-``group_mean_in_body``, ``dense_mix_rows``) belong to the multi-device
-layer (ROADMAP A14).
+The device half applies a schedule to this rank's rows over
+``torch.distributed`` (``core/collectives.py``): :func:`gossip_in_body`
+(π rounds of weighted ``ppermute`` matchings, or H^π in M−1 weighted
+rotations), :func:`group_mean_in_body` and :func:`cluster_mean_in_body`
+(one grouped ``all_reduce``), :func:`dense_mix_rows` (any dense operator
+in R−1 weighted rotations), and :func:`apply_gossip` and
+:func:`apply_cluster_mean` on a rank's pytree of any dtype. They keep
+the reference's weight tables and order of accumulation; Python loops
+take the place of its ``fori_loop``.
 """
 from __future__ import annotations
 
@@ -20,6 +26,11 @@ import dataclasses
 from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch import tree as tr
+from repro_torch.core import collectives as col
+from repro_torch.launch.mesh import ReplicaMesh
 
 
 def staleness_mask(W: np.ndarray, labels: np.ndarray, phases: np.ndarray,
@@ -192,3 +203,126 @@ class GossipSchedule:
                 if src_r % self.devices_per_cluster == 0:
                     op[src_c, dst_c] += self.weights[k, dst_c]
         return op
+
+
+# ---------------------------------------------------------------------------
+# device-side application: every rank calls these on its own rows
+# ---------------------------------------------------------------------------
+
+def gossip_in_body(sched: GossipSchedule, mesh: ReplicaMesh, p):
+    """Apply the schedule to this rank's f32 rows ``p`` (a tensor or a
+    pytree of them), as the reference does inside a ``shard_map`` body.
+
+    ``rounds``: π times ``y = H[c, c]·x + Σ_k W_k[c]·recv_k(x)`` over
+    the edge-colored matchings — O(π·deg·|row|) neighbor bytes, the
+    bank never gathered. ``exact``: H^π in M−1 weighted rotations of the
+    cluster models, accumulating ``Σ_s H^π[(c+s)%M, c]·buf``."""
+    M = sched.num_clusters
+    if M == 1:
+        return p
+    dpc = sched.devices_per_cluster
+    R = col.flat_axis_size(mesh)
+    assert R == M * dpc, (R, M, dpc)
+    c = col.flat_axis_index(mesh) // dpc
+
+    if sched.mode == "exact":
+        h_pi = np.asarray(sched.h_pi, np.float32)
+        rot = col.rotate_perm(mesh, dpc)
+
+        def rotations(x):
+            buf, acc = x, x * float(h_pi[c, c])
+            for s in range(1, M):
+                buf = col.ppermute(buf, mesh, rot)
+                acc = acc + buf * float(h_pi[(c + s) % M, c])
+            return acc
+        return tr.tree_map(rotations, p)
+
+    ws = float(np.float32(sched.w_self[c]))
+    wk = np.asarray(sched.weights, np.float32)[:, c]
+    q = p
+    for _ in range(sched.pi):
+        def leaf(xf):
+            acc = xf * ws
+            for k, perm_k in enumerate(sched.perms):
+                acc = acc + col.ppermute(xf, mesh, perm_k) * float(wk[k])
+            return acc
+        q = tr.tree_map(leaf, q)
+    return q
+
+
+def cast_f32(params):
+    """The tree's leaves in f32 (what the mixes compute in)."""
+    return tr.tree_map(lambda x: x.to(torch.float32), params)
+
+
+def cast_like(params, out):
+    """``out``'s leaves cast back to the dtypes of ``params``'s."""
+    leaves, treedef = tr.tree_flatten(params)
+    return tr.tree_unflatten(treedef, [o.to(x.dtype) for x, o in
+                                       zip(leaves, tr.tree_leaves(out))])
+
+
+def apply_gossip(sched: GossipSchedule, params, mesh: ReplicaMesh):
+    """Apply the schedule to this rank's params (any dtype: mixed in f32
+    and cast back)."""
+    if sched.num_clusters == 1:
+        return params
+    return cast_like(params, gossip_in_body(sched, mesh, cast_f32(params)))
+
+
+def group_mean_in_body(mesh: ReplicaMesh, p, groups):
+    """Mean of this rank's f32 rows over arbitrary equal-size replica
+    groups: one grouped ``all_reduce`` a leaf. ``groups`` is a partition
+    of the replica ids (e.g. a :class:`repro_torch.core.groups.
+    TierGroups` member list); each group averages over its own
+    members."""
+    size = len(groups[0])
+    if size == 1:
+        return p
+    inv = 1.0 / size
+    return tr.tree_map(lambda x: col.psum_groups(x, mesh, groups) * inv, p)
+
+
+def cluster_mean_in_body(mesh: ReplicaMesh, p, num_clusters: int,
+                         devices_per_cluster: int):
+    """Intra-cluster averaging of this rank's f32 rows (eq. 11's V
+    restricted to them): :func:`group_mean_in_body` over the contiguous
+    per-cluster partition."""
+    dpc = devices_per_cluster
+    if dpc == 1:
+        return p
+    groups = [tuple(range(c * dpc, (c + 1) * dpc))
+              for c in range(num_clusters)]
+    return group_mean_in_body(mesh, p, groups)
+
+
+def apply_cluster_mean(params, mesh: ReplicaMesh, num_clusters: int,
+                       devices_per_cluster: int):
+    """Intra-cluster averaging of this rank's params (any dtype)."""
+    if devices_per_cluster == 1:
+        return params
+    return cast_like(params, cluster_mean_in_body(
+        mesh, cast_f32(params), num_clusters, devices_per_cluster))
+
+
+def dense_mix_rows(W, x: torch.Tensor, mesh: ReplicaMesh) -> torch.Tensor:
+    """Row-apply an ARBITRARY dense (R, R) operator to the ranks' f32
+    rows without gathering the (R, T) bank: R−1 weighted cyclic
+    rotations accumulate ``y_d = Σ_j W[d, j]·x_j`` on the fly (the
+    masked, mobile, faulted or staleness-gated operators of a scenario
+    round, and the non-gossip baselines). ``x`` is this rank's ``(1,
+    T)`` row; ``W`` (a host array or a tensor) is the same on every
+    rank. Traffic: (R−1)·|row| neighbor bytes a rank."""
+    if isinstance(W, torch.Tensor):
+        W = W.detach().cpu().numpy()
+    Wf = np.asarray(W, np.float32)
+    R = col.flat_axis_size(mesh)
+    my = col.flat_axis_index(mesh)
+    if R == 1:
+        return x * float(Wf[0, 0])
+    rot = col.rotate_perm(mesh, 1)
+    acc, buf = x * float(Wf[my, my]), x
+    for s in range(1, R):
+        buf = col.ppermute(buf, mesh, rot)
+        acc = acc + buf * float(Wf[my, (my + s) % R])
+    return acc

@@ -11,6 +11,9 @@ and at evaluation, and every mixing boundary is one streaming pass of
 engine wraps each round's paged-in working set as a bank of its own
 (:meth:`ModelBank.from_rows`), sized by :func:`cohort_buckets`; a
 compacted scenario round gathers its cohort by :func:`compact_plan`.
+The sharded engine (``core/sharded.py``) keeps only each rank's own rows
+(:meth:`ModelBank.from_model_sharded`); ``rows`` names the global rows a
+bank's buffers hold.
 """
 from __future__ import annotations
 
@@ -31,16 +34,20 @@ class ModelBank:
     ``layout`` is the :class:`FlatLayout` of one device model;
     ``residual`` is None unless error-feedback compression is on. The
     buffers are plain attributes: the round updates them in place on the
-    card and reassigns them where an operation returns a new tensor."""
+    card and reassigns them where an operation returns a new tensor.
+    ``n`` counts the devices; ``rows`` is the slice of them the buffers
+    hold (all n, but for a rank's shard of a sharded bank)."""
 
     def __init__(self, layout: FlatLayout, n: int, params_row: torch.Tensor,
                  *, device: Optional[Union[str, torch.device]] = None,
-                 with_residual: bool = False):
+                 with_residual: bool = False, rows: Optional[slice] = None):
         dev = resolve_device(device)
         self.layout = layout
         self.n = n
-        self.params = params_row.to(dev, torch.float32)[None, :].repeat(n, 1)
-        self.mom = torch.zeros((n, layout.total), dtype=torch.float32,
+        self.rows = slice(0, n) if rows is None else rows
+        k = len(range(n)[self.rows])
+        self.params = params_row.to(dev, torch.float32)[None, :].repeat(k, 1)
+        self.mom = torch.zeros((k, layout.total), dtype=torch.float32,
                                device=dev)
         self.residual = (torch.zeros_like(self.mom) if with_residual
                          else None)
@@ -54,6 +61,22 @@ class ModelBank:
         layout = FlatLayout.for_tree(one_model)
         return cls(layout, n, layout.flatten_one(one_model), device=device,
                    with_residual=with_residual)
+
+    @classmethod
+    def from_model_sharded(cls, one_model, n: int, mesh, *,
+                           with_residual: bool = False) -> "ModelBank":
+        """This rank's shard of the shared-init bank: its own ``(n / R,
+        T)`` rows of params, momentum and residual, filled from the one
+        init row on the mesh's device — the full (n, T) bank never
+        exists on one device, init included."""
+        R = mesh.world_size
+        if n % R:
+            raise ValueError(f"{n} bank rows do not split over {R} ranks")
+        per = n // R
+        layout = FlatLayout.for_tree(one_model)
+        return cls(layout, n, layout.flatten_one(one_model),
+                   device=mesh.device, with_residual=with_residual,
+                   rows=slice(mesh.rank * per, (mesh.rank + 1) * per))
 
     @classmethod
     def from_rows(cls, layout: FlatLayout, params_rows, mom_rows, *,
@@ -73,6 +96,7 @@ class ModelBank:
         self = cls.__new__(cls)
         self.layout = layout
         self.n = S
+        self.rows = slice(0, S)
         self.params = params.to(dev, copy=True)
         self.mom = mom.to(dev, copy=True)
         self.residual = None
@@ -88,9 +112,11 @@ class ModelBank:
 
     def load_rows(self, params: np.ndarray, mom: np.ndarray,
                   residual: Optional[np.ndarray] = None) -> None:
-        """Overwrite the resident (n, T) buffers in place from host arrays
-        (a run checkpoint's restore); ``residual`` is required iff the
-        bank carries one."""
+        """Overwrite the resident buffers in place from host arrays (a run
+        checkpoint's restore): (n, T) arrays of every device, of which a
+        shard takes its own ``rows`` (the full bank is never placed on
+        the device), or arrays of exactly the buffers' rows.
+        ``residual`` is required iff the bank carries one."""
         bufs = [(self.params, params), (self.mom, mom)]
         if self.residual is not None:
             if residual is None:
@@ -99,6 +125,8 @@ class ModelBank:
             bufs.append((self.residual, residual))
         for buf, host in bufs:
             a = np.asarray(host, np.float32)
+            if a.ndim == 2 and a.shape[0] == self.n != buf.shape[0]:
+                a = np.ascontiguousarray(a[self.rows])
             if a.shape != tuple(buf.shape):
                 raise ValueError(f"restored rows {a.shape} do not match "
                                  f"the bank's {tuple(buf.shape)}")

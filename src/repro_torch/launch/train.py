@@ -1,23 +1,36 @@
-"""Streamed virtual-population training driver of the port (the
-``--population`` path of ``repro.launch.train``).
+"""Training drivers of the port (``repro.launch.train``'s bank and
+population engines).
 
-Streams a virtual population of ``--population`` clients through the
-cold client store (``core/clientstore.py``): only each round's cohort
-(plus one representative lane per cluster) is resident on the device;
-cold state pages through the compressed host store. ``--pipeline``
-overlaps that paging with compute, with the cold codec on the card. The
-task is the reference's: an MLP 16-32-8 on synthetic class Gaussians,
-16 enumerated data shards (client id mod 16). Runs on the CUDA card
-unless ``--device`` says otherwise. ``--ckpt-dir`` writes the run's
-state (store, key, scenario cursor) atomically every ``--ckpt-every``
-rounds, and ``--resume`` continues from it, bit for bit the
-uninterrupted run.
+``--engine bank`` runs the device-parallel flat-bank engine
+(``core.sharded.ShardedBankCEFedAvg``): one (1, T) bank row per rank on
+the reference's synthetic federated classification task (an MLP 16-32-8
+on class Gaussians), logging the edge models' accuracy and loss a
+round. Under torchrun the process joins the world from the environment;
+otherwise it spawns ``--data-parallel`` local ranks. The backend is NCCL
+with one card a rank by default; ``--dist-backend gloo`` lets ranks
+share a card, or run on the CPU with ``--device cpu``:
+
+  torchrun --nproc-per-node 8 -m repro_torch.launch.train --engine bank \\
+      --data-parallel 8
+  PYTHONPATH=src python -m repro_torch.launch.train --engine bank \\
+      --data-parallel 8 --dist-backend gloo [--device cpu]
+
+``--population N`` streams a virtual population of N clients through the
+cold client store (``core/clientstore.py``) on one device: only each
+round's cohort (plus one representative lane per cluster) is resident;
+``--pipeline`` overlaps the paging with compute, the cold codec on the
+card. Its task is the same MLP over 16 enumerated data shards (client id
+mod 16):
 
   PYTHONPATH=src python -m repro_torch.launch.train --population 10000 \\
       --cohort 8 --codec int8 --pipeline --rounds 5 --ckpt-dir ckpt
 
-The sharded streamed bank (``--data-parallel > 1``, ROADMAP A14) raises
-here.
+Both run on the CUDA card unless ``--device`` says otherwise.
+``--ckpt-dir`` writes the run's state atomically every ``--ckpt-every``
+rounds and ``--resume`` continues from it, bit for bit the uninterrupted
+run. The LM trainer of ``--engine pytree`` waits for ROADMAP A15, and the
+sharded streamed bank (``--population`` with ``--data-parallel > 1``)
+for ROADMAP A14's ``ShardedStreamedBank`` item.
 """
 from __future__ import annotations
 
@@ -25,37 +38,29 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
+import torch.distributed as dist
+
+from repro_torch.checkpoint.ckpt import save_checkpoint
 from repro_torch.checkpoint.runckpt import RunCheckpoint
 from repro_torch.config import FLConfig, PopulationConfig
-from repro_torch.core.cefedavg import FLSimulator
-from repro_torch.core.clientstore import resident_slab_nbytes
-from repro_torch.core.scenario import SCENARIOS, get_scenario
+from repro_torch.core.program import SCHEDULES
+from repro_torch.core.scenario import FAULTS, SCENARIOS
 from repro_torch.core.topology import TOPOLOGIES
 from repro_torch.data.federated import (build_fl_data, dirichlet_partition,
                                         make_synthetic_classification)
+from repro_torch.launch import mesh as lm
 from repro_torch.models.cnn import apply_mlp_classifier, init_mlp_classifier
 
 
-def main(argv=None) -> FLSimulator:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--population", type=int, required=True, metavar="N",
-                    help="stream a virtual population of N clients through "
-                         "the cold client store")
-    ap.add_argument("--cohort", type=int, default=8, metavar="K",
-                    help="sampled clients per cluster per round (before "
-                         "sample_fraction and dropout)")
-    ap.add_argument("--codec", choices=("f32", "f16", "int8"),
-                    default="f32",
-                    help="cold-row codec: f32 lossless, f16/int8 trade "
-                         "round-trip error for 2x/4x smaller cold rows")
-    ap.add_argument("--pipeline", action="store_true",
-                    help="overlap paging with compute: round t's page-out "
-                         "drains and round t+1's cohort is staged while "
-                         "round t runs; the codec runs on the card")
-    ap.add_argument("--scenario", choices=sorted(SCENARIOS), default="",
-                    help="base scenario of the population (default "
-                         "'sampled')")
+    ap.add_argument("--engine", choices=("pytree", "bank"), default="pytree",
+                    help="bank: device-parallel flat (n, T) ModelBank rows, "
+                         "one a rank; pytree: the LM trainer (ROADMAP A15)")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--data-parallel", type=int, default=1,
+                    help="ranks (bank rows) of --engine bank")
     ap.add_argument("--clusters", type=int, default=0)
     ap.add_argument("--tau", type=int, default=2)
     ap.add_argument("--q", type=int, default=2)
@@ -65,27 +70,219 @@ def main(argv=None) -> FLSimulator:
     ap.add_argument("--algorithm", default="ce_fedavg")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--ckpt", default="",
+                    help="save the final global model here")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA card)")
-    ap.add_argument("--data-parallel", type=int, default=1,
-                    help="row-shard the slab over R cards (not ported yet)")
+                    help="torch device (default: the CUDA card; one a rank "
+                         "under NCCL)")
+    ap.add_argument("--dist-backend", choices=lm.BACKENDS, default="nccl",
+                    help="--engine bank's collectives: nccl (one card a "
+                         "rank) or gloo (ranks may share a card, or run on "
+                         "the CPU; rows staged through host memory)")
+    ap.add_argument("--schedule", choices=SCHEDULES, default="static",
+                    help="round schedule (bank engine): static is the "
+                         "paper's fixed tau/q/pi; adaptive_tau gives slow "
+                         "clusters fewer local steps; pi_decay runs deep "
+                         "gossip early, sparse late")
+    ap.add_argument("--scenario", choices=sorted(SCENARIOS), default="",
+                    help="named wall-clock scenario: device heterogeneity, "
+                         "client sampling, mobility (the population's base "
+                         "scenario, default 'sampled')")
+    ap.add_argument("--faults", choices=sorted(FAULTS), default="",
+                    help="named fault preset (bank engine): edge outages, "
+                         "backhaul link loss, straggler timeouts")
+    ap.add_argument("--async-staleness", type=int, default=-1, metavar="S",
+                    help="bounded-staleness async rounds (bank engine); 0 "
+                         "is the global barrier, -1 (default) disables "
+                         "async execution")
+    ap.add_argument("--hierarchy", default="",
+                    help="depth>2 tier preset (bank engine): comma-"
+                         "separated branching factors root->leaf, e.g. "
+                         "'2,2,2'; overrides --clusters/--data-parallel")
+    ap.add_argument("--population", type=int, default=0, metavar="N",
+                    help="stream a virtual population of N clients through "
+                         "the cold client store")
+    ap.add_argument("--cohort", type=int, default=8, metavar="K",
+                    help="sampled clients per cluster per round with "
+                         "--population (before sample_fraction and "
+                         "dropout)")
+    ap.add_argument("--codec", choices=("f32", "f16", "int8"),
+                    default="f32",
+                    help="cold-row codec (--population): f32 lossless, "
+                         "f16/int8 trade round-trip error for 2x/4x "
+                         "smaller cold rows")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="overlap paging with compute (--population): the "
+                         "codec runs on the card")
     ap.add_argument("--ckpt-dir", default="",
                     help="crash-consistent run checkpoint directory: the "
                          "full run state written atomically every "
                          "--ckpt-every rounds")
     ap.add_argument("--ckpt-every", type=int, default=1,
-                    help="rounds between run checkpoints (with "
-                         "--ckpt-dir)")
+                    help="rounds between run checkpoints (with --ckpt-dir)")
     ap.add_argument("--resume", action="store_true",
                     help="resume from the checkpoint in --ckpt-dir "
                          "(bit-identical to the uninterrupted run)")
+    return ap
+
+
+def main(argv=None):
+    """Parse and run. Returns the population sim; for ``--engine bank``
+    what each rank's :func:`run_bank_engine` returned (one dict under
+    torchrun, a list by rank for spawned ranks)."""
+    ap = _parser()
     args = ap.parse_args(argv)
-    if args.data_parallel > 1:
-        raise NotImplementedError(
-            "the sharded streamed bank (--data-parallel > 1) is not "
-            "ported yet (ROADMAP A14)")
+    if args.population:
+        if (args.schedule != "static" or args.hierarchy or args.faults
+                or args.async_staleness >= 0):
+            ap.error("--population supports --scenario/--ckpt-dir/--resume/"
+                     "--pipeline only (no schedules, hierarchies, faults or "
+                     "async rounds over a virtual population)")
+    elif args.pipeline:
+        ap.error("--pipeline overlaps the streamed engine's paging; it "
+                 "requires --population")
+    elif args.engine != "bank" and (args.schedule != "static"
+                                    or args.scenario or args.hierarchy
+                                    or args.async_staleness >= 0
+                                    or args.faults or args.ckpt_dir
+                                    or args.resume):
+        ap.error("--schedule/--scenario/--hierarchy/--async-staleness/"
+                 "--faults/--ckpt-dir/--resume require --engine bank")
     if args.resume and not args.ckpt_dir:
         ap.error("--resume needs --ckpt-dir")
+    if args.population:
+        if args.data_parallel > 1:
+            raise NotImplementedError(
+                "the sharded streamed bank (--population with "
+                "--data-parallel > 1) is not ported yet: ROADMAP A14, "
+                "ShardedStreamedBank, first of queue A")
+        return run_population_engine(args)
+    if args.engine != "bank":
+        raise NotImplementedError(
+            "the LM pytree trainer (--engine pytree) is not ported yet "
+            "(ROADMAP A15); use --engine bank or --population")
+    n = _bank_ranks(args)
+    if lm.under_torchrun():
+        lm.initialize_multihost(backend=args.dist_backend,
+                                device=args.device)
+        try:
+            return run_bank_engine(args)
+        finally:
+            dist.destroy_process_group()
+    # validate the rank device here, before any rank starts
+    lm.rank_device(args.dist_backend, args.device)
+    return lm.run_local_ranks(run_bank_engine, n, args=(args,),
+                              backend=args.dist_backend, device=args.device)
+
+
+def _bank_ranks(args) -> int:
+    if args.hierarchy:
+        return int(np.prod([int(s) for s in args.hierarchy.split(",")]))
+    return args.data_parallel
+
+
+def _classification_data(n: int):
+    x, y = make_synthetic_classification(1600, 16, 8, seed=0, noise=2.5)
+    tx, ty = make_synthetic_classification(400, 16, 8, seed=1, noise=2.5)
+    parts = dirichlet_partition(y, n, alpha=0.3, seed=0)
+    return build_fl_data(x, y, parts, tx, ty, samples_per_device=64)
+
+
+def _init_mlp(gen):
+    return init_mlp_classifier(gen, 16, 32, 8)
+
+
+def run_bank_engine(args) -> dict:
+    """One rank of ``--engine bank``: ``ShardedBankCEFedAvg`` over the
+    initialised world through ``run_wall_clock`` (which checkpoints and
+    resumes), logging on rank 0 the edge models' accuracy and loss a
+    round with the transport. Returns this rank's history, its final
+    params row (host) and its collectives' traffic."""
+    from repro_torch.core.clock import run_wall_clock
+    from repro_torch.core.runtime import compute_bound_runtime_model
+    from repro_torch.core.scenario import get_faults, get_scenario
+    from repro_torch.core.sharded import ShardedBankCEFedAvg
+
+    n = _bank_ranks(args)
+    if args.hierarchy:
+        tiers = tuple(int(s) for s in args.hierarchy.split(","))
+        m = int(np.prod(tiers[:-1]))
+        fl = FLConfig(algorithm=args.algorithm, num_clusters=m,
+                      devices_per_cluster=tiers[-1], tau=args.tau, q=args.q,
+                      pi=args.pi, topology=args.topology,
+                      er_prob=args.er_prob, hierarchy=tiers)
+    else:
+        m = args.clusters or max(1, n // 2)
+        if n % m:
+            raise ValueError(f"{n} devices not divisible into {m} clusters")
+        fl = FLConfig(algorithm=args.algorithm, num_clusters=m,
+                      devices_per_cluster=n // m, tau=args.tau, q=args.q,
+                      pi=args.pi, topology=args.topology,
+                      er_prob=args.er_prob)
+    mesh = lm.make_replica_mesh(n, device=args.device)
+    scenario = get_scenario(args.scenario) if args.scenario else None
+    if args.faults:
+        # faults ride on the scenario engine; without a named scenario
+        # they attach to the homogeneous baseline
+        scenario = dataclasses.replace(
+            scenario or get_scenario("homogeneous"),
+            faults=get_faults(args.faults))
+    schedule = None if args.schedule == "static" else args.schedule
+    sim = ShardedBankCEFedAvg(_init_mlp, apply_mlp_classifier, fl,
+                              _classification_data(n), mesh, lr=args.lr,
+                              batch_size=args.batch, seed=0,
+                              scenario=scenario, schedule=schedule)
+    log = print if mesh.rank == 0 else (lambda *a, **k: None)
+    use_async = args.async_staleness >= 0
+    log(f"bank engine: n={n} rows x T={sim.layout.total} "
+        f"({sim.layout.total * 4} B/row), m={m} clusters, "
+        f"mesh={mesh.shape}, transport={mesh.transport}, "
+        f"device={mesh.device}, schedule={args.schedule}"
+        + (f", scenario={args.scenario}" if args.scenario else "")
+        + (f", faults={args.faults}" if args.faults else "")
+        + (f", async_staleness={args.async_staleness}" if use_async
+           else ""), flush=True)
+    if args.resume and RunCheckpoint(args.ckpt_dir).exists():
+        log(f"resuming from {RunCheckpoint(args.ckpt_dir).path}")
+    # rounds run under the event clock, whose checkpoints carry the
+    # async timeline too: a resumed async run replays its events exactly
+    t0 = time.perf_counter()
+    hist = run_wall_clock(
+        sim, compute_bound_runtime_model(), args.rounds, eval_batch=256,
+        async_staleness=args.async_staleness if use_async else None,
+        ckpt_dir=args.ckpt_dir or None,
+        ckpt_every=max(args.ckpt_every, 1) if args.ckpt_dir else 0,
+        resume=args.resume)
+    seconds = time.perf_counter() - t0
+    for i, r in enumerate(hist["round"]):
+        log(f"round {r - 1}: acc={hist['acc'][i]:.3f} "
+            f"loss={hist['loss'][i]:.4f} simulated "
+            f"{hist['wall_time'][i]:.1f}s, host "
+            f"{hist['compute_s'][i] + hist['eval_s'][i]:.2f}s "
+            f"({mesh.transport})", flush=True)
+    if use_async and sim.last_async is not None:
+        tl = sim.last_async["timeline"]
+        log(f"last round: events={len(tl['events'])} "
+            f"makespan={tl['makespan']:.1f}s")
+    log(f"{len(hist['round'])} rounds in {seconds:.2f}s on {mesh.device} "
+        f"({mesh.transport})")
+    if args.ckpt:
+        gm = sim.global_model()
+        if mesh.rank == 0:
+            save_checkpoint(args.ckpt, gm, {"engine": "bank",
+                                            "rounds": args.rounds})
+            log(f"saved global model to {args.ckpt}")
+    return {"rank": mesh.rank, "hist": hist,
+            "row": sim.bank.params.detach().cpu().numpy(),
+            "traffic": {k: dict(v) for k, v in mesh.traffic.items()}}
+
+
+def run_population_engine(args):
+    """The streamed client-store engine over a virtual population of
+    ``--population`` clients on one device."""
+    from repro_torch.core.cefedavg import FLSimulator
+    from repro_torch.core.clientstore import resident_slab_nbytes
+    from repro_torch.core.scenario import get_scenario
 
     m = args.clusters or 4
     # enumerated *data shards* (client_id mod n picks one) — a small
@@ -94,19 +291,13 @@ def main(argv=None) -> FLSimulator:
     fl = FLConfig(algorithm=args.algorithm, num_clusters=m,
                   devices_per_cluster=n // m, tau=args.tau, q=args.q,
                   pi=args.pi, topology=args.topology, er_prob=args.er_prob)
-    x, y = make_synthetic_classification(1600, 16, 8, seed=0, noise=2.5)
-    tx, ty = make_synthetic_classification(400, 16, 8, seed=1, noise=2.5)
-    parts = dirichlet_partition(y, n, alpha=0.3, seed=0)
-    data = build_fl_data(x, y, parts, tx, ty, samples_per_device=64)
     scenario = dataclasses.replace(
         get_scenario(args.scenario or "sampled"),
         population=PopulationConfig(
             clients_per_cluster=max(1, -(-args.population // m)),
             cohort_per_cluster=args.cohort, codec=args.codec))
-
-    def init(gen):
-        return init_mlp_classifier(gen, 16, 32, 8)
-    sim = FLSimulator(init, apply_mlp_classifier, fl, data, lr=args.lr,
+    sim = FLSimulator(_init_mlp, apply_mlp_classifier, fl,
+                      _classification_data(n), lr=args.lr,
                       batch_size=args.batch, seed=0, scenario=scenario,
                       pipeline=args.pipeline, device=args.device)
     eng = sim.engine
@@ -134,6 +325,10 @@ def main(argv=None) -> FLSimulator:
     print(f"peak resident slab: {sim.peak_slab_bytes} B (population "
           f"{eng.population}, cold store {sim.store.nbytes / 1e6:.2f}MB "
           f"host)")
+    if args.ckpt:
+        save_checkpoint(args.ckpt, sim.global_model(),
+                        {"engine": "streamed", "rounds": args.rounds})
+        print(f"saved global model to {args.ckpt}")
     return sim
 
 

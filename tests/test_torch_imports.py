@@ -22,7 +22,8 @@ PKG = os.path.join(REPO, "src", "repro_torch")
 STANDALONE = [os.path.join(REPO, "chip_smoke.py"),
               os.path.join(REPO, "examples", "quickstart_torch.py"),
               os.path.join(REPO, "examples",
-                           "compressed_federated_torch.py")]
+                           "compressed_federated_torch.py"),
+              os.path.join(REPO, "examples", "topology_study_torch.py")]
 
 
 def _modules():
@@ -49,7 +50,9 @@ def test_every_module_imports_without_jax():
             "repro_torch.random", "repro_torch.launch.time_to_accuracy",
             "repro_torch.core.compress", "repro_torch.core.privacy",
             "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
-            "repro_torch.checkpoint.runckpt"} <= set(mods)
+            "repro_torch.checkpoint.runckpt",
+            "repro_torch.core.collectives", "repro_torch.core.groups",
+            "repro_torch.core.sharded", "repro_torch.launch.mesh"} <= set(mods)
     code = ("import sys, importlib, runpy\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

@@ -250,6 +250,67 @@ def test_port_checkpoint_loads_in_the_reference(tmp_path):
                                np.asarray(ref.bank.params), atol=ATOL)
 
 
+def _mobile_chaos(pkg):
+    """``mobile_sampled`` + ``chaos`` faults, 4 clusters x 2
+    (``torch_dist_cases``' case), from INIT in either package."""
+    import torch_dist_cases as cases
+    fl, kw = cases.build(pkg, "mobile_chaos")
+    data = _data(fl.n)
+    if pkg == "repro":
+        return FLSimulator(lambda k: jax.tree.map(jnp.asarray, INIT),
+                           apply_mlp_classifier, fl,
+                           {k: jnp.asarray(v) for k, v in data.items()},
+                           **kw)
+    return TSim(lambda g: tree_from_numpy(INIT), t_apply, fl, data,
+                device="cpu", **kw)
+
+
+def test_async_checkpoint_crosses_the_packages(tmp_path):
+    """An async (s = 2) run checkpointed at round 2 and continued one
+    round in the other package (ROADMAP C4). The file carries the event
+    clock's timeline carry; the port's restore hands it to the sim, the
+    reference's does not (C4 stands there). So the port continues a
+    reference checkpoint as its own uninterrupted run, and the reference
+    continues a port checkpoint from a cold timeline, as it continues
+    its own, which here differs from its uninterrupted run."""
+    from repro.checkpoint import RunCheckpoint as RefRC
+    from repro.core.clock import EventClock as RefClock
+    from repro.core.runtime import compute_bound_runtime_model
+    from repro_torch.core.runtime import compute_bound_runtime_model as t_rt
+    S, rt, trt = 2, compute_bound_runtime_model(), t_rt()
+    kw = dict(eval_batch=128, async_staleness=S, ckpt_every=2)
+    ref_saved = ref_run_wall_clock(_mobile_chaos("repro"), rt, 2,
+                                   ckpt_dir=str(tmp_path / "ref"), **kw)
+    port_saved = run_wall_clock(_mobile_chaos("repro_torch"), trt, 2,
+                                ckpt_dir=str(tmp_path / "port"), **kw)
+    ref_full, port_full = _mobile_chaos("repro"), _mobile_chaos(
+        "repro_torch")
+    ref_run_wall_clock(ref_full, rt, 3, eval_batch=128, async_staleness=S)
+    run_wall_clock(port_full, trt, 3, eval_batch=128, async_staleness=S)
+
+    port = _mobile_chaos("repro_torch")
+    RunCheckpoint(str(tmp_path / "ref")).restore(
+        port, clock=EventClock(trt, port.fl),
+        hist={k: [] for k in ref_saved}, staleness=S)
+    port.step_round_async(S, trt)
+    np.testing.assert_allclose(port.bank.params.numpy(),
+                               port_full.bank.params.numpy(), atol=ATOL)
+
+    def ref_resumed(path, saved):
+        ref = _mobile_chaos("repro")
+        RefRC(str(path)).restore(ref, clock=RefClock(rt, ref.fl),
+                                 hist={k: [] for k in saved}, staleness=S)
+        ref.step_round_async(S, rt)
+        return np.asarray(ref.bank.params)
+    from_ref = ref_resumed(tmp_path / "ref", ref_saved)
+    from_port = ref_resumed(tmp_path / "port", port_saved)
+    np.testing.assert_allclose(from_port, from_ref, atol=ATOL)
+    # the cold timeline reorders this round's events: without the carry
+    # the port's continuation above could not match
+    assert np.abs(from_ref - np.asarray(ref_full.bank.params)).max() \
+        > 100 * ATOL
+
+
 def test_restore_rejects_another_configuration(tmp_path):
     """A checkpoint of a run with an EF residual does not restore into a
     sim without one: the structure error names the residual's path."""
