@@ -42,7 +42,21 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  ``scaled_dot_product_attention`` call). B4 also at the
                  seven attention shapes of the MoE, encoder-decoder and
                  VLM prefills (FA_FAMILY_PATHS), with its bound over the
-                 pairs the mask lets through.
+                 pairs the mask lets through. B4's backward
+                 (``csrc/flash_attention_bwd.cu``) against
+                 ``flash_attention_bwd_ref``, driven as training drives it
+                 (``torch.autograd.grad`` through ``flash_attention_bshd``),
+                 the forward's logsumexp first held against
+                 ``flash_attention_lse_ref`` (atol = rtol 1e-5) and the
+                 plain backward given the plain forward's o and no
+                 logsumexp: f32 over the reference's sweep (atol = rtol
+                 1e-4), f32 and bf16 through the GQA adapter (q_offset,
+                 window, non-causal, D = 80 strided views with ragged Sq
+                 and Sk; bf16 within 2e-2 of each gradient's largest
+                 entry), and bf16 at qwen2-0.5b's training shape (4 x
+                 2048, 14 / 2 heads of 64, causal), two runs bit for bit
+                 (no atomics), timed beside the plain version and the
+                 SDPA backward.
 3. main       — the paper's FEMNIST experiment (``configs/femnist_cnn``:
                  64 devices, 8 edge servers on a ring, tau=2, q=8, pi=10)
                  with the LEAF CNN at full width (6,603,710 params), two
@@ -93,6 +107,23 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  under the profiler (B4, GEMMs, the rest; device busy
                  share), then the serve driver at the reference's
                  defaults.
+7c. lm_train — federated LM training (``core/sharded.py``
+                 ``ShardedCEFedAvg``) of qwen2-0.5b at full width and
+                 depth (494,147,456 bf16 params, seeded generator on the
+                 card): (a) one rank, 3 rounds of the launcher's defaults
+                 (tau 2, q 2, pi 4, SGD momentum 0.9 at lr 0.05) at 4 x
+                 2048 on the example's learnable stream: seconds, local-
+                 step tokens a second, loss and peak a round; B4 forward
+                 and backward launches, 24 + 24 a local step (asserted);
+                 the loss of a held-out batch must fall; one local step
+                 under the profiler (B4 forward, backward, GEMMs, the
+                 rest, busy share).
+                 (b) 4 gloo ranks sharing the card, one full-width
+                 replica each in 2 clusters x 2, one dense and one
+                 ringweight round at 2 x 1024: round seconds (max over
+                 ranks), a rank's bytes by collective, peak by rank. (c)
+                 2 of the 24 layers at full width in f32: one round on
+                 the card against the CPU within 1e-4 (TF32 off).
 8. lm decode  — the same model in f32: the kernel forward's logits over
                  2 x 512 tokens against 512 decode steps (no kernel),
                  within the reference's atol = rtol = 0.05; then the
@@ -233,6 +264,24 @@ DECODE_SEQ = 512
 #: reduced Zamba2 forward, card (kernels) against CPU (plain) at f32:
 #: sums in other orders over 4 Mamba-2 blocks and 2 attention layers
 LM_PARITY_TOL = 1e-4
+#: B4's backward: f32 within 1e-4 (atol = rtol) of its plain version over
+#: the reference's sweep; bf16 within 2e-2 of each gradient's largest
+#: entry (P and dS rounded to bf16 before their second product)
+FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: B4's forward logsumexp (f32 for either input type; the scores are f32
+#: sums of exact products) against its plain version, atol = rtol
+FA_LSE_TOL = 1e-5
+#: the federated LM training phase: qwen2-0.5b at full width and depth
+#: (configs/qwen2_0p5b.py), the launcher's defaults (tau 2, q 2, pi 4,
+#: SGD momentum 0.9 at lr 0.05) on the example's learnable stream
+LM_TRAIN_ARCH = "qwen2-0.5b"
+LM_TRAIN_PARAMS = 494_147_456
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_ROUNDS = 4, 2048, 3
+#: (b): gloo ranks sharing the card, one full-width replica each, in 2
+#: clusters x 2, one round a backend
+LM_TRAIN_RANKS, LM_TRAIN_RANK_BATCH, LM_TRAIN_RANK_SEQ = 4, 2, 1024
+#: (c): card against CPU, 2 of the 24 layers at full width in f32
+LM_TRAIN_PARITY_LAYERS, LM_TRAIN_PARITY_SEQ = 2, 256
 #: the MoE, encoder-decoder and VLM prefills at full width: arch ->
 #: (layers run, None for all; batch; text tokens; B4 launches a
 #: forward). mixtral's 32 layers of experts (93 GB in bf16) and
@@ -355,7 +404,8 @@ def max_err(out: torch.Tensor, exp: torch.Tensor, tol: float,
 # phase 1: build
 # ---------------------------------------------------------------------------
 
-KERNEL_SOURCES = ("gossip_mix", "cold_codec", "flash_attention", "ssd_scan")
+KERNEL_SOURCES = ("gossip_mix", "cold_codec", "flash_attention",
+                  "flash_attention_bwd", "ssd_scan")
 
 
 def phase_build() -> None:
@@ -385,7 +435,8 @@ def phase_build() -> None:
 
 
 #: sources whose ptxas report is printed per kernel instantiation
-PTXAS_DETAIL = ("gossip_mix", "flash_attention", "ssd_scan", "cold_codec")
+PTXAS_DETAIL = ("gossip_mix", "flash_attention", "flash_attention_bwd",
+                "ssd_scan", "cold_codec")
 
 
 def _demangle(name: str) -> str:
@@ -2758,6 +2809,388 @@ def _parity_lm_families(dev: torch.device) -> None:
         assert aerr <= LM_PARITY_TOL, (arch, aerr)
 
 
+# ---------------------------------------------------------------------------
+# phase 2c: B4's backward against its plain version
+# ---------------------------------------------------------------------------
+
+def _rel_err(out, exp, rel: float, what: str) -> float:
+    """max |out - exp| over max |exp|; raises above ``rel``."""
+    o, e = out.float(), exp.float()
+    err = float((o - e).abs().max())
+    scale = float(e.abs().max())
+    if not math.isfinite(err) or err > rel * scale:
+        raise AssertionError(f"{what}: max abs diff {err:.3e} over "
+                             f"{rel} x max |ref| {scale:.3e}")
+    return err / max(scale, 1e-30)
+
+
+def _attend_grad(fa, q, k, v, do, mask):
+    """(dq, dk, dv) as training takes them: ``torch.autograd.grad``
+    through ``flash_attention_bshd`` (``_FlashAttention``: the forward
+    kernel writing the logsumexp, then the backward kernel) on leaves
+    that share q, k and v's storage and strides."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention_bshd(*leaves, **mask)
+    return torch.autograd.grad(out, leaves, do)
+
+
+def _bwd_check(fa, ref, q, k, v, do, mask, dt, what) -> float:
+    """B4 as training runs it against the plain versions on the same q,
+    k, v and dO. The forward's logsumexp against ``flash_attention_lse_ref``
+    (atol = rtol = FA_LSE_TOL); then the gradients through autograd
+    against ``flash_attention_bwd_ref`` given the plain forward's output
+    and no logsumexp, so that it recomputes P from the true one and a
+    wrong logsumexp cannot move both sides together: f32 elementwise
+    within FA_BWD_TOL (atol = rtol), bf16 within FA_BWD_TOL of each
+    gradient's largest entry. Returns the logsumexp's max abs error and
+    the gradients' worst (abs for f32, relative for bf16)."""
+    o_ref, lse_ref = ref.flash_attention_lse_ref(q, k, v, **mask)
+    _, lse = fa.flash_attention_lse(q, k, v, **mask)
+    lse_err = max_err(lse, lse_ref, FA_LSE_TOL, f"{what} logsumexp")
+    got = _attend_grad(fa, q, k, v, do, mask)
+    worst = 0.0
+    exp = ref.flash_attention_bwd_ref(q, k, v, o_ref, do, **mask)
+    for name, a, b in zip(("dq", "dk", "dv"), got, exp):
+        assert a.shape == b.shape and a.dtype == b.dtype, (name, a.shape)
+        if dt == torch.float32:
+            worst = max(worst, max_err(a, b, FA_BWD_TOL[dt],
+                                       f"{what} {name}"))
+        else:
+            worst = max(worst, _rel_err(a, b, FA_BWD_TOL[dt],
+                                        f"{what} {name}"))
+    return lse_err, worst
+
+
+def phase_flash_attention_bwd(dev: torch.device) -> dict:
+    """B4's backward (``csrc/flash_attention_bwd.cu``) through autograd
+    against ``flash_attention_bwd_ref`` on the same inputs, after the
+    forward's logsumexp against ``flash_attention_lse_ref``
+    (``_bwd_check``): f32 over the reference's sweep and its masks, both
+    types through the GQA adapter (a q_offset, a window, non-causal;
+    D = 80 views of one fused projection with ragged Sq and Sk), and
+    bf16 at the training shape (qwen2-0.5b's 4 x 2048 tokens, 14 / 2
+    heads of 64, causal), timed beside its plain version and the SDPA
+    backward."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(dev).manual_seed(13)
+
+    def rnd(*shape, dt=torch.float32):
+        return torch.randn(shape, device=dev, generator=gen).to(dt)
+
+    worst = {dt: 0.0 for dt in FA_BWD_TOL}
+    lse_worst = 0.0
+
+    def check(q, k, v, do, mask, dt, what):
+        nonlocal lse_worst
+        lse_err, err = _bwd_check(fa, ref, q, k, v, do, mask, dt, what)
+        lse_worst = max(lse_worst, lse_err)
+        worst[dt] = max(worst[dt], err)
+
+    for BH, Sq, Sk, D in FA_SWEEP:
+        for causal, window in FA_MASKS:
+            q, do = rnd(BH, Sq, 1, D), rnd(BH, Sq, 1, D)
+            k, v = rnd(BH, Sk, 1, D), rnd(BH, Sk, 1, D)
+            check(q, k, v, do, dict(causal=causal, window=window),
+                  torch.float32, f"flash_attention_bwd {BH}x{Sq}x{Sk}x{D} "
+                  f"causal={causal} window={window} f32")
+    for dt in FA_BWD_TOL:
+        q, do = rnd(2, 192, 8, 64, dt=dt), rnd(2, 192, 8, 64, dt=dt)
+        k, v = rnd(2, 256, 2, 64, dt=dt), rnd(2, 256, 2, 64, dt=dt)
+        for causal, window, off in ((True, 0, 64), (True, 40, 0),
+                                    (False, 0, 0)):
+            check(q, k, v, do, dict(causal=causal, window=window,
+                                    q_offset=off), dt,
+                  f"flash_attention_bwd GQA 8/2 causal={causal} "
+                  f"window={window} q_offset={off} {dt}")
+        fused = rnd(2, 328, 12, 80, dt=dt)
+        k, v = fused[:, :, 8:10], fused[:, :, 10:]
+        for Sq, causal, window, off in ((200, True, 0, 128),
+                                        (200, True, 96, 64),
+                                        (70, False, 0, 0)):
+            q, do = fused[:, :Sq, :8], rnd(2, Sq, 8, 80, dt=dt)
+            check(q, k, v, do, dict(causal=causal, window=window,
+                                    q_offset=off), dt,
+                  f"flash_attention_bwd D=80 GQA 8/2 Sq={Sq} Sk=328 "
+                  f"causal={causal} window={window} q_offset={off} {dt}")
+    log(f"[kernels] flash_attention_bwd sweep (5 shapes x 3 masks f32; GQA "
+        f"8/2 with q_offset 64, window 40, non-causal; D=80 strided views, "
+        f"ragged Sq 200/70, Sk 328; f32 and bf16): forward logsumexp max "
+        f"abs err {lse_worst:.3e} (atol = rtol {FA_LSE_TOL}); gradients "
+        f"max err f32 "
+        f"{worst[torch.float32]:.3e} abs (atol = rtol "
+        f"{FA_BWD_TOL[torch.float32]}), bf16 {worst[torch.bfloat16]:.3e} "
+        f"of the largest gradient (tol {FA_BWD_TOL[torch.bfloat16]})")
+
+    cfg_h, cfg_hkv, D = 14, 2, 64
+    B, S = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    q, do = (rnd(B, S, cfg_h, D, dt=torch.bfloat16) for _ in range(2))
+    k, v = (rnd(B, S, cfg_hkv, D, dt=torch.bfloat16) for _ in range(2))
+    mask = dict(causal=True)
+    lse_err, err = _bwd_check(fa, ref, q, k, v, do, mask, torch.bfloat16,
+                              "flash_attention_bwd at the training shape")
+    runs = []
+    # run-to-run spread: the kernels sum in one fixed order (no atomics)
+    for _ in range(2):
+        runs.append(torch.cat([t.float().reshape(-1) for t in
+                               _attend_grad(fa, q, k, v, do, mask)]))
+    spread = float((runs[0] - runs[1]).abs().max())
+    del runs
+    # the backward alone, through autograd as training runs it: one
+    # recorded forward, its graph kept across the timed calls
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    og = fa.flash_attention_bshd(qg, kg, vg, **mask)
+    ms = time_ms(lambda: torch.autograd.grad(og, (qg, kg, vg), do,
+                                             retain_graph=True))
+    o, lse = ref.flash_attention_lse_ref(q, k, v, **mask)
+    plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, do, lse=lse, **mask), reps=3)
+    del og, o, lse
+    torch.cuda.empty_cache()
+    G = cfg_h // cfg_hkv
+    qh = q.transpose(1, 2).detach().requires_grad_(True)
+    kh, vh = (t.repeat_interleave(G, dim=2).transpose(1, 2).detach()
+              .requires_grad_(True) for t in (k, v))
+    oh = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh,
+                                                          is_causal=True)
+    doh = do.transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        oh, (qh, kh, vh), doh, retain_graph=True))
+    # q, k, v, o, dO and lse read once, dq, dk, dv written once (q, o,
+    # dO and dq of H heads, k, v, dk and dv of Hkv); the five
+    # products of the causal band (S(S+1)/2 scores a head) in bf16
+    nbytes = (4 * B * S * cfg_h * D + 4 * B * S * cfg_hkv * D) * 2 + \
+        B * cfg_h * S * 4
+    flops = 5 * 2 * B * cfg_h * D * S * (S + 1) / 2
+    b_ms, b_by = _bound(nbytes, flops, BF16_FLOPS)
+    log(f"[kernels] flash_attention_bwd training shape (B={B}, S={S}, "
+        f"H={cfg_h}/{cfg_hkv}, D={D}, bf16, causal): forward logsumexp max "
+        f"abs err {lse_err:.3e} (atol = rtol {FA_LSE_TOL}); gradients "
+        f"max err {err:.3e} of "
+        f"the largest gradient (tol {FA_BWD_TOL[torch.bfloat16]}), "
+        f"run-to-run spread {spread:.3e} (no atomics); {ms:.4f} ms (plain "
+        f"{plain_ms:.4f}, SDPA backward on the expanded kv heads "
+        f"{library_ms:.4f}, bound {b_ms:.4f} by {b_by}: "
+        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; achieved "
+        f"{flops / ms / 1e9:.1f} TFLOP/s)")
+    assert spread == 0.0, spread
+    del q, k, v, do, qg, kg, vg, qh, kh, vh, oh, doh
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/layers.py:191",
+            "launches": 0,
+            "max_abs_err": max(err, *worst.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: federated LM training at full width
+# ---------------------------------------------------------------------------
+
+def _lm_train_args(extra):
+    """The launcher's flags: its defaults plus ``extra``."""
+    from repro_torch.launch import train
+    return train._parser().parse_args(["--arch", LM_TRAIN_ARCH] + extra)
+
+
+def _train_breakdown(prof, wall_s: float, tag: str) -> None:
+    """A profiled local step's device time: B4's forward and backward,
+    the GEMMs and the rest, and the device's busy share."""
+    device_breakdown(prof, wall_s, top=8, tag=tag)
+    sums = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        name = e.name.lower()
+        key = ("B4 backward" if ("dq_bf16" in name or "dkdv_bf16" in name
+                                 or "dq_f32" in name or "dkdv_f32" in name)
+               else "B4 forward" if "flash_attention" in name
+               else "GEMMs (cuBLAS)" if ("gemm" in name or "nvjet" in name
+                                         or "xmma" in name
+                                         or "cutlass" in name)
+               else "other")
+        sums[key][0] += e.time_range.elapsed_us() / 1e3
+        sums[key][1] += 1
+    log(f"[{tag}] local step device time by part: " + ", ".join(
+        f"{k} {t:.2f} ms x{c}" for k, (t, c) in sorted(
+            sums.items(), key=lambda kv: -kv[1][0])))
+
+
+def _lm_train_rank(flag_sets) -> list:
+    """One gloo rank of (b): ``run_pytree_engine`` once a flag set."""
+    from repro_torch.launch import train
+    out = []
+    for flags in flag_sets:
+        res = train.run_pytree_engine(_lm_train_args(flags))
+        out.append(res)
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_train(dev: torch.device):
+    """Returns B4's forward and backward launches in (a)."""
+    from repro_torch import tree as tr
+    from repro_torch.core.sharded import ShardedCEFedAvg
+    from repro_torch.data.lm import learnable_lm_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import train
+    from repro_torch.models import model as mdl
+
+    # (a) one rank: 3 rounds of the launcher's defaults at 4 x 2048
+    args = _lm_train_args(["--batch", str(LM_TRAIN_BATCH), "--seq",
+                           str(LM_TRAIN_SEQ), "--dist-backend", "gloo"])
+    exp = train.lm_experiment(args)
+    fl, cfg = exp.fl, exp.model
+    tokens = fl.q * fl.tau * LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    held = {k: torch.from_numpy(v[0, 0, 0]).to(dev) for k, v in
+            learnable_lm_batch((1, 1, 1, LM_TRAIN_BATCH, LM_TRAIN_SEQ),
+                               cfg.vocab_size, seed=1000).items()}
+
+    def held_out(params) -> float:
+        """The loss on one batch the rounds never see (no grad)."""
+        with torch.no_grad():
+            return float(mdl.lm_loss(cfg, params, held))
+
+    with lm.single_rank_world("gloo", dev) as mesh:
+        trn = ShardedCEFedAvg(exp, mesh)
+        t0 = time.perf_counter()
+        params, opt = trn.init_fn()(0)
+        torch.cuda.synchronize()
+        n = mdl.param_count(params)
+        log(f"[lm_train] {LM_TRAIN_ARCH}: {n:,} params ({cfg.param_dtype}, "
+            f"{cfg.num_layers} layers, d_model {cfg.d_model}, heads "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} of {cfg.head_dim}, vocab "
+            f"{cfg.vocab_size}), SGD momentum {exp.train.momentum} at lr "
+            f"{exp.train.learning_rate}; {torch.cuda.memory_allocated(dev) / 1e9:.2f} "
+            f"GB on the card after init ({time.perf_counter() - t0:.2f} s); "
+            f"tau {fl.tau}, q {fl.q}, pi {fl.pi}, one replica in a world of "
+            f"one, {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens a local step")
+        assert n == LM_TRAIN_PARAMS, n
+        before = held_out(params)
+        round_fn = trn.make_global_round()
+        step, losses = 0, []
+        fa.launches = fa.bwd_launches = 0
+        for r in range(LM_TRAIN_ROUNDS):
+            batch = learnable_lm_batch((fl.q, fl.tau, 1, LM_TRAIN_BATCH,
+                                        LM_TRAIN_SEQ), cfg.vocab_size,
+                                       seed=r)
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics, step = round_fn(params, opt, batch, step)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            losses.append(metrics["loss"])
+            log(f"[lm_train] round {r}: {sec:.3f} s, {tokens / sec:,.0f} "
+                f"local-step tokens/s, loss {metrics['loss']:.4f}, peak "
+                f"device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+        launches = (fa.launches, fa.bwd_launches)
+        after = held_out(params)
+        steps = fl.q * fl.tau * LM_TRAIN_ROUNDS
+        log(f"[lm_train] {steps} local steps: flash_attention launches "
+            f"{launches[0]}, flash_attention_bwd {launches[1]} (want "
+            f"{cfg.num_layers} + {cfg.num_layers} a step); round loss "
+            f"{' -> '.join(f'{x:.4f}' for x in losses)}, held-out batch "
+            f"{before:.4f} -> {after:.4f} (ln V = "
+            f"{math.log(cfg.vocab_size):.2f})")
+        assert launches == (cfg.num_layers * steps,) * 2, launches
+        assert all(math.isfinite(x) for x in losses), losses
+        assert after < before, (before, after)
+
+        # one local step under the profiler
+        local = trn.make_local_step()
+        params, opt, _, step = local(params, opt, held, step)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, _, step = local(params, opt, held, step)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        log(f"[lm_train] one local step under the profiler: {wall:.3f} s "
+            f"({LM_TRAIN_BATCH * LM_TRAIN_SEQ / wall:,.0f} tokens/s)")
+        _train_breakdown(prof, wall, "lm_train")
+        del params, opt, prof, trn, round_fn, local
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) LM_TRAIN_RANKS gloo ranks on this card, 2 clusters x 2
+    flags = ["--data-parallel", str(LM_TRAIN_RANKS), "--clusters", "2",
+             "--batch", str(LM_TRAIN_RANK_BATCH), "--seq",
+             str(LM_TRAIN_RANK_SEQ), "--rounds", "1", "--dist-backend",
+             "gloo"]
+    t0 = time.perf_counter()
+    ranks = lm.run_local_ranks(
+        _lm_train_rank, LM_TRAIN_RANKS,
+        args=([flags + ["--gossip", g] for g in ("dense", "ringweight")],),
+        backend="gloo", device="cuda", timeout_s=600)
+    log(f"[lm_train] {LM_TRAIN_RANKS} gloo ranks on this one card, one "
+        f"full-width replica each (2 clusters x 2, {LM_TRAIN_RANK_BATCH} x "
+        f"{LM_TRAIN_RANK_SEQ} tokens a local step): "
+        f"{time.perf_counter() - t0:.1f} s from spawn to the last result; "
+        f"gloo carries the replicas through host memory, so these times "
+        f"say nothing of NCCL across cards")
+    for i, g in enumerate(("dense", "ringweight")):
+        res = [r[i] for r in ranks]
+        secs = max(x["hist"]["seconds"][0] for x in res)
+        loss = res[0]["hist"]["loss"][0]
+        assert all(x["hist"]["loss"][0] == loss for x in res)
+        assert math.isfinite(loss), loss
+        ops = sorted({op for x in res for op in x["traffic"]})
+        by_op = "; ".join(
+            f"{op} x{max(x['traffic'][op]['calls'] for x in res)} sent "
+            f"{max(x['traffic'][op]['sent'] for x in res) / 1e6:.1f} MB recv "
+            f"{max(x['traffic'][op]['recv'] for x in res) / 1e6:.1f} MB"
+            for op in ops)
+        peaks = ", ".join("not measured" if x["peak_bytes"] is None
+                          else f"{x['peak_bytes'] / 1e9:.2f}" for x in res)
+        log(f"[lm_train] {g} round: {secs:.3f} s (max over ranks), loss "
+            f"{loss:.4f}; a rank's bytes by collective: {by_op}; peak "
+            f"device memory by rank {peaks} GB")
+
+    # (c) card against CPU: 2 layers at full width in f32, one round
+    pcfg = dataclasses.replace(cfg, num_layers=LM_TRAIN_PARITY_LAYERS,
+                               dtype="float32", param_dtype="float32")
+    pexp = dataclasses.replace(exp, model=pcfg)
+    init = mdl.init_model(torch.Generator().manual_seed(3), pcfg, "cpu")
+    batch = learnable_lm_batch((fl.q, fl.tau, 1, 1, LM_TRAIN_PARITY_SEQ),
+                               pcfg.vocab_size, seed=7)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        with lm.single_rank_world("gloo", where) as mesh:
+            trn = ShardedCEFedAvg(pexp, mesh)
+            params = tr.tree_map(lambda t: t.to(where), init)
+            opt = trn.opt_init(params)
+            fa.launches = fa.bwd_launches = 0
+            t0 = time.perf_counter()
+            params, opt, metrics, _ = trn.make_global_round()(
+                params, opt, batch, 0)
+            out[where.type] = (tr.tree_map(lambda t: t.cpu(), params),
+                               metrics["loss"], time.perf_counter() - t0,
+                               (fa.launches, fa.bwd_launches))
+    (pc, lc, sc, nc), (ph, lh, sh, nh) = out["cuda"], out["cpu"]
+    err = max(float((a - b).abs().max()) for a, b in
+              zip(tr.tree_leaves(pc), tr.tree_leaves(ph)))
+    log(f"[lm_train] parity: {LM_TRAIN_PARITY_LAYERS} of {cfg.num_layers} "
+        f"layers at full width in f32, one round of 1 x "
+        f"{LM_TRAIN_PARITY_SEQ} tokens a step: card ({sc:.2f} s; B4 "
+        f"forward x{nc[0]}, backward x{nc[1]}) vs CPU ({sh:.2f} s, plain, "
+        f"x{nh[0]}) params max abs diff {err:.3e}, loss {lc:.6f} vs "
+        f"{lh:.6f} (atol {LM_PARITY_TOL}, TF32 off)")
+    assert err <= LM_PARITY_TOL and abs(lc - lh) <= LM_PARITY_TOL
+    steps = fl.q * fl.tau
+    assert nc == (LM_TRAIN_PARITY_LAYERS * steps,) * 2 and nh == (0, 0), \
+        (nc, nh)
+    return launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; this smoke run "
@@ -2775,6 +3208,7 @@ def main() -> int:
     entry = phase_kernels(dev)
     encode, decode = phase_codec(dev)
     attn = phase_flash_attention(dev)
+    attn_bwd = phase_flash_attention_bwd(dev)
     ssd = phase_ssd_scan(dev)
     phase_start(dev, "main")
     entry["launches"] = phase_main(dev)
@@ -2799,16 +3233,21 @@ def main() -> int:
     attn["launches"], ssd["launches"] = phase_lm(dev)
     phase_start(dev, "lm_families")
     family_attn = phase_lm_families(dev)
+    phase_start(dev, "lm_train")
+    train_attn, attn_bwd["launches"] = phase_lm_train(dev)
     log(f"[done] flash_attention launches: zamba2-2.7b prefill "
-        f"{attn['launches']}, the four family prefills {family_attn}")
-    attn["launches"] += family_attn
+        f"{attn['launches']}, the four family prefills {family_attn}, "
+        f"qwen2-0.5b training {train_attn}; flash_attention_bwd launches "
+        f"in training {attn_bwd['launches']}")
+    attn["launches"] += family_attn + train_attn
     phase_start(dev, "lm decode")
     phase_lm_decode(dev)
     phase_lm_decode_families(dev)
     phase_start(dev, "parity")
     phase_parity(dev)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [entry, encode, decode, attn, ssd]}))
+    print(json.dumps({"kernels": [entry, encode, decode, attn, attn_bwd,
+                                  ssd]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

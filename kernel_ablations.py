@@ -196,13 +196,13 @@ def attention(libs, dev) -> dict:
     out = {}
     for name, lib in libs.items():
         fn = lib.flash_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
         def run(fn=fn):
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    cdims, 1, stream)
+                    None, cdims, 1, stream)
             if rc:
                 raise RuntimeError(f"flash_attention {name}: CUDA error {rc}")
         if name == "kernel":

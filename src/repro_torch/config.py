@@ -2,14 +2,15 @@
 the language models' shapes.
 
 Port of ``repro.config``'s :class:`FLConfig`, of its scenario, fault
-and virtual-population configs, and of :class:`ModelConfig` (plain
-dataclasses, no external deps). The mesh config arrives with the slice
-that uses it.
+and virtual-population configs, of :class:`ModelConfig`, and of the
+LM trainer's :class:`MeshConfig`, :class:`ShapeConfig`,
+:class:`TrainConfig` and :class:`ExperimentConfig` (plain dataclasses,
+no external deps).
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
 
 # ---------------------------------------------------------------------------
@@ -382,3 +383,70 @@ class ScenarioConfig:
                 and self.move_prob == 0.0
                 and (self.faults is None or self.faults.trivial)
                 and self.population is None)
+
+
+# ---------------------------------------------------------------------------
+# Mesh / distribution
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+    multi_pod: bool = False
+
+    @property
+    def num_devices(self) -> int:
+        out = 1
+        for s in self.shape:
+            out *= s
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Train / serve shapes (the four assigned input shapes)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "sgd"        # sgd | adamw
+    learning_rate: float = 0.05
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    lr_schedule: str = "constant"  # constant | cosine | warmup_cosine
+    warmup_steps: int = 0
+    total_steps: int = 1000
+    batch_size: int = 50          # per-device local batch (paper: 50)
+    seed: int = 0
+    remat: bool = False           # activation checkpointing for the block
+    # the reference's switch to route attention/ssd through its Pallas
+    # kernels, which it never reads; the port always runs its kernels on
+    # the card and its plain versions on the CPU
+    use_pallas: bool = False
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    model: ModelConfig
+    fl: FLConfig = field(default_factory=FLConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    def replace(self, **kw) -> "ExperimentConfig":
+        return dataclasses.replace(self, **kw)

@@ -14,9 +14,10 @@ call: every rank of the world makes it, in the same order.
   partition of the ranks. Each partition's subgroups are made once per
   mesh, on first use (``new_group`` is collective: every rank makes
   every group, in the same order), and cached on the mesh.
-- :func:`all_reduce`, :func:`gather_rows`, :func:`barrier`: the world
-  sum (the sharded engine's evaluation), rows to rank 0 (a checkpoint's
-  save) and a barrier.
+- :func:`all_reduce`, :func:`all_gather`, :func:`gather_rows`,
+  :func:`barrier`: the world sum (the sharded engine's evaluation), every
+  rank's tensor on every rank (the LM trainer's dense mixing), rows to
+  rank 0 (a checkpoint's save) and a barrier.
 
 The transport is the mesh's backend's: under NCCL a CUDA tensor moves
 as it is; under gloo, whose point-to-point ops carry host memory only, a
@@ -174,6 +175,26 @@ def all_reduce(x: torch.Tensor, mesh: ReplicaMesh) -> torch.Tensor:
     nbytes = buf.numel() * buf.element_size()
     _count(mesh, "all_reduce", nbytes, nbytes)
     return _unstage(mesh, buf)
+
+
+def all_gather(x: torch.Tensor, mesh: ReplicaMesh) -> list:
+    """Every rank's ``x`` (one shape and dtype on all), by rank, on this
+    rank's device. Each rank sends its tensor to the R - 1 others and
+    receives theirs: (R - 1)·|x| bytes each way."""
+    x = x.detach().contiguous()
+    R = flat_axis_size(mesh)
+    if R == 1:
+        return [x]
+    nbytes = x.numel() * x.element_size()
+    if mesh.staged:
+        outs = [torch.empty(x.shape, dtype=x.dtype) for _ in range(R)]
+        dist.all_gather(outs, _stage(mesh, x, "all_gather"))
+        outs = [o.to(mesh.device) for o in outs]
+    else:
+        outs = [torch.empty_like(x) for _ in range(R)]
+        dist.all_gather(outs, x)
+    _count(mesh, "all_gather", nbytes * (R - 1), nbytes * (R - 1))
+    return outs
 
 
 def gather_rows(x: torch.Tensor, mesh: ReplicaMesh

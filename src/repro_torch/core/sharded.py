@@ -1,37 +1,52 @@
-"""Device-parallel flat-bank CE-FedAvg over ``torch.distributed`` (port of
-the bank half of ``repro.core.sharded``): one bank row per rank for the
-whole run.
+"""CE-FedAvg over ``torch.distributed``, one process a replica (port of
+``repro.core.sharded``): the device-parallel flat-bank engine and the
+LM trainer with stacked replica pytrees.
 
-Each rank runs the same host program (plans, schedules, the key stream
-are replicated, as the reference's single controller computes them
-once) on its own ``(1, T)`` rows of params, momentum and EF residual;
-the mixing boundaries are collectives over the flat replica axis
-(``core/collectives.py``, ``core/gossip.py``), so the full ``(n, T)``
-bank never sits on one device — init, rounds, evaluation and checkpoint
-restore included. No kernel runs on this path, as in the reference: the
-boundaries are collectives, not the gossip-mix kernel.
+:class:`ShardedBankCEFedAvg` (the bank half): one bank row per rank for
+the whole run. Each rank runs the same host program (plans, schedules,
+the key stream are replicated, as the reference's single controller
+computes them once) on its own ``(1, T)`` rows of params, momentum and
+EF residual; the mixing boundaries are collectives over the flat replica
+axis (``core/collectives.py``, ``core/gossip.py``), so the full ``(n,
+T)`` bank never sits on one device — init, rounds, evaluation and
+checkpoint restore included. No kernel runs on this path, as in the
+reference: the boundaries are collectives, not the gossip-mix kernel.
 
-The reference's pytree trainer (``ShardedCEFedAvg``) waits for A15 and
-its sharded streamed bank (``ShardedStreamedBank``) for ROADMAP A14's
-streamed half, the first item of queue A.
+:class:`ShardedCEFedAvg` (the pytree half): the federated LM trainer.
+The reference stacks R replicas of the model on a leading axis sharded
+over the mesh's ``data`` (× ``pod``) axis, one replica a device; here
+each rank of a :class:`ReplicaMesh` holds its own replica's parameter
+tree and optimizer state, and the round's boundaries are collectives.
+JAX's sharding glue (``_build_specs``, ``_opt_specs``,
+``microbatch_specs``, ``batch_specs``, ``in_shardings``,
+``out_shardings``) has no counterpart: a round takes the reference's
+``(q, tau, R, B, ...)`` batch and the rank slices its own replica ``r``
+from axis 2. The model axis is 1: tensor parallelism within a replica
+waits for ROADMAP A19.
+
+The sharded streamed bank (``ShardedStreamedBank``) waits for ROADMAP
+A14's streamed half.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.config import FLConfig
+from repro_torch import tree as tr
+from repro_torch.config import ExperimentConfig, FLConfig
 from repro_torch.core import collectives as col
 from repro_torch.core import gossip as gsp
 from repro_torch.core import program as prg
 from repro_torch.core import topology as topo
-from repro_torch.core.cefedavg import FLSimulator
+from repro_torch.core.cefedavg import FLSimulator, make_w_schedule
 from repro_torch.core.groups import get_registry
 from repro_torch.core.modelbank import ModelBank
 from repro_torch.launch.mesh import ReplicaMesh
+from repro_torch.models import model as mdl
+from repro_torch.optim import apply_updates, make_lr_schedule, make_optimizer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +68,221 @@ class ReplicaGeometry:
         if data % dpc:
             raise ValueError("clusters must not span pods")
         return ReplicaGeometry(R, M, dpc, data // dpc, pods)
+
+    def cluster_of(self, r: int) -> int:
+        return r // self.devices_per_cluster
+
+
+# ---------------------------------------------------------------------------
+# abstract init (no allocation: meta tensors)
+# ---------------------------------------------------------------------------
+
+def abstract_model(model_cfg):
+    """One replica's parameter tree as ``meta`` tensors (shapes and
+    dtypes, no memory). The reference also returns logical sharding axes,
+    which have no counterpart here."""
+    return mdl.init_model(torch.Generator(), model_cfg, "meta")
+
+
+def stacked_abstract(model_cfg, R: int):
+    """:func:`abstract_model` with a leading replica axis of size R."""
+    return tr.tree_map(
+        lambda t: torch.empty((R,) + tuple(t.shape), dtype=t.dtype,
+                              device="meta"), abstract_model(model_cfg))
+
+
+def replica_seed(seed: int, r: int) -> int:
+    """The seed of replica r's generator, mixed from (seed, r)."""
+    return int(np.random.SeedSequence([seed, r]).generate_state(
+        1, np.uint64)[0])
+
+
+# ---------------------------------------------------------------------------
+# the LM trainer
+# ---------------------------------------------------------------------------
+
+class ShardedCEFedAvg:
+    """The federated LM trainer of one rank: its replica's step functions
+    and the round's mixing boundaries over the mesh.
+
+    One ``global_round`` = q edge rounds of (τ local SGD steps + intra-
+    cluster averaging) followed by the inter-cluster mixing — eq. (10)/
+    (11), as the reference. The aggregation backends:
+
+    - ``dense`` (the paper's operators): ``mix`` over the replica axis.
+      Each leaf is all-gathered in its own dtype and contracted with this
+      rank's row of W in f32, then cast back: O(R·|leaf|) bytes a rank,
+      as the reference's all-gathers.
+    - ``sparse``: the group registry's grouped mean for V and π rounds of
+      neighbour ``ppermute`` matchings for H (``core/groups.py``).
+    - ``ringweight``: the exact H^π in M−1 weighted cyclic rotations.
+    ``fedavg`` has no intra-cluster boundary.
+
+    Every rank must build the trainer, and call each boundary, in the
+    same order (the collectives of ``core/collectives.py``)."""
+
+    def __init__(self, exp: ExperimentConfig, mesh: ReplicaMesh,
+                 loss_fn: Optional[Callable] = None):
+        self.exp = exp
+        self.mesh = mesh
+        self.device = mesh.device
+        self.geo = ReplicaGeometry.build(exp.fl, mesh)
+        self.replica = mesh.replica
+        self.fl = dataclasses.replace(
+            exp.fl, devices_per_cluster=self.geo.devices_per_cluster)
+        self.sched = make_w_schedule(self.fl)
+        self.model_cfg = exp.model
+        self.loss_fn = loss_fn or (
+            lambda p, b: mdl.lm_loss(self.model_cfg, p, b,
+                                     remat=exp.train.remat))
+        self.opt_init, self.opt_update = make_optimizer(exp.train)
+        self.lr_fn = make_lr_schedule(exp.train)
+        impl = exp.fl.gossip_impl
+        # communicator groups: built once per (fl, mesh) and queried for
+        # every tiered collective (means, gossip schedules)
+        self.registry = get_registry(self.fl, mesh)
+        self.gossip_schedule: Optional[gsp.GossipSchedule] = None
+        if impl in ("sparse", "ringweight") and \
+                self.fl.algorithm in ("ce_fedavg", "dec_local_sgd"):
+            self.gossip_schedule = self.registry.gossip_schedule(
+                1, self.fl.pi,
+                mode="exact" if impl == "ringweight" else "rounds")
+        self.param_shapes = abstract_model(self.model_cfg)
+
+    # -- init ----------------------------------------------------------------
+    def init_fn(self) -> Callable:
+        """``init(seed) -> (params, opt)``: this rank's replica, drawn on
+        its device from a generator seeded from (seed, replica), and its
+        optimizer state."""
+        def init(seed: int = 0):
+            gen = torch.Generator(self.device).manual_seed(
+                replica_seed(seed, self.replica))
+            params = mdl.init_model(gen, self.model_cfg, self.device)
+            return params, self.opt_init(params)
+        return init
+
+    # -- mixing --------------------------------------------------------------
+    def _mix(self, W, params):
+        """x_r <- sum_j W[r, j] x_j over the replica axis, summed in f32
+        and cast back (the reference's ``mix``)."""
+        w = np.asarray(W, np.float32)[self.replica]
+
+        def leaf(x):
+            acc = None
+            for j, part in enumerate(col.all_gather(x, self.mesh)):
+                term = part.to(torch.float32) * float(w[j])
+                acc = term if acc is None else acc.add_(term)
+            return acc.to(x.dtype)
+        return tr.tree_map(leaf, params)
+
+    @torch.no_grad()
+    def _intra(self, params):
+        if self.fl.algorithm == "fedavg":
+            return params  # cloud FedAvg: no intra-cluster boundary
+        if self.exp.fl.gossip_impl in ("sparse", "ringweight"):
+            return self.registry.mean(params, 0)
+        return self._mix(self.sched.W_intra, params)
+
+    @torch.no_grad()
+    def _inter(self, params):
+        if self.gossip_schedule is not None:
+            params = self.registry.mean(params, 0)
+            impl = self.exp.fl.gossip_impl
+            return self.registry.gossip(
+                params, 1, self.fl.pi,
+                mode="exact" if impl == "ringweight" else "rounds")
+        return self._mix(self.sched.W_inter, params)
+
+    # -- the steps -----------------------------------------------------------
+    def _on_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """This rank's replica of a ``(q, tau, R, B, ...)`` batch, on its
+        device."""
+        r = self.replica
+        return {k: (v[:, :, r] if isinstance(v, torch.Tensor) else
+                    torch.from_numpy(np.ascontiguousarray(v[:, :, r]))
+                    ).to(self.device) for k, v in batch.items()}
+
+    def make_local_step(self) -> Callable:
+        """``fn(params, opt, mb, step) -> (params, opt, loss, step + 1)``:
+        one local SGD step of this rank's replica on its microbatch
+        ``mb`` (``(B, ...)`` leaves); no mixing. Params and optimizer
+        state are updated in place; ``loss`` is a 0-dim tensor on the
+        device."""
+        loss_fn = self.loss_fn
+
+        def local_step(params, opt, mb, step):
+            leaves, treedef = tr.tree_flatten(params)
+            live = [p.detach().requires_grad_(True) for p in leaves]
+            loss = loss_fn(tr.tree_unflatten(treedef, live), mb)
+            grads = torch.autograd.grad(loss, live)
+            del live
+            with torch.no_grad():
+                upd, opt = self.opt_update(
+                    tr.tree_unflatten(treedef, list(grads)), opt, params,
+                    self.lr_fn(step))
+                del grads
+                params = apply_updates(params, upd)
+            return params, opt, loss.detach(), step + 1
+        return local_step
+
+    def make_intra_fn(self) -> Callable:
+        return lambda params: self._intra(params)
+
+    def make_inter_fn(self) -> Callable:
+        return lambda params: self._inter(params)
+
+    def make_global_round(self) -> Callable:
+        """``fn(params, opt, batch, step) -> (params, opt, metrics,
+        step)``. ``batch``: dict of arrays with leading ``(q, tau, R,
+        ...)`` dims (this rank takes replica r). ``metrics["loss"]`` is
+        the mean over replicas and local steps (one ``all_reduce``), a
+        float on every rank."""
+        fl = self.fl
+        local_step = self.make_local_step()
+
+        def global_round(params, opt, batch, step):
+            mine = self._on_device(batch)
+            losses = []
+            for qi in range(fl.q):
+                for ti in range(fl.tau):
+                    mb = {k: v[qi, ti] for k, v in mine.items()}
+                    params, opt, loss, step = local_step(params, opt, mb,
+                                                         step)
+                    losses.append(loss)
+                params = self._intra(params)
+            params = self._inter(params)
+            mean = torch.stack(losses).to(torch.float32).mean()
+            total = col.all_reduce(mean.reshape(1), self.mesh)
+            return params, opt, {"loss": float(total[0]) /
+                                 self.geo.num_replicas}, step
+        return global_round
+
+    def global_model(self, params):
+        """The replicas' average in f32 (the gossip consensus model the
+        reference checkpoints), on every rank: one ``all_reduce`` a
+        leaf."""
+        R = self.geo.num_replicas
+        with torch.no_grad():
+            return tr.tree_map(
+                lambda x: col.all_reduce(x.to(torch.float32), self.mesh) / R,
+                params)
+
+
+# ---------------------------------------------------------------------------
+# serving (non-FL: global/edge model)
+# ---------------------------------------------------------------------------
+
+def make_prefill_fn(model_cfg):
+    def prefill(params, batch):
+        logits, _ = mdl.forward(model_cfg, params, batch)
+        return logits
+    return prefill
+
+
+def make_decode_fn(model_cfg):
+    def decode(params, cache, tokens, pos):
+        return mdl.decode_step(model_cfg, params, cache, tokens, pos)
+    return decode
 
 
 class ShardedBankCEFedAvg(FLSimulator):

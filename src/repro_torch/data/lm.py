@@ -54,3 +54,19 @@ class TokenStream:
         tokens = tokens.astype(np.int32)
         labels = np.roll(tokens, -1, axis=-1)
         return {"tokens": tokens, "labels": labels}
+
+
+def learnable_lm_batch(shape: Tuple[int, ...], vocab: int, *,
+                       seed: int = 0) -> Dict[str, np.ndarray]:
+    """A next-token task with learnable structure (the stream of the
+    reference's ``examples/train_lm_federated.py``): a uniform first token
+    a sequence, then ``tok_{t+1} = (tok_t * 31 + 7) % vocab``, drawn from
+    ``default_rng(seed)``; int32 tokens and labels of ``shape`` (sequence
+    last)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, shape, dtype=np.int64)
+    for t in range(1, shape[-1]):
+        toks[..., t] = (toks[..., t - 1] * 31 + 7) % vocab
+    labels = np.roll(toks, -1, axis=-1)
+    return {"tokens": toks.astype(np.int32),
+            "labels": labels.astype(np.int32)}

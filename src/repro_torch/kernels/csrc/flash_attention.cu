@@ -69,6 +69,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Sq) logsumexp of each query row, or null
   int B, H, Hkv, Sq, Sk, D;
   int causal, window, q_offset;
   float scale;
@@ -224,6 +225,8 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + ty * 4 + i;
     if (row < a.Sq) {
       const float den = fmaxf(l[i], 1e-30f);
+      if (a.lse != nullptr && tx == 0)
+        a.lse[((int64_t)b * a.H + h) * a.Sq + row] = m[i] + logf(l[i]);
       float* orow = op + (int64_t)row * a.o_ss;
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
@@ -839,6 +842,10 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       const int row = r0 + 8 * r;
       if (row < a.Sq) {
         const float den = fmaxf(l[r], 1e-30f);
+        // the row's logsumexp in the natural base (m is in log2 units)
+        if (a.lse != nullptr && tg == 0)
+          a.lse[((int64_t)b * a.H + h) * a.Sq + row] =
+              (sm.m[r] + log2f(l[r])) * 0.6931471805599453f;
         __nv_bfloat16* orow = op + (int64_t)row * a.o_ss + 2 * tg;
 #pragma unroll
         for (int nd = 0; nd < D / 8; ++nd)
@@ -992,11 +999,14 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 // dims: B, H, Hkv, Sq, Sk, D, causal, window, q_offset, then the element
 // strides of (batch, seq, head) of q, k, v and o (21 values).
-// dtype: 0 = f32, 1 = bf16 (q, k, v and o alike). Returns the CUDA error
-// of the launch (0 on success); cudaErrorInvalidValue for a shape, or a
-// bf16 layout, that no kernel takes.
+// dtype: 0 = f32, 1 = bf16 (q, k, v and o alike). lse, when not null,
+// receives each query row's logsumexp of its scaled, masked scores (f32,
+// (B, H, Sq) contiguous), which the backward (flash_attention_bwd.cu)
+// recomputes the probabilities from. Returns the CUDA error of the launch
+// (0 on success); cudaErrorInvalidValue for a shape, or a bf16 layout,
+// that no kernel takes.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o,
+                                      const void* v, void* o, float* lse,
                                       const long long* dims, int dtype,
                                       void* stream) {
   Args a;
@@ -1004,6 +1014,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   a.k = k;
   a.v = v;
   a.o = o;
+  a.lse = lse;
   a.B = (int)dims[0];
   a.H = (int)dims[1];
   a.Hkv = (int)dims[2];

@@ -120,6 +120,77 @@ def flash_attention_bshd_ref(q: torch.Tensor, k: torch.Tensor,
     return o.reshape(B, H, Sq, D).transpose(1, 2)
 
 
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int = 0, q_offset: int = 0):
+    """Plain version of ``kernels.flash_attention.flash_attention_lse``:
+    (o, lse) of the (B, S, H, D) adapter, lse the (B, H, Sq) f32
+    logsumexp of the scaled scores masked to -1e30."""
+    o = flash_attention_bshd_ref(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+    B, Sq, H, D = q.shape
+    kf = torch.repeat_interleave(k.to(torch.float32), H // k.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) * (
+        1.0 / math.sqrt(D))
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    diff = q_pos[:, None] - k_pos[None, :]
+    ok = torch.ones(diff.shape, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= diff >= 0
+    if window > 0:
+        ok &= diff < window
+    s = torch.where(ok, s, torch.full((), -1e30, device=q.device))
+    return o, torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = True,
+                            window: int = 0, q_offset: int = 0,
+                            lse: torch.Tensor | None = None):
+    """Plain version of the flash-attention backward
+    (``kernels.flash_attention``'s ``_launch_bwd``): FlashAttention-2's
+    formula written out in f32, in the (B, S, H, D) layout with GQA.
+    q, o, do (B, Sq, H, D); k, v (B, Sk, Hkv, D); ``lse`` the forward's
+    (B, H, Sq) logsumexp (recomputed from the scores when None). With s
+    the scaled scores masked to -1e30 as the forward masks them:
+    P = exp(s - lse), D = rowsum(do o), dV = Pᵀ do, dP = do vᵀ,
+    dS = P (dP - D), dQ = dS k scale, dK = dSᵀ q scale; a kv head's dK
+    and dV sum over its H / Hkv query heads. Returns (dq, dk, dv) in the
+    dtypes of q, k and v."""
+    f32 = torch.float32
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qf, of, gf = (t.to(f32) for t in (q, o, do))
+    kf = torch.repeat_interleave(k.to(f32), G, dim=2)
+    vf = torch.repeat_interleave(v.to(f32), G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    diff = q_pos[:, None] - k_pos[None, :]
+    ok = torch.ones(diff.shape, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= diff >= 0
+    if window > 0:
+        ok &= diff < window
+    s = torch.where(ok, s, torch.full((), -1e30, device=q.device))
+    if lse is None:
+        lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse.to(f32)[..., None])                # (B,H,Sq,Sk)
+    delta = (gf * of).sum(-1).transpose(1, 2)                # (B,H,Sq)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dk = dk.reshape(B, Sk, Hkv, G, D).sum(3)
+    dv = dv.reshape(B, Sk, Hkv, G, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def ssd_intra_chunk_ref(x: torch.Tensor, a_t: torch.Tensor,
                         Bc: torch.Tensor, Cc: torch.Tensor,
                         dtc: torch.Tensor):

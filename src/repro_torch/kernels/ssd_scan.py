@@ -79,8 +79,9 @@ def _launch(x: torch.Tensor, a: torch.Tensor, Bc: torch.Tensor,
     global launches
     if any(t.requires_grad for t in (x, a, Bc, Cc, dt)):
         raise NotImplementedError(
-            "ssd_intra_chunk has no backward (nor has the TPU kernel); LM "
-            "training arrives with a later slice (ROADMAP A15)")
+            "ssd_intra_chunk has no backward yet (nor has the TPU kernel), "
+            "so ssm and hybrid models do not train on the card: ROADMAP "
+            "A17 (B5's backward, then ssm/hybrid training)")
     for t in (a, Bc, Cc, dt, y, st):
         if t.device != x.device:
             raise ValueError(f"ssd_intra_chunk: tensors on {x.device} and "

@@ -22,11 +22,14 @@ Backends:
 (``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
 ``LOCAL_RANK``); :func:`run_local_ranks` spawns R local ranks on one
 host, joined through a file store, and returns what each one's function
-returned.
-``make_production_mesh`` waits for A15's dry-run tools.
+returned; :func:`single_rank_world` makes this process a world of one
+(a replica mesh of one rank, as the reference's 1 x 1 mesh).
+``make_production_mesh`` waits for tensor parallelism and the dry-run
+tools (ROADMAP A19).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -297,3 +300,28 @@ def run_local_ranks(fn: Callable, nprocs: int, *, args: Sequence = (),
     if failed:
         raise RuntimeError("a rank failed:\n" + "\n".join(failed))
     return [got[r] for r in range(nprocs)]
+
+
+@contextlib.contextmanager
+def single_rank_world(backend: str = "gloo",
+                      device: Optional[Union[str, torch.device]] = None):
+    """This process as a world of one rank, joined through a file store in
+    a fresh temporary directory, for the block; yields its
+    :class:`ReplicaMesh` (one replica) and leaves the world at exit.
+    ``device`` as :func:`rank_device`."""
+    if dist.is_initialized():
+        raise RuntimeError("single_rank_world: this process is already in "
+                           "a world")
+    dev = rank_device(backend, device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    tmp = tempfile.mkdtemp(prefix="rank-")
+    try:
+        dist.init_process_group(backend, init_method="file://" + os.path.join(
+            tmp, "store"), world_size=1, rank=0)
+        try:
+            yield make_replica_mesh(1, device=dev)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)

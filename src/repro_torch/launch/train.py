@@ -1,18 +1,36 @@
-"""Training drivers of the port (``repro.launch.train``'s bank and
-population engines).
+"""The port's training launcher (``repro.launch.train``'s three
+engines).
+
+``--engine pytree`` (the default) runs the federated LM trainer
+(``core.sharded.ShardedCEFedAvg``) on ``--arch`` (qwen2-0.5b by
+default; ``--reduced`` for the smoke-scale model): ``--data-parallel``
+replicas, one a rank, ``--clusters`` clusters (default max(1, dp // 2)),
+tau local SGD steps with momentum 0.9, q edge rounds and pi gossip steps
+a round on the reference's synthetic federated token stream
+(``data.lm.TokenStream``), the loss a round on rank 0; ``--ckpt`` saves
+the replicas' average on rank 0. ``--gossip`` picks the mixing backend
+(dense, sparse, ringweight). A world of one runs in this process;
+``--model-parallel > 1`` (tensor parallelism within a replica) raises:
+ROADMAP A19.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+      --reduced --rounds 2 --data-parallel 8 --dist-backend gloo \
+      --device cpu
 
 ``--engine bank`` runs the device-parallel flat-bank engine
 (``core.sharded.ShardedBankCEFedAvg``): one (1, T) bank row per rank on
 the reference's synthetic federated classification task (an MLP 16-32-8
 on class Gaussians), logging the edge models' accuracy and loss a
-round. Under torchrun the process joins the world from the environment;
-otherwise it spawns ``--data-parallel`` local ranks. The backend is NCCL
-with one card a rank by default; ``--dist-backend gloo`` lets ranks
-share a card, or run on the CPU with ``--device cpu``:
+round.
 
-  torchrun --nproc-per-node 8 -m repro_torch.launch.train --engine bank \\
+Under torchrun a process joins the world from the environment;
+otherwise the launcher spawns ``--data-parallel`` local ranks. The backend
+is NCCL with one card a rank by default; ``--dist-backend gloo`` lets
+ranks share a card, or run on the CPU with ``--device cpu``:
+
+  torchrun --nproc-per-node 8 -m repro_torch.launch.train --engine bank \
       --data-parallel 8
-  PYTHONPATH=src python -m repro_torch.launch.train --engine bank \\
+  PYTHONPATH=src python -m repro_torch.launch.train --engine bank \
       --data-parallel 8 --dist-backend gloo [--device cpu]
 
 ``--population N`` streams a virtual population of N clients through the
@@ -22,15 +40,15 @@ round's cohort (plus one representative lane per cluster) is resident;
 card. Its task is the same MLP over 16 enumerated data shards (client id
 mod 16):
 
-  PYTHONPATH=src python -m repro_torch.launch.train --population 10000 \\
+  PYTHONPATH=src python -m repro_torch.launch.train --population 10000 \
       --cohort 8 --codec int8 --pipeline --rounds 5 --ckpt-dir ckpt
 
-Both run on the CUDA card unless ``--device`` says otherwise.
-``--ckpt-dir`` writes the run's state atomically every ``--ckpt-every``
-rounds and ``--resume`` continues from it, bit for bit the uninterrupted
-run. The LM trainer of ``--engine pytree`` waits for ROADMAP A15, and the
-sharded streamed bank (``--population`` with ``--data-parallel > 1``)
-for ROADMAP A14's ``ShardedStreamedBank`` item.
+All run on the CUDA card unless ``--device`` says otherwise.
+``--ckpt-dir`` writes the bank or population run's state atomically
+every ``--ckpt-every`` rounds and ``--resume`` continues from it, bit
+for bit the uninterrupted run. The sharded streamed bank
+(``--population`` with ``--data-parallel > 1``) waits for ROADMAP A14's
+streamed half, ``ShardedStreamedBank``.
 """
 from __future__ import annotations
 
@@ -39,11 +57,14 @@ import dataclasses
 import time
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from repro_torch.checkpoint.ckpt import save_checkpoint
 from repro_torch.checkpoint.runckpt import RunCheckpoint
-from repro_torch.config import FLConfig, PopulationConfig
+from repro_torch.config import (ExperimentConfig, FLConfig,
+                                PopulationConfig, TrainConfig)
+from repro_torch.configs import ARCHS, get_model_config
 from repro_torch.core.program import SCHEDULES
 from repro_torch.core.scenario import FAULTS, SCENARIOS
 from repro_torch.core.topology import TOPOLOGIES
@@ -56,19 +77,34 @@ from repro_torch.models.cnn import apply_mlp_classifier, init_mlp_classifier
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--engine", choices=("pytree", "bank"), default="pytree",
-                    help="bank: device-parallel flat (n, T) ModelBank rows, "
-                         "one a rank; pytree: the LM trainer (ROADMAP A15)")
+                    help="pytree: the LM trainer, one replica's parameter "
+                         "tree a rank; bank: device-parallel flat (n, T) "
+                         "ModelBank rows, one a rank")
+    ap.add_argument("--arch", choices=sorted(ARCHS), default="qwen2-0.5b",
+                    help="the LM of --engine pytree")
+    ap.add_argument("--reduced", action="store_true",
+                    help="smoke-scale model (CPU-friendly)")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--data-parallel", type=int, default=1,
-                    help="ranks (bank rows) of --engine bank")
+                    help="ranks: LM replicas (pytree) or bank rows (bank)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="tensor parallelism within a replica; only 1 is "
+                         "ported (ROADMAP A19)")
     ap.add_argument("--clusters", type=int, default=0)
     ap.add_argument("--tau", type=int, default=2)
     ap.add_argument("--q", type=int, default=2)
     ap.add_argument("--pi", type=int, default=4)
+    ap.add_argument("--gossip", choices=FLConfig.GOSSIP_IMPLS,
+                    default="dense",
+                    help="the pytree engine's mixing backend; the bank "
+                         "engine always lowers its boundaries to means and "
+                         "ppermute matchings or weighted rotations")
     ap.add_argument("--topology", default="ring", choices=sorted(TOPOLOGIES))
     ap.add_argument("--er-prob", type=float, default=0.4)
     ap.add_argument("--algorithm", default="ce_fedavg")
     ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=128,
+                    help="tokens a sequence (pytree engine)")
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--ckpt", default="",
                     help="save the final global model here")
@@ -76,9 +112,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="torch device (default: the CUDA card; one a rank "
                          "under NCCL)")
     ap.add_argument("--dist-backend", choices=lm.BACKENDS, default="nccl",
-                    help="--engine bank's collectives: nccl (one card a "
-                         "rank) or gloo (ranks may share a card, or run on "
-                         "the CPU; rows staged through host memory)")
+                    help="the ranks' collectives: nccl (one card a rank) or "
+                         "gloo (ranks may share a card, or run on the CPU; "
+                         "tensors staged through host memory)")
     ap.add_argument("--schedule", choices=SCHEDULES, default="static",
                     help="round schedule (bank engine): static is the "
                          "paper's fixed tau/q/pi; adaptive_tau gives slow "
@@ -127,9 +163,10 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """Parse and run. Returns the population sim; for ``--engine bank``
-    what each rank's :func:`run_bank_engine` returned (one dict under
-    torchrun, a list by rank for spawned ranks)."""
+    """Parse and run. Returns the population sim; for ``--engine bank`` and
+    ``--engine pytree`` what each rank's run function returned (one dict
+    under torchrun or for a pytree world of one, a list by rank for
+    spawned ranks)."""
     ap = _parser()
     args = ap.parse_args(argv)
     if args.population:
@@ -150,29 +187,127 @@ def main(argv=None):
                  "--faults/--ckpt-dir/--resume require --engine bank")
     if args.resume and not args.ckpt_dir:
         ap.error("--resume needs --ckpt-dir")
+    if args.model_parallel > 1:
+        raise NotImplementedError(
+            "tensor parallelism within a replica (--model-parallel > 1) is "
+            "not ported yet: ROADMAP A19")
     if args.population:
         if args.data_parallel > 1:
             raise NotImplementedError(
                 "the sharded streamed bank (--population with "
                 "--data-parallel > 1) is not ported yet: ROADMAP A14, "
-                "ShardedStreamedBank, first of queue A")
+                "ShardedStreamedBank")
         return run_population_engine(args)
-    if args.engine != "bank":
-        raise NotImplementedError(
-            "the LM pytree trainer (--engine pytree) is not ported yet "
-            "(ROADMAP A15); use --engine bank or --population")
-    n = _bank_ranks(args)
+    run = run_bank_engine if args.engine == "bank" else run_pytree_engine
+    n = _bank_ranks(args) if args.engine == "bank" else args.data_parallel
     if lm.under_torchrun():
         lm.initialize_multihost(backend=args.dist_backend,
                                 device=args.device)
         try:
-            return run_bank_engine(args)
+            return run(args)
         finally:
             dist.destroy_process_group()
     # validate the rank device here, before any rank starts
     lm.rank_device(args.dist_backend, args.device)
-    return lm.run_local_ranks(run_bank_engine, n, args=(args,),
+    if n == 1 and args.engine == "pytree":
+        with lm.single_rank_world(args.dist_backend, args.device):
+            return run(args)
+    return lm.run_local_ranks(run, n, args=(args,),
                               backend=args.dist_backend, device=args.device)
+
+
+def lm_experiment(args) -> ExperimentConfig:
+    """The pytree engine's experiment from the launcher's flags (SGD with
+    momentum 0.9 at ``--lr``, as the reference's launcher)."""
+    cfg = get_model_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    dp = args.data_parallel
+    m = args.clusters or max(1, dp // 2)
+    return ExperimentConfig(
+        model=cfg,
+        fl=FLConfig(algorithm=args.algorithm, num_clusters=m,
+                    devices_per_cluster=max(dp // m, 1), tau=args.tau,
+                    q=args.q, pi=args.pi, topology=args.topology,
+                    er_prob=args.er_prob, gossip_impl=args.gossip),
+        train=TrainConfig(optimizer="sgd", learning_rate=args.lr,
+                          momentum=0.9))
+
+
+def lm_round_batch(stream, cfg, q: int, tau: int, batch: int, seq: int
+                   ) -> dict:
+    """One round's ``(q, tau, R, B, S)`` batch: q·tau distinct microbatches
+    of the stream, one a local step, plus zero frames (encdec) or patch
+    embeddings (vlm) of the config's dtype, as the reference's launcher
+    feeds them."""
+    R = stream.R
+    nb = stream.next_batch((q * tau, batch, seq))
+    out = {k: np.moveaxis(v, 0, 1).reshape(q, tau, R, batch, seq)
+           for k, v in nb.items()}
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+    if cfg.family == "encdec":
+        out["frames"] = torch.zeros(
+            (1, 1, 1, batch, cfg.encoder_seq, cfg.d_model), dtype=dt
+        ).expand(q, tau, R, -1, -1, -1)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = torch.zeros(
+            (1, 1, 1, batch, cfg.num_patches, cfg.d_model), dtype=dt
+        ).expand(q, tau, R, -1, -1, -1)
+    return out
+
+
+def run_pytree_engine(args) -> dict:
+    """One rank of ``--engine pytree``: ``ShardedCEFedAvg`` on the
+    initialised world, ``--rounds`` rounds on the synthetic federated
+    token stream, the loss a round logged on rank 0. Returns this rank's
+    history (round loss and seconds), its collectives' traffic and its
+    peak device memory (None on the CPU)."""
+    from repro_torch.core.sharded import ShardedCEFedAvg
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.models.model import param_count
+
+    exp = lm_experiment(args)
+    cfg = exp.model
+    mesh = lm.make_replica_mesh(args.data_parallel, device=args.device)
+    tr = ShardedCEFedAvg(exp, mesh)
+    R = tr.geo.num_replicas
+    log = print if mesh.rank == 0 else (lambda *a, **k: None)
+    stream = TokenStream(cfg.vocab_size, R, tr.geo.cluster_of)
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    params, opt = tr.init_fn()(0)
+    log(f"pytree engine: {args.arch}{' (reduced)' if args.reduced else ''}"
+        f", {param_count(params) / 1e6:.1f}M "
+        f"params a replica, R={R} replicas in {exp.fl.num_clusters} "
+        f"clusters, gossip={args.gossip}, device={mesh.device} "
+        f"({mesh.transport})", flush=True)
+    round_fn = tr.make_global_round()
+    step = 0
+    hist = {"round": [], "loss": [], "seconds": []}
+    for r in range(args.rounds):
+        t0 = time.perf_counter()
+        batch = lm_round_batch(stream, cfg, exp.fl.q, exp.fl.tau,
+                               args.batch, args.seq)
+        params, opt, metrics, step = round_fn(params, opt, batch, step)
+        if cuda:
+            torch.cuda.synchronize(mesh.device)
+        sec = time.perf_counter() - t0
+        hist["round"].append(r)
+        hist["loss"].append(metrics["loss"])
+        hist["seconds"].append(sec)
+        log(f"round {r}: loss={metrics['loss']:.4f} ({sec:.1f}s)",
+            flush=True)
+    if args.ckpt:
+        gm = tr.global_model(params)
+        if mesh.rank == 0:
+            save_checkpoint(args.ckpt, gm, {"arch": args.arch,
+                                            "rounds": args.rounds})
+            log(f"saved global model to {args.ckpt}")
+    return {"rank": mesh.rank, "hist": hist,
+            "traffic": {k: dict(v) for k, v in mesh.traffic.items()},
+            "peak_bytes": (torch.cuda.max_memory_allocated(mesh.device)
+                           if cuda else None)}
 
 
 def _bank_ranks(args) -> int:

@@ -3,8 +3,8 @@
 
 One interface for every family:
   init_model(gen, cfg, device)             -> params
-  forward(cfg, params, batch)              -> (logits, aux)
-  lm_loss(cfg, params, batch)              -> scalar
+  forward(cfg, params, batch, remat=)      -> (logits, aux)
+  lm_loss(cfg, params, batch, remat=)      -> scalar
   init_decode_cache(cfg, batch, seq)       -> cache dict
   decode_step(cfg, params, cache, tok, pos) -> (logits, cache)
 
@@ -18,6 +18,13 @@ flash-attention kernel in every attention call (self, cross and the
 encoder's) and the SSD kernel in every Mamba-2 block; decoding runs
 neither. The ``cnn`` family is the FL path's (``models/cnn.py``) and
 raises here, as in the reference.
+
+``remat=True`` recomputes each layer's activations in the backward
+instead of keeping them (the reference's ``jax.checkpoint`` of its scan
+body): every layer body — a hybrid group with its shared block, an
+encoder or decoder layer, a llama4 layer pair — runs under
+``torch.utils.checkpoint`` with ``use_reentrant=False``. The gradients
+are those without it, bit for bit on the CPU.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tr
 from repro_torch.config import ModelConfig
@@ -58,10 +66,29 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return L.pad_to_multiple(cfg.vocab_size, 256)
 
 
+def _layers(stacked: Params) -> list:
+    """The layers of a stacked tree of dicts as a list of trees of views,
+    split along the leading axis once (``unbind``): under autograd their
+    gradients come back as one ``stack`` a leaf, where indexing each
+    layer would add a full-size, mostly-zero gradient a layer."""
+    leaves, treedef = tr.tree_flatten(stacked)
+    parts = [torch.unbind(t, 0) for t in leaves]
+    return [tr.tree_unflatten(treedef, [p[i] for p in parts])
+            for i in range(len(parts[0]))]
+
+
 def _layer(stacked: Params, *idx) -> Params:
     """The parameters of one layer of a stacked tree of dicts (views)."""
     return {k: _layer(v, *idx) if isinstance(v, dict) else v[idx]
             for k, v in stacked.items()}
+
+
+def _run(remat: bool, fn, *args, **kw):
+    """``fn(*args, **kw)``, its activations recomputed in the backward
+    when ``remat`` (the reference's ``jax.checkpoint`` of a scan body)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return fn(*args, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +126,14 @@ def _apply_moe_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
     h = L.apply_norm(cfg, lp["norm2"], x)
     y, aux = M.apply_moe(cfg, lp["moe"], h, drops)
     return x + y, aux
+
+
+def _llama4_pair(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                 drops=None):
+    """A llama4 (dense with SWA at sliding_window, MoE with full
+    attention) layer pair."""
+    x = _apply_dense_block(cfg, lp["dense"], x, window=cfg.sliding_window)
+    return _apply_moe_block(cfg, lp["moe"], x, window=0, drops=drops)
 
 
 def _init_ssm_block(gen, cfg: ModelConfig, device, lead=()) -> Params:
@@ -208,16 +243,16 @@ def _tokens(batch, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(batch["tokens"], device=device).long()
 
 
-def _encode(cfg: ModelConfig, params: Params, frames) -> torch.Tensor:
+def _encode(cfg: ModelConfig, params: Params, frames,
+            remat: bool = False) -> torch.Tensor:
     """The encoder of an encdec model: (B, encoder_seq, d) frame
     embeddings (the stub frontend's) -> normed (B, encoder_seq, d)."""
     dt = L.torch_dtype(cfg.dtype)
     enc = torch.as_tensor(frames, device=params["tok_embed"].device).to(dt)
     at = torch.arange(enc.shape[1], device=enc.device)
     enc = enc + _sinusoidal(at, cfg.d_model)[None].to(dt)
-    for i in range(cfg.encoder_layers):
-        enc = _apply_dense_block(cfg, _layer(params["enc_layers"], i), enc,
-                                 causal=False)
+    for lp in _layers(params["enc_layers"]):
+        enc = _run(remat, _apply_dense_block, cfg, lp, enc, causal=False)
     return L.apply_norm(cfg, params["enc_final_norm"], enc)
 
 
@@ -231,25 +266,37 @@ def _apply_dec_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
     return x + L.apply_mlp(cfg, lp["mlp"], h)
 
 
+def _hybrid_group(cfg: ModelConfig, gp: Params, shared: Params,
+                  x: torch.Tensor, intra_fn=None) -> torch.Tensor:
+    """One hybrid group: its ``attn_every`` Mamba-2 blocks, then the
+    shared attention block."""
+    for lp in _layers(gp):
+        x = _apply_ssm_block(cfg, lp, x, intra_fn=intra_fn)
+    return _apply_dense_block(cfg, shared, x)
+
+
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            intra_fn=None, drops: Optional[list] = None
+            remat: bool = False, intra_fn=None,
+            drops: Optional[list] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, padded_vocab), aux_loss). ``batch["tokens"]``
     is (B, S) int (numpy or tensor); encdec also takes ``frames`` (B,
     encoder_seq, d) and vlm ``patch_embeds`` (B, num_patches, d), whose
     projections come before the tokens (S grows by num_patches). The run
     is on the params' device. ``drops``, a list, receives each MoE
-    layer's count of dropped assignments (``models.moe``)."""
+    layer's count of dropped assignments (``models.moe``); under
+    ``remat`` the backward's recomputation appends them again.
+    ``remat`` recomputes each layer body's activations in the
+    backward."""
     _check_family(cfg)
     fam = cfg.family
     device = params["tok_embed"].device
     aux = torch.zeros((), dtype=torch.float32, device=device)
     if fam == "encdec":
-        enc = _encode(cfg, params, batch["frames"])
+        enc = _encode(cfg, params, batch["frames"], remat)
         x = _embed(cfg, params, _tokens(batch, device))
-        for i in range(cfg.num_layers):
-            x = _apply_dec_block(cfg, _layer(params["dec_layers"], i), x,
-                                 enc)
+        for lp in _layers(params["dec_layers"]):
+            x = _run(remat, _apply_dec_block, cfg, lp, x, enc)
         return _logits(cfg, params, x), aux
 
     x = _embed(cfg, params, _tokens(batch, device))
@@ -260,40 +307,34 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
         x = torch.cat([patches, x], dim=1)
     layers = params["layers"]
     if fam in ("dense", "vlm"):
-        for i in range(cfg.num_layers):
-            x = _apply_dense_block(cfg, _layer(layers, i), x)
+        for lp in _layers(layers):
+            x = _run(remat, _apply_dense_block, cfg, lp, x)
     elif fam == "moe" and cfg.moe_shared_expert:
         # llama4: (dense with SWA at sliding_window, MoE with full
         # attention) pairs
-        for i in range(cfg.num_layers // 2):
-            x = _apply_dense_block(cfg, _layer(layers["dense"], i), x,
-                                   window=cfg.sliding_window)
-            x, a = _apply_moe_block(cfg, _layer(layers["moe"], i), x,
-                                    window=0, drops=drops)
+        for lp in _layers(layers):
+            x, a = _run(remat, _llama4_pair, cfg, lp, x, drops)
             aux = aux + a
     elif fam == "moe":
-        for i in range(cfg.num_layers):
-            x, a = _apply_moe_block(cfg, _layer(layers, i), x, drops=drops)
+        for lp in _layers(layers):
+            x, a = _run(remat, _apply_moe_block, cfg, lp, x, drops=drops)
             aux = aux + a
     elif fam == "ssm":
-        for i in range(cfg.num_layers):
-            x = _apply_ssm_block(cfg, _layer(layers, i), x,
-                                 intra_fn=intra_fn)
+        for lp in _layers(layers):
+            x = _run(remat, _apply_ssm_block, cfg, lp, x, intra_fn=intra_fn)
     else:  # hybrid
-        shared = params["shared_block"]
-        for g in range(cfg.num_layers // cfg.attn_every):
-            for i in range(cfg.attn_every):
-                x = _apply_ssm_block(cfg, _layer(layers, g, i), x,
-                                     intra_fn=intra_fn)
-            x = _apply_dense_block(cfg, shared, x)
+        for gp in _layers(layers):
+            x = _run(remat, _hybrid_group, cfg, gp, params["shared_block"],
+                     x, intra_fn=intra_fn)
     return _logits(cfg, params, x), aux
 
 
 def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            aux_weight: float = 0.01) -> torch.Tensor:
+            remat: bool = False, aux_weight: float = 0.01) -> torch.Tensor:
     """Mean next-token cross entropy (f32) plus ``aux_weight`` x aux; a
-    vlm model's loss is over the text positions only."""
-    logits, aux = forward(cfg, params, batch)
+    vlm model's loss is over the text positions only. ``remat`` as in
+    :func:`forward`."""
+    logits, aux = forward(cfg, params, batch, remat=remat)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     if cfg.family == "vlm":
         logits = logits[:, -labels.shape[1]:]

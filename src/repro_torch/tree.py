@@ -49,7 +49,13 @@ def tree_leaves(tree) -> List[Any]:
     return tree_flatten(tree)[0]
 
 
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every leaf, keeping the structure."""
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` to every leaf, keeping the structure; with ``rest``
+    (trees of the same structure) ``fn`` gets one leaf of each, as
+    ``jax.tree.map``."""
     leaves, treedef = tree_flatten(tree)
-    return tree_unflatten(treedef, [fn(leaf) for leaf in leaves])
+    others = [tree_leaves(t) for t in rest]
+    if any(len(o) != len(leaves) for o in others):
+        raise ValueError("tree_map: trees of different structures")
+    return tree_unflatten(treedef, [fn(*args) for args in
+                                    zip(leaves, *others)])

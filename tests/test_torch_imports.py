@@ -23,7 +23,8 @@ STANDALONE = [os.path.join(REPO, "chip_smoke.py"),
               os.path.join(REPO, "examples", "quickstart_torch.py"),
               os.path.join(REPO, "examples",
                            "compressed_federated_torch.py"),
-              os.path.join(REPO, "examples", "topology_study_torch.py")]
+              os.path.join(REPO, "examples", "topology_study_torch.py"),
+              os.path.join(REPO, "examples", "train_lm_federated_torch.py")]
 
 
 def _modules():
@@ -52,7 +53,9 @@ def test_every_module_imports_without_jax():
             "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
             "repro_torch.checkpoint.runckpt",
             "repro_torch.core.collectives", "repro_torch.core.groups",
-            "repro_torch.core.sharded", "repro_torch.launch.mesh"} <= set(mods)
+            "repro_torch.core.sharded", "repro_torch.launch.mesh",
+            "repro_torch.optim", "repro_torch.optim.optimizers",
+            "repro_torch.launch.train", "repro_torch.data.lm"} <= set(mods)
     code = ("import sys, importlib, runpy\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -104,6 +107,38 @@ def test_default_device_entry_points_raise_without_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_lm_trainer_entry_points_raise_without_cuda():
+    """``--engine pytree`` (the launcher's default), the LM example and
+    the trainer's world default to the card; ``--device cpu`` runs."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default is taken")
+    import runpy
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import train
+    for argv in (["--reduced", "--rounds", "1"],
+                 ["--engine", "pytree", "--reduced", "--rounds", "1",
+                  "--data-parallel", "2", "--dist-backend", "gloo"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.main(argv)
+    example = runpy.run_path(STANDALONE[-1], run_name="example")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        example["main"](["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        with lm.single_rank_world("gloo"):
+            pass
+    out = train.main(["--reduced", "--rounds", "1", "--dist-backend",
+                      "gloo", "--device", "cpu"])
+    assert out["rank"] == 0 and len(out["hist"]["loss"]) == 1
+
+
+def test_lm_example_smoke_on_cpu(capsys):
+    import runpy
+    example = runpy.run_path(STANDALONE[-1], run_name="example")
+    losses = example["main"](["--smoke", "--device", "cpu"])
+    assert len(losses) == 2 and losses[1] < losses[0]
+    assert "done" in capsys.readouterr().out
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

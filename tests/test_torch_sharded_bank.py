@@ -380,8 +380,12 @@ def test_launcher_guards(monkeypatch):
                  ["--population", "100", "--faults", "chaos"]):
         with pytest.raises(SystemExit):
             train.main(argv)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        train.main(["--rounds", "1"])
+    # the default pytree engine runs on the card unless told otherwise
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.main(["--rounds", "1"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
+        train.main(["--rounds", "1", "--model-parallel", "2"])
     with pytest.raises(NotImplementedError, match="ShardedStreamedBank"):
         train.main(["--population", "100", "--data-parallel", "2",
                     "--device", "cpu"])

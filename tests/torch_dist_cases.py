@@ -1,6 +1,6 @@
 """Rank-side halves of the port's multi-rank tests
 (``test_torch_collectives.py``, ``test_torch_groups.py``,
-``test_torch_sharded_bank.py``).
+``test_torch_sharded_bank.py``, ``test_torch_sharded_lm.py``).
 
 Each test file spawns ONE gloo world of 8 ranks on the CPU for its module
 (``repro_torch.launch.mesh.run_local_ranks``, one intra-op thread a rank,
@@ -512,4 +512,140 @@ def groups_world():
         out["mismatch"] = "no error"
     except ValueError as e:
         out["mismatch"] = str(e)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the sharded LM trainer world
+# ---------------------------------------------------------------------------
+
+#: the reduced qwen2-0.5b widths of the reference's sharded tests
+#: (tests/test_sharded.py): the eq. 10 oracle's model and the backends'
+LM_SIM = dict(d_model=64, num_layers=2, d_ff=128, vocab_size=128)
+LM_IMPL = dict(d_model=128, num_layers=2, d_ff=256, vocab_size=256)
+#: name -> (model widths, FLConfig kwargs, TrainConfig kwargs, pods);
+#: the reference's build(): m=4 x dpc=2, tau=2, q=2, pi=2 on a ring
+LM_FL = dict(algorithm="ce_fedavg", num_clusters=4, devices_per_cluster=2,
+             tau=2, q=2, pi=2, topology="ring")
+LM_CASES = {
+    "simulator": (LM_SIM, LM_FL, dict(learning_rate=0.02, momentum=0.0), 1),
+    **{f"{algo}": (LM_SIM, dict(LM_FL, algorithm=algo, num_clusters=m,
+                                devices_per_cluster=dpc),
+                   dict(learning_rate=0.02, momentum=0.0), 1)
+       for algo, m, dpc in [("fedavg", 1, 8), ("hier_favg", 4, 2),
+                            ("local_edge", 4, 2), ("dec_local_sgd", 8, 1)]},
+    **{f"{impl}_{where}": (LM_IMPL, dict(LM_FL, gossip_impl=impl,
+                                         topology=topo),
+                           dict(learning_rate=0.01), pods)
+       for impl in ("dense", "sparse", "ringweight")
+       for where, topo, pods in (("singlepod", "ring", 1),
+                                 ("multipod", "ring", 2),
+                                 ("star_multipod", "star", 2))
+       if not (impl == "ringweight" and where != "star_multipod")},
+}
+
+
+def lm_batch(name: str) -> dict:
+    """Case ``name``'s (q, tau, R, B, S) token batch (the reference's
+    ``synthetic_lm_batch``)."""
+    from repro_torch.data.lm import synthetic_lm_batch
+    widths, fl, _, _ = LM_CASES[name]
+    S = 16 if widths is LM_SIM else 32
+    return synthetic_lm_batch((fl["q"], fl["tau"], NDEV, 2, S),
+                              widths["vocab_size"])
+
+
+def lm_experiment(pkg: str, name: str):
+    """Case ``name``'s ExperimentConfig in package ``pkg``."""
+    cfg = importlib.import_module(pkg + ".config")
+    configs = importlib.import_module(pkg + ".configs")
+    widths, fl, train, _ = LM_CASES[name]
+    model = configs.get_model_config("qwen2-0.5b").reduced(**widths)
+    return cfg.ExperimentConfig(model=model, fl=cfg.FLConfig(**fl),
+                                train=cfg.TrainConfig(**train))
+
+
+def _lm_round(name: str, meshes: dict, stacked=None):
+    """One global round of case ``name`` on this rank: from the
+    reference's replicas (``stacked``, a host tree with a leading replica
+    axis) where given, else from the trainer's own ``init_fn``. Returns
+    the rank's params (host), the round's loss and traffic."""
+    from repro_torch.convert import tree_from_numpy
+    from repro_torch.core.sharded import ShardedCEFedAvg
+    from repro_torch.launch.mesh import make_replica_mesh
+    from repro_torch.tree import tree_map
+    _, _, _, pods = LM_CASES[name]
+    if pods not in meshes:
+        meshes[pods] = make_replica_mesh(NDEV, pods=pods, device="cpu")
+    mesh = meshes[pods]
+    tr = ShardedCEFedAvg(lm_experiment("repro_torch", name), mesh)
+    if stacked is None:
+        params, opt = tr.init_fn()(0)
+    else:
+        params = tree_from_numpy(tree_map(lambda a: a[tr.replica], stacked))
+        opt = tr.opt_init(params)
+    mesh.reset_traffic()
+    params, opt, metrics, step = tr.make_global_round()(
+        params, opt, lm_batch(name), 0)
+    return {"params": tree_map(_host, params), "loss": metrics["loss"],
+            "step": step,
+            "traffic": {k: dict(v) for k, v in mesh.traffic.items()}}
+
+
+def _lm_components(meshes: dict, stacked) -> dict:
+    """The component steps (local step, intra, inter) composed by hand
+    against the global round, bit for bit, on the simulator case."""
+    from repro_torch.convert import tree_from_numpy
+    from repro_torch.core.sharded import ShardedCEFedAvg
+    from repro_torch.tree import tree_leaves, tree_map
+    name = "simulator"
+    tr = ShardedCEFedAvg(lm_experiment("repro_torch", name), meshes[1])
+    batch = lm_batch(name)
+    out = []
+    for composed in (False, True):
+        params = tree_from_numpy(tree_map(lambda a: a[tr.replica],
+                                          stacked))
+        opt = tr.opt_init(params)
+        if not composed:
+            params, *_ = tr.make_global_round()(params, opt, batch, 0)
+        else:
+            local, intra, inter = (tr.make_local_step(), tr.make_intra_fn(),
+                                   tr.make_inter_fn())
+            step = 0
+            for qi in range(2):
+                for ti in range(2):
+                    mb = {k: torch.from_numpy(v[qi, ti, tr.replica])
+                          for k, v in batch.items()}
+                    params, opt, _, step = local(params, opt, mb, step)
+                params = intra(params)
+            params = inter(params)
+        out.append([_host(t) for t in tree_leaves(params)])
+    return {"bitwise": all(np.array_equal(a, b)
+                           for a, b in zip(*out))}
+
+
+def _lm_launcher(tmpdir: str) -> dict:
+    """The launcher's rank function on this world: reduced qwen2-0.5b, 2
+    rounds, the replica average checkpointed on rank 0."""
+    from repro_torch.launch import train
+    path = os.path.join(tmpdir, "lm-global.npz")
+    res = train.run_pytree_engine(train._parser().parse_args(
+        ["--arch", "qwen2-0.5b", "--reduced", "--rounds", "2",
+         "--data-parallel", "8", "--dist-backend", "gloo", "--device", "cpu",
+         "--ckpt", path]))
+    return dict(res, ckpt=path)
+
+
+def sharded_lm_world(stacked, tmpdir: str) -> dict:
+    """Every case of ``LM_CASES`` on this rank, the component steps and
+    the launcher. ``stacked``: the reference's R replicas at the
+    ``LM_SIM`` widths (a host tree with a leading replica axis), which
+    the cases at those widths start from; the others start from the
+    port's ``init_fn``."""
+    meshes: dict = {}
+    out = {name: _lm_round(name, meshes, stacked
+                           if LM_CASES[name][0] is LM_SIM else None)
+           for name in LM_CASES}
+    out["components"] = _lm_components(meshes, stacked)
+    out["launcher"] = _lm_launcher(tmpdir)
     return out
