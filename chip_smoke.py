@@ -56,7 +56,13 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  entry), and bf16 at qwen2-0.5b's training shape (4 x
                  2048, 14 / 2 heads of 64, causal), two runs bit for bit
                  (no atomics), timed beside the plain version and the
-                 SDPA backward.
+                 SDPA backward, and its device time by kernel; then
+                 bf16 at the seven FA_FAMILY_PATHS shapes (D = 128,
+                 windows, non-causal, cross; the plain version a batch
+                 row's kv group at a time where its scores pass 8 GB),
+                 each timed beside the SDPA backward. Both backwards
+                 run through ``torch.autograd.grad`` and are timed by
+                 the profiler's device time (``device_ms``).
 3. main       — the paper's FEMNIST experiment (``configs/femnist_cnn``:
                  64 devices, 8 edge servers on a ring, tau=2, q=8, pi=10)
                  with the LEAF CNN at full width (6,603,710 params), two
@@ -116,8 +122,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  step tokens a second, loss and peak a round; B4 forward
                  and backward launches, 24 + 24 a local step (asserted);
                  the loss of a held-out batch must fall; one local step
-                 under the profiler (B4 forward, backward, GEMMs, the
-                 rest, busy share).
+                 under the profiler (B4 forward, backward: every kernel
+                 named flash_attention_bwd_*, GEMMs, the rest, busy
+                 share).
                  (b) 4 gloo ranks sharing the card, one full-width
                  replica each in 2 clusters x 2, one dense and one
                  ringweight round at 2 x 1024: round seconds (max over
@@ -268,6 +275,13 @@ LM_PARITY_TOL = 1e-4
 #: the reference's sweep; bf16 within 2e-2 of each gradient's largest
 #: entry (P and dS rounded to bf16 before their second product)
 FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: the name every kernel of B4's backward starts with
+#: (csrc/flash_attention_bwd.cu), which the step profile files them by
+BWD_KERNEL_PREFIX = "flash_attention_bwd_"
+#: B4's backward at the FA_FAMILY_PATHS shapes: a check whose plain
+#: version's f32 scores (B x H x Sq x Sk) would pass this many bytes
+#: runs on batch 1 and one kv head's query heads
+FA_BWD_CHECK_BYTES = 8e9
 #: B4's forward logsumexp (f32 for either input type; the scores are f32
 #: sums of exact products) against its plain version, atol = rtol
 FA_LSE_TOL = 1e-5
@@ -371,7 +385,8 @@ def phase_start(dev: torch.device, name: str) -> None:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` calls (CUDA events)."""
+    """Median device time of one call of ``fn`` over ``reps`` calls (CUDA
+    events)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -383,6 +398,27 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in evs)
+
+
+def device_ms(fn, reps: int = 10, warmup: int = 2) -> tuple:
+    """The card's time for one call of ``fn``: the profiler's device time
+    of every kernel, copy and fill that ``reps`` calls launch, over
+    ``reps`` (no host time, so a call whose host work outlasts its
+    kernels is not charged for it); and that time by kernel name."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            by_kernel[e.name] += e.time_range.elapsed_us() / 1e3 / reps
+    if not by_kernel:
+        raise AssertionError("the profiler recorded no device time")
+    return sum(by_kernel.values()), dict(by_kernel)
 
 
 def max_err(out: torch.Tensor, exp: torch.Tensor, tol: float,
@@ -2834,7 +2870,8 @@ def _attend_grad(fa, q, k, v, do, mask):
     return torch.autograd.grad(out, leaves, do)
 
 
-def _bwd_check(fa, ref, q, k, v, do, mask, dt, what) -> float:
+def _bwd_check(fa, ref, q, k, v, do, mask, dt, what,
+               sliced: bool = False) -> float:
     """B4 as training runs it against the plain versions on the same q,
     k, v and dO. The forward's logsumexp against ``flash_attention_lse_ref``
     (atol = rtol = FA_LSE_TOL); then the gradients through autograd
@@ -2842,22 +2879,36 @@ def _bwd_check(fa, ref, q, k, v, do, mask, dt, what) -> float:
     and no logsumexp, so that it recomputes P from the true one and a
     wrong logsumexp cannot move both sides together: f32 elementwise
     within FA_BWD_TOL (atol = rtol), bf16 within FA_BWD_TOL of each
-    gradient's largest entry. Returns the logsumexp's max abs error and
-    the gradients' worst (abs for f32, relative for bf16)."""
-    o_ref, lse_ref = ref.flash_attention_lse_ref(q, k, v, **mask)
+    gradient's largest entry. ``sliced``: the kernels run on the whole
+    shape and the plain versions on each batch row's kv groups in turn
+    (one kv head and its query heads), each slice held on its own.
+    Returns the logsumexp's max abs error and the gradients' worst (abs
+    for f32, relative for bf16)."""
     _, lse = fa.flash_attention_lse(q, k, v, **mask)
-    lse_err = max_err(lse, lse_ref, FA_LSE_TOL, f"{what} logsumexp")
     got = _attend_grad(fa, q, k, v, do, mask)
-    worst = 0.0
-    exp = ref.flash_attention_bwd_ref(q, k, v, o_ref, do, **mask)
-    for name, a, b in zip(("dq", "dk", "dv"), got, exp):
-        assert a.shape == b.shape and a.dtype == b.dtype, (name, a.shape)
-        if dt == torch.float32:
-            worst = max(worst, max_err(a, b, FA_BWD_TOL[dt],
-                                       f"{what} {name}"))
-        else:
-            worst = max(worst, _rel_err(a, b, FA_BWD_TOL[dt],
-                                        f"{what} {name}"))
+    B, Hkv = k.shape[0], k.shape[2]
+    G = q.shape[2] // Hkv
+    parts = ([(slice(b, b + 1), slice(g * G, (g + 1) * G), slice(g, g + 1))
+              for b in range(B) for g in range(Hkv)] if sliced
+             else [(slice(None),) * 3])
+    lse_err = worst = 0.0
+    for bs, hs, gs in parts:
+        qs, dos = q[bs, :, hs], do[bs, :, hs]
+        ks, vs = k[bs, :, gs], v[bs, :, gs]
+        o_ref, lse_ref = ref.flash_attention_lse_ref(qs, ks, vs, **mask)
+        lse_err = max(lse_err, max_err(lse[bs, hs], lse_ref, FA_LSE_TOL,
+                                       f"{what} logsumexp"))
+        exp = ref.flash_attention_bwd_ref(qs, ks, vs, o_ref, dos, **mask)
+        mine = (got[0][bs, :, hs], got[1][bs, :, gs], got[2][bs, :, gs])
+        for name, a, b in zip(("dq", "dk", "dv"), mine, exp):
+            assert a.shape == b.shape and a.dtype == b.dtype, (name, a.shape)
+            if dt == torch.float32:
+                worst = max(worst, max_err(a, b, FA_BWD_TOL[dt],
+                                           f"{what} {name}"))
+            else:
+                worst = max(worst, _rel_err(a, b, FA_BWD_TOL[dt],
+                                            f"{what} {name}"))
+        del o_ref, lse_ref, exp
     return lse_err, worst
 
 
@@ -2867,12 +2918,14 @@ def phase_flash_attention_bwd(dev: torch.device) -> dict:
     forward's logsumexp against ``flash_attention_lse_ref``
     (``_bwd_check``): f32 over the reference's sweep and its masks, both
     types through the GQA adapter (a q_offset, a window, non-causal;
-    D = 80 views of one fused projection with ragged Sq and Sk), and
-    bf16 at the training shape (qwen2-0.5b's 4 x 2048 tokens, 14 / 2
-    heads of 64, causal), timed beside its plain version and the SDPA
-    backward."""
+    D = 80 views of one fused projection with ragged Sq and Sk), bf16
+    at the training shape (qwen2-0.5b's 4 x 2048 tokens, 14 / 2 heads
+    of 64, causal), timed beside its plain version and the SDPA
+    backward (``device_ms``, by kernel), then bf16 at the MoE,
+    encoder-decoder and VLM shapes (``_fa_bwd_family_paths``)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+    t0 = time.perf_counter()
     gen = torch.Generator(dev).manual_seed(13)
 
     def rnd(*shape, dt=torch.float32):
@@ -2936,26 +2989,28 @@ def phase_flash_attention_bwd(dev: torch.device) -> dict:
                                _attend_grad(fa, q, k, v, do, mask)]))
     spread = float((runs[0] - runs[1]).abs().max())
     del runs
-    # the backward alone, through autograd as training runs it: one
-    # recorded forward, its graph kept across the timed calls
+    # the backward through autograd as training runs it (one recorded
+    # forward, its graph kept across the timed calls), and SDPA's the
+    # same way: each side's device time by the profiler (ms, library_ms),
+    # and each call's time with its host work (CUDA events) beside it
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
     og = fa.flash_attention_bshd(qg, kg, vg, **mask)
-    ms = time_ms(lambda: torch.autograd.grad(og, (qg, kg, vg), do,
-                                             retain_graph=True))
+    bwd = lambda: torch.autograd.grad(og, (qg, kg, vg), do,  # noqa: E731
+                                      retain_graph=True)
+    ms, by_kernel = device_ms(bwd)
+    autograd_ms = time_ms(bwd)
+    log("[kernels] flash_attention_bwd training shape, device time a call "
+        "by kernel: " + ", ".join(f"{_short_name(n)} {t:.4f} ms"
+                                  for n, t in by_kernel.items()))
     o, lse = ref.flash_attention_lse_ref(q, k, v, **mask)
     plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(
         q, k, v, o, do, lse=lse, **mask), reps=3)
     del og, o, lse
     torch.cuda.empty_cache()
-    G = cfg_h // cfg_hkv
-    qh = q.transpose(1, 2).detach().requires_grad_(True)
-    kh, vh = (t.repeat_interleave(G, dim=2).transpose(1, 2).detach()
-              .requires_grad_(True) for t in (k, v))
-    oh = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh,
-                                                          is_causal=True)
-    doh = do.transpose(1, 2)
-    library_ms = time_ms(lambda: torch.autograd.grad(
-        oh, (qh, kh, vh), doh, retain_graph=True))
+    sdpa_bwd = _sdpa_bwd(q, k, v, do, mask)
+    library_ms, _ = device_ms(sdpa_bwd)
+    library_autograd_ms = time_ms(sdpa_bwd)
+    del sdpa_bwd
     # q, k, v, o, dO and lse read once, dq, dk, dv written once (q, o,
     # dO and dq of H heads, k, v, dk and dv of Hkv); the five
     # products of the causal band (S(S+1)/2 scores a head) in bf16
@@ -2968,14 +3023,19 @@ def phase_flash_attention_bwd(dev: torch.device) -> dict:
         f"abs err {lse_err:.3e} (atol = rtol {FA_LSE_TOL}); gradients "
         f"max err {err:.3e} of "
         f"the largest gradient (tol {FA_BWD_TOL[torch.bfloat16]}), "
-        f"run-to-run spread {spread:.3e} (no atomics); {ms:.4f} ms (plain "
-        f"{plain_ms:.4f}, SDPA backward on the expanded kv heads "
-        f"{library_ms:.4f}, bound {b_ms:.4f} by {b_by}: "
-        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; achieved "
-        f"{flops / ms / 1e9:.1f} TFLOP/s)")
+        f"run-to-run spread {spread:.3e} (no atomics); device time "
+        f"{ms:.4f} ms through autograd (plain {plain_ms:.4f}, SDPA "
+        f"backward on the expanded kv heads {library_ms:.4f}, bound "
+        f"{b_ms:.4f} by {b_by}: {flops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB; achieved {flops / ms / 1e9:.1f} TFLOP/s); "
+        f"a call with its host work (CUDA events) {autograd_ms:.4f}, "
+        f"SDPA's {library_autograd_ms:.4f}")
     assert spread == 0.0, spread
-    del q, k, v, do, qg, kg, vg, qh, kh, vh, oh, doh
+    del q, k, v, do, qg, kg, vg
     torch.cuda.empty_cache()
+    err = max(err, _fa_bwd_family_paths(dev, gen))
+    log(f"[kernels] flash_attention_bwd phase: {time.perf_counter() - t0:.1f} "
+        f"s")
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/models/layers.py:191",
@@ -2983,6 +3043,89 @@ def phase_flash_attention_bwd(dev: torch.device) -> dict:
             "max_abs_err": max(err, *worst.values()), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms}
+
+
+def _short_name(kernel: str) -> str:
+    """A profiled kernel's function name, without its namespace, template
+    arguments and parameters."""
+    m = re.search(r"[A-Za-z_]\w*(?=[<(])", kernel)
+    return m[0] if m else kernel
+
+
+def _sdpa_bwd(q, k, v, do, mask):
+    """SDPA's backward through autograd on (B, S, H, D) q, k, v and dO, the
+    kv heads expanded to q's (outside what is timed), the window as a
+    boolean mask: a function of no arguments, its forward recorded once
+    and its graph kept across calls."""
+    G = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2).detach().requires_grad_(True)
+    kh, vh = (t.repeat_interleave(G, dim=2).transpose(1, 2).detach()
+              .requires_grad_(True) for t in (k, v))
+    if mask.get("window"):
+        diff = torch.arange(q.shape[1], device=q.device)[:, None] - \
+            torch.arange(k.shape[1], device=q.device)[None]
+        oh = torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=(diff >= 0) & (diff < mask["window"]))
+    else:
+        oh = torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=mask["causal"])
+    doh = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(oh, (qh, kh, vh), doh,
+                                       retain_graph=True)
+
+
+def _fa_bwd_family_paths(dev: torch.device, gen: torch.Generator) -> float:
+    """B4's backward in bf16 through autograd at the FA_FAMILY_PATHS
+    shapes (D = 128 with GQA 32/8 and 40/8, windows 4096 and 8192, the
+    non-causal whisper encoder, 448 queries across 1500 frames): held
+    against ``flash_attention_bwd_ref`` by ``_bwd_check`` (the plain
+    version on each batch row's kv groups in turn where its f32 scores
+    would pass FA_BWD_CHECK_BYTES), then its device time through
+    autograd at the full shape beside SDPA's backward's
+    (``_sdpa_bwd``). Returns the worst relative error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    bf = torch.bfloat16
+    worst = 0.0
+    for what, B, Sq, Sk, H, Hkv, D, causal, window in FA_FAMILY_PATHS:
+        q, do = (torch.randn((B, Sq, H, D), device=dev, generator=gen
+                             ).to(bf) for _ in range(2))
+        k, v = (torch.randn((B, Sk, Hkv, D), device=dev, generator=gen
+                            ).to(bf) for _ in range(2))
+        mask = dict(causal=causal, window=window)
+        cut = B * H * Sq * Sk * 4 > FA_BWD_CHECK_BYTES
+        _, err = _bwd_check(fa, ref, q, k, v, do, mask, bf,
+                            f"flash_attention_bwd at the {what} shape",
+                            sliced=cut)
+        worst = max(worst, err)
+        torch.cuda.empty_cache()
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        og = fa.flash_attention_bshd(qg, kg, vg, **mask)
+        ms, _ = device_ms(lambda: torch.autograd.grad(
+            og, (qg, kg, vg), do, retain_graph=True))
+        del qg, kg, vg, og
+        sdpa_bwd = _sdpa_bwd(q, k, v, do, mask)
+        library_ms, _ = device_ms(sdpa_bwd)
+        del sdpa_bwd
+        pairs = _attended_pairs(Sq, Sk, causal, window)
+        nbytes = (4 * B * Sq * H * D + 4 * B * Sk * Hkv * D) * 2 + \
+            B * H * Sq * 4
+        flops = 5 * 2 * B * H * D * pairs
+        b_ms, b_by = _bound(nbytes, flops, BF16_FLOPS)
+        log(f"[kernels] flash_attention_bwd {what} (B={B}, Sq={Sq}, "
+            f"Sk={Sk}, H/Hkv={H}/{Hkv}, D={D}, causal={causal}, "
+            f"window={window}, bf16): gradients max err {err:.3e} of the "
+            f"largest gradient (tol {FA_BWD_TOL[bf]}"
+            f"{', the plain version a kv group at a time' if cut else ''}); "
+            f"device time {ms:.4f} ms (SDPA backward on the expanded kv "
+            f"heads "
+            f"{library_ms:.4f}, bound {b_ms:.4f} by {b_by}: "
+            f"{flops / 1e9:.1f} GFLOP over {pairs:,} attended pairs a "
+            f"head, {nbytes / 1e6:.1f} MB; achieved "
+            f"{flops / ms / 1e9:.1f} TFLOP/s)")
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -3004,8 +3147,7 @@ def _train_breakdown(prof, wall_s: float, tag: str) -> None:
         if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
         name = e.name.lower()
-        key = ("B4 backward" if ("dq_bf16" in name or "dkdv_bf16" in name
-                                 or "dq_f32" in name or "dkdv_f32" in name)
+        key = ("B4 backward" if BWD_KERNEL_PREFIX in name
                else "B4 forward" if "flash_attention" in name
                else "GEMMs (cuBLAS)" if ("gemm" in name or "nvjet" in name
                                          or "xmma" in name

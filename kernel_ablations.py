@@ -6,7 +6,8 @@ NVIDIA GPU.
   python3 kernel_ablations.py
 
 Builds variants of ``src/repro_torch/kernels/csrc/gossip_mix.cu``,
-``flash_attention.cu``, ``ssd_scan.cu`` and ``cold_codec.cu`` with one part of the work taken out (by text
+``flash_attention.cu``, ``flash_attention_bwd.cu``, ``ssd_scan.cu`` and
+``cold_codec.cu`` with one part of the work taken out (by text
 substitution of the committed sources, into a scratch build directory
 under ``src/repro_torch/kernels/_build/``), and times each at the main
 path's shapes beside the committed kernel, CUDA events, median of 20:
@@ -18,7 +19,12 @@ path's shapes beside the committed kernel, CUDA events, median of 20:
   16-byte alignment, as the bank's odd rows are);
 - B4 at the Zamba2-2.7B prefill shape (2, 4096, 32 x 80, bf16, causal):
   without the softmax (probabilities left as raw scores), without the
-  second (lo) P V pass, without Q K^T.
+  second (lo) P V pass, without Q K^T;
+- B4's backward at the qwen2-0.5b training shape (4, 2048, 14/2 x 64,
+  bf16, causal), through its wrapper, by its device time (the
+  profiler's kernel time over 10 calls, as ``chip_smoke.py`` times it):
+  with one dK/dV block a kv head (its 7 query heads in turn, no head
+  sum) in place of one a query head, and without the head sum.
 
 A variant computes wrong results by design and is only timed; the
 committed kernel is checked against its plain version first. A
@@ -69,6 +75,15 @@ ATTENTION_CUTS = {
     "no Q K^T": [(
         "      issue_qk<DK>(sc, q_box, k_box + s * DK * kBox);\n",
         "#pragma unroll\n      for (int i = 0; i < kNS; ++i) sc[i] = 0.f;\n")],
+}
+
+ATTENTION_BWD_CUTS = {
+    "one dK/dV block a kv head, no head sum": [(
+        "constexpr int kBlocksPerSm = 4;",
+        "constexpr int kBlocksPerSm = 0;")],
+    "no head sum": [(
+        "  flash_attention_bwd_sum_heads<<<",
+        "  if (a.B < 0) flash_attention_bwd_sum_heads<<<")],
 }
 
 SSD_CUTS = {
@@ -218,6 +233,40 @@ def attention(libs, dev) -> dict:
     return out
 
 
+def attention_bwd(libs, dev) -> dict:
+    """B4's backward through its wrapper at the qwen2-0.5b training shape
+    (4, 2048, 14/2, 64, bf16, causal), on the forward's o and logsumexp,
+    each variant's library in place of the committed one."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    B, S, H, Hkv, D = cs.LM_TRAIN_BATCH, cs.LM_TRAIN_SEQ, 14, 2, 64
+    gen = torch.Generator(dev).manual_seed(13)
+    q, do = (torch.randn((B, S, H, D), device=dev, generator=gen
+                         ).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), device=dev, generator=gen
+                        ).to(torch.bfloat16) for _ in range(2))
+    o, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    committed = fa._bwd_library
+    out = {}
+    try:
+        for name, lib in libs.items():
+            fa._bwd_library = lambda lib=fa.bind_bwd(lib): lib
+
+            def run():
+                return fa._launch_bwd(q, k, v, o, do, lse, True, 0, 0)
+            if name == "kernel":
+                o_ref, _ = ref.flash_attention_lse_ref(q, k, v, causal=True)
+                for a, b in zip(run(), ref.flash_attention_bwd_ref(
+                        q, k, v, o_ref, do, causal=True)):
+                    cs._rel_err(a, b, cs.FA_BWD_TOL[torch.bfloat16],
+                                "flash_attention_bwd training shape")
+                del o_ref
+            out[name] = cs.device_ms(run)[0]
+    finally:
+        fa._bwd_library = committed
+    return out
+
+
 def ssd(libs, dev) -> dict:
     from repro_torch.kernels import ref
     BK, H, C, P, N = cs.LM_BATCH * cs.LM_SEQ // 256, 80, 256, 64, 64
@@ -306,6 +355,8 @@ def encode(libs, dev) -> dict:
 KERNELS = (("gossip_mix", "gossip_mix.cu", GOSSIP_CUTS, gossip),
            ("flash_attention", "flash_attention.cu", ATTENTION_CUTS,
             attention),
+           ("flash_attention_bwd", "flash_attention_bwd.cu",
+            ATTENTION_BWD_CUTS, attention_bwd),
            ("ssd_intra_chunk", "ssd_scan.cu", SSD_CUTS, ssd),
            ("int8 encode", "cold_codec.cu", ENCODE_CUTS, encode))
 

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under ``_build/``
-next to this file, named by the hash of its source, then loaded with
+next to this file, named by the hash of its source and of the shared
+``csrc/*.cuh`` headers it may include, then loaded with
 ``ctypes``. Building happens at first use, never at import, so the CPU
 tests import every module without a CUDA toolkit.
 """
@@ -19,7 +20,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(CSRC))
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: compiler output of each build in this process (ptxas register and
@@ -44,10 +46,13 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the shared library of ``csrc/<name>.cu`` is (or will be)
-    built: one file per source hash, so an edited source rebuilds."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD / f"lib{name}-{digest}.so"
+    built: one file per hash of the source and of every ``csrc/*.cuh``
+    header, so an edited source or header rebuilds."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def compile_library(name: str) -> Path:

@@ -1,6 +1,6 @@
 // The backward of flash attention on Hopper: dQ, dK and dV from q, k, v,
 // the forward's output o, the output's gradient dO and the forward's
-// per-row logsumexp, in FlashAttention-2's scheme.
+// per-row logsumexp.
 //
 // The reference trains its language models through XLA's autodiff of its
 // plain attention (src/repro/models/layers.py attention_core); its Pallas
@@ -20,44 +20,69 @@
 //   dQ_i  = scale sum_j dS_ij k_j,   dK_j = scale sum_i dS_ij q_i.
 // A kv head's dK and dV sum over its H / Hkv query heads (GQA).
 //
-// Two launches (three for bf16 with GQA), no atomics, so the sums run in
-// one fixed order:
-// 1. dq kernel — a block owns 64 query rows of one head: it computes D_i
-//    (written out for launch 2), then loops over the key tiles the mask
-//    leaves, recomputing P and dP, and writes dQ once.
-// 2. dkdv kernel — a block owns 64 keys and loops over the query tiles
-//    the mask leaves: of one kv head and all its query heads in turn (f32),
-//    or of one query head (bf16), whose f32 partials a third kernel sums
-//    over the kv head's query heads in head order.
+// Two launches (three for bf16 when a kv head's query heads are split
+// over blocks), no float atomics, so every sum runs in one fixed order
+// and a run repeats bit for bit:
+// 1. dq kernel — a block owns a run of query rows of one head: it
+//    computes D_i (written out for launch 2), then loops over the key
+//    tiles the mask leaves, recomputing S and dP, and writes dQ once.
+// 2. dkdv kernel — a block owns a run of keys of one kv head and loops
+//    over the query tiles the mask leaves, of all its query heads in turn
+//    (f32), or of a group of them (bf16); with more than one group a
+//    third kernel sums the groups' f32 partials in head order.
 // Each recomputes the scores it needs: 7 products of the forward's size
-// instead of FlashAttention-2's 5, for no float atomics across blocks.
-// Rows with no valid key at all (only a window shorter than a row's
-// distance past the last key makes one; the models never do) are
+// instead of FlashAttention-2's 5, the price of no float atomics across
+// blocks. Rows with no valid key at all (only a window shorter than a
+// row's distance past the last key makes one; the models never do) are
 // outside what the forward matches, and so here too.
 //
 // What bounds it: at the qwen2-0.5b training shape (4 x 2048 tokens, 14
 // query and 2 kv heads of 64, bf16, causal) the five products the
 // gradient needs are 75.2 GFLOP (0.076 ms at the bf16 tensor-core peak)
-// against about 67 MB of inputs and outputs (0.020 ms): operations bound
-// it. bf16 therefore runs on the tensor cores with mma.sync.m16n8k16
-// (f32 sums; P and dS rounded to bf16 as the A operand of the second
-// product, as the plain bf16 attention rounds its probabilities), each
-// warp owning 16 rows of a 64 x 64 tile. The first version is plain:
-// tiles staged in shared memory by all threads (16-byte loads, padded
-// rows so that fragment reads and ldmatrix are free of bank conflicts),
-// no pipeline, no wgmma or TMA. f32 runs on the CUDA cores (256 threads, a 4 x 4 block
-// of each 64 x 64 tile a thread), exact to f32 rounding, for the parity
-// checks.
+// against 67.6 MB of inputs and outputs (0.020 ms): operations bound it,
+// and only wgmma reaches Hopper's tensor-core rate. So bf16 runs as the
+// forward's bf16 kernel does (flash_attention.cu; the Hopper helpers
+// are shared in hopper.cuh), warp-specialised:
+// - a producer warpgroup (one thread of it; setmaxnreg gives its
+//   registers to the consumers: 24 against 240) issues every copy with
+//   cp.async.bulk.tensor over the forward's 4-D tensor maps of the
+//   (B, S, H, D) strides, into a ring of stages guarded by mbarriers;
+// - two consumer warpgroups run wgmma, 64 of the block's 128 own rows
+//   each, on the 64-row tiles the producer streams.
+// Every tile arrives once, in 16-column boxes with the 32-byte swizzle,
+// and serves both of its products: a box is wgmma's K-major operand over
+// D (the score products) and its N-major operand with D as N (the
+// accumulating products), as the forward's v tile is.
+// - dq kernel: own q and dO, streamed k and v. S = Q K^T and dP = dO V^T
+//   as SS wgmma into f32 registers; P and dS formed there (exp2 of one
+//   FMA a score, the log2-domain logsumexp); dS rounded once to bf16
+//   into the A-register fragment layout; dQ += dS K as RS wgmma.
+// - dkdv kernel: own k and v, streamed q, dO and the rows' (lse, D_i)
+//   that launch 1 wrote. S^T = K Q^T and dP^T = V dO^T (SS); P^T and
+//   dS^T in registers, each rounded once to bf16; dV += P^T dO and
+//   dK += dS^T Q (RS).
+// P and dS are rounded to bf16 exactly once, before their second
+// product, as the plain bf16 attention rounds its probabilities; every
+// sum is f32. Masks are evaluated only on tiles that cut the causal
+// band, the window or a sequence end. Blocks of the longest causal runs
+// start first. The kv head's query heads go to one dkdv block when that
+// still leaves 4 blocks an SM; otherwise they are split into groups
+// whose f32 partials the third kernel sums in head order.
+// f32 runs on the CUDA cores (256 threads, a 4 x 4 block of each 64 x 64
+// tile a thread), exact to f32 rounding, for the parity checks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kMaxD = 128;
-constexpr int kT = 64;  // query rows and keys of a tile
+constexpr int kT = 64;  // query rows and keys of a tile (f32)
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdArgs {
   const void* q;
@@ -66,12 +91,15 @@ struct BwdArgs {
   const void* o;
   const void* g;     // dO
   const float* lse;  // (B, H, Sq)
-  float* delta;      // (B, H, Sq): D_i, written by launch 1
+  // D_i: (B, H, Sq) f32 written by launch 1 (f32); bf16: (B * H, 2,
+  // Sq_pad), each row's lse in log2 units, then its D_i
+  float* delta;
   void* dq;          // (B, Sq, H, D) contiguous
   void* dk;          // (B, Sk, Hkv, D) contiguous
   void* dv;          // (B, Sk, Hkv, D) contiguous
   int B, H, Hkv, Sq, Sk, D;
   int causal, window, q_offset;
+  int Sq_pad;        // Sq rounded up to the dq kernel's rows a block
   float scale;
   // element strides of (batch, seq, head); the last axis is contiguous
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss,
@@ -87,34 +115,35 @@ __device__ __forceinline__ bool allowed(const BwdArgs& a, int row, int key) {
   return true;
 }
 
-// key tiles [begin, end) holding a valid key for some row of the query
-// tile at q0 (the forward's loop bounds)
-__device__ __forceinline__ void key_tiles(const BwdArgs& a, int q0, int& begin,
-                                          int& end) {
-  const int rows = min(kT, a.Sq - q0);
+// tiles [begin, end) of bk keys holding a valid key for some row of the
+// nrows query rows at q0 (the forward's loop bounds)
+__device__ __forceinline__ void key_tiles(const BwdArgs& a, int q0, int nrows,
+                                          int bk, int& begin, int& end) {
+  const int rows = min(nrows, a.Sq - q0);
   const int qpos_lo = a.q_offset + q0;
   const int qpos_hi = qpos_lo + rows - 1;
   begin = 0;
-  end = (a.Sk + kT - 1) / kT;
-  if (a.causal) end = min(end, qpos_hi / kT + 1);
+  end = (a.Sk + bk - 1) / bk;
+  if (a.causal) end = min(end, qpos_hi / bk + 1);
   if (a.window > 0 && qpos_lo - a.window + 1 > 0)
-    begin = min(end, (qpos_lo - a.window + 1) / kT);
+    begin = min(end, (qpos_lo - a.window + 1) / bk);
 }
 
-// query tiles [begin, end) holding a valid row for some key of the key
-// tile at k0
+// tiles [begin, end) of bq query rows holding a valid row for some key
+// of the nkeys keys at k0
 __device__ __forceinline__ void query_tiles(const BwdArgs& a, int k0,
-                                            int& begin, int& end) {
-  const int nq = (a.Sq + kT - 1) / kT;
+                                            int nkeys, int bq, int& begin,
+                                            int& end) {
+  const int nq = (a.Sq + bq - 1) / bq;
   begin = 0;
   end = nq;
   // causal: a row sees key k0 once q_offset + row >= k0
-  if (a.causal && k0 - a.q_offset > 0) begin = min(nq, (k0 - a.q_offset) / kT);
-  // window: row q0 still sees key k0 + kT - 1 while
-  // q_offset + q0 - (k0 + kT - 1) < window
+  if (a.causal && k0 - a.q_offset > 0) begin = min(nq, (k0 - a.q_offset) / bq);
+  // window: row q still sees key k0 + nkeys - 1 while
+  // q_offset + q - (k0 + nkeys - 1) < window
   if (a.window > 0) {
-    const int last = a.window + k0 + kT - 2 - a.q_offset;  // largest q0 + 0
-    end = last < 0 ? 0 : min(nq, last / kT + 1);
+    const int last = a.window + k0 + nkeys - 2 - a.q_offset;  // largest q
+    end = last < 0 ? 0 : min(nq, last / bq + 1);
   }
   if (begin > end) begin = end;
 }
@@ -161,7 +190,7 @@ __device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* at,
 
 template <int DC>
 __global__ void __launch_bounds__(kThreads)
-    dq_f32_kernel(const BwdArgs a) {
+    flash_attention_bwd_dq_f32(const BwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int D = a.D;
   float* qt = smem;           // [D][kLD] q tile, transposed
@@ -207,7 +236,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   int kt_begin, kt_end;
-  key_tiles(a, q0, kt_begin, kt_end);
+  key_tiles(a, q0, kT, kT, kt_begin, kt_end);
   float acc[4][DC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -271,7 +300,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int DC>
 __global__ void __launch_bounds__(kThreads)
-    dkdv_f32_kernel(const BwdArgs a) {
+    flash_attention_bwd_dkdv_f32(const BwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int D = a.D;
   float* kt_ = smem;          // [D][kLD] k tile, transposed ([d][key])
@@ -295,7 +324,7 @@ __global__ void __launch_bounds__(kThreads)
   load_t(kt_, kp, a.k_ss, k0, a.Sk, D);
   load_t(vt, vp, a.v_ss, k0, a.Sk, D);
   int qt_begin, qt_end;
-  query_tiles(a, k0, qt_begin, qt_end);
+  query_tiles(a, k0, kT, kT, qt_begin, qt_end);
 
   float dk[4][DC], dv[4][DC];
 #pragma unroll
@@ -382,368 +411,478 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- bf16 on the tensor cores: mma.sync.m16n8k16, f32 sums ----
+// ---- bf16 on Hopper's tensor cores: TMA + wgmma, warp-specialised ----
 //
-// 128 threads, 4 warps; warp w owns rows 16 w .. 16 w + 15 of the block's
-// 64-row side. Fragments (g = lane / 4, t = lane % 4): A (16 x 16, row
-// major) {r g, c 2t..2t+1}, {r g+8, c 2t..}, {r g, c 2t+8..}, {r g+8, c
-// 2t+8..}; B (16 x 8) {k 2t..2t+1, n g}, {k 2t+8.., n g}; C (16 x 8) {r g,
-// c 2t}, {r g, c 2t+1}, {r g+8, c 2t}, {r g+8, c 2t+1}. Two C tiles side
-// by side are, packed to bf16, the A fragment of a 16-deep step.
-//
-// Shared tiles are bf16, row-major, rows padded to D + 8 elements: a
-// fragment read (one 32-bit word a lane) and an ldmatrix (eight 16-byte
-// rows) each touch 32 different banks. The first product of a tile reads
-// both operands along D; the second takes its B operand (the tile's rows
-// as K) through ldmatrix .trans, so no transposed copy is staged.
-//
-// The dkdv launch gives each block one query head: a kv head's H / Hkv
-// blocks of a key tile write f32 partial dK and dV to scratch, and a third
-// kernel sums them in head order into bf16 (no atomics). A block's loop
-// is then at most Sq / 64 tiles long, not H / Hkv times that.
+// Both kernels share one shape: a block owns kOwn = 128 rows of one side
+// (query rows in the dq kernel, keys in the dkdv kernel), two consumer
+// warpgroups take 64 of them each, and the producer streams kTile = 64
+// rows of the other side a stage. Accumulator fragments of
+// wgmma.m64nNk16 (g = lane / 4, tg = lane % 4, warp w of the
+// warpgroup): x[4 nb + e] is row 16 w + g + 8 (e >> 1), column
+// 8 nb + 2 tg + (e & 1); two adjacent column groups of a 64-wide
+// accumulator, packed to bf16, are the A-register fragment of one
+// 16-deep step, so the scores feed the accumulating products directly.
 
-constexpr int kMThreads = 128;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8 x 8 b16 matrices, transposed: lanes 8 j .. 8 j + 7 give the
-// addresses of matrix j's rows
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// rows r0 .. r0 + kT - 1 of a (seq, D) bf16 slice with row stride ss into
-// `rm` ([row][ld]); rows past `nrows` are zeros. 16-byte loads: D a
-// multiple of 8, the slice 16-byte aligned with ss a multiple of 8.
-__device__ __forceinline__ void load_bf16(__nv_bfloat16* rm, int ld,
-                                          const __nv_bfloat16* src, int64_t ss,
-                                          int r0, int nrows, int D) {
-  const int chunks = D / 8;
-  for (int e = threadIdx.x; e < kT * chunks; e += kMThreads) {
-    const int r = e / chunks;
-    const int c8 = (e - r * chunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < nrows)
-      v = *reinterpret_cast<const uint4*>(src + (int64_t)(r0 + r) * ss + c8);
-    *reinterpret_cast<uint4*>(rm + r * ld + c8) = v;
-  }
-}
-
-// c[n] (n = 0..7, 8 columns each) = A_w (16 x D, rows 16 w.. of `am`) times
-// the transpose of `bm`'s 64 rows: one 16 x 64 tile of scores a warp
-template <int DK>
-__device__ __forceinline__ void rows_dot(float (&c)[8][4],
-                                         const __nv_bfloat16* am,
-                                         const __nv_bfloat16* bm, int ld,
-                                         int w, int g, int t) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DK; ++kk) {
-    const __nv_bfloat16* ar = am + (16 * w + g) * ld + 16 * kk + 2 * t;
-    const uint32_t af[4] = {ld32(ar), ld32(ar + 8 * ld), ld32(ar + 8),
-                            ld32(ar + 8 * ld + 8)};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const __nv_bfloat16* br = bm + (8 * n + g) * ld + 16 * kk + 2 * t;
-      mma_bf16(c[n], af, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
-// acc[n] (n < D / 8) += X (16 x 64, the C tiles x packed to bf16) times
-// the row-major 64 x D tile `rm` (its rows the product's K), B fragments
-// by ldmatrix .trans: lane l addresses row 16 kk + 8 ((l / 8) & 1) + l % 8
-// of column tile n + l / 16
-template <int DK>
-__device__ __forceinline__ void acc_dot(float (&acc)[2 * DK][4],
-                                        const float (&x)[8][4],
-                                        const __nv_bfloat16* rm, int ld,
-                                        int lane) {
-  const int mat = lane >> 3;
-  const int row = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t af[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                            pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                            pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                            pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-    const __nv_bfloat16* base =
-        rm + (16 * kk + (mat & 1) * 8 + row) * ld + 8 * (mat >> 1);
-#pragma unroll
-    for (int n = 0; n < 2 * DK; n += 2) {
-      uint32_t b[4];
-      ldsm_x4_t(b, base + 8 * n);
-      mma_bf16(acc[n], af, b[0], b[1]);
-      mma_bf16(acc[n + 1], af, b[2], b[3]);
-    }
-  }
-}
+constexpr int kConsumers = 2;  // consumer warpgroups
+constexpr int kBwdThreads = 128 * (kConsumers + 1);  // and the producer
+// registers a thread after setmaxnreg: a sub-partition holds one warp of
+// each warpgroup, and they share 504 of its 512 registers a lane
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kOwn = 64 * kConsumers;  // the block's own rows
+constexpr int kTile = 64;              // rows of a streamed tile
+constexpr int kStages = 2;             // ring depth of the streamed tiles
+constexpr int kOwnBox = kOwn * 32;     // one 16-column box of an own tile
+constexpr int kTileBox = kTile * 32;   // one 16-column box of a tile
+constexpr int kNS = kTile / 2;         // scores a consumer thread holds
+constexpr int kK16 = kTile / 16;       // 16-deep steps over a tile's rows
 
 template <int DK>
-struct MmaLayout {
-  static constexpr int D = 16 * DK;
-  static constexpr int kLR = D + 8;      // leading dimension, row-major
-  static constexpr int kRow = kT * kLR;  // elements of a row-major tile
+struct BwdLayout {
+  // own tiles, DK boxes each: q and dO (dq kernel), k and v (dkdv)
+  static constexpr int kA = 0;
+  static constexpr int kB = kA + DK * kOwnBox;
+  // streamed tiles, stages x DK boxes each: k and v (dq), q and dO (dkdv)
+  static constexpr int kX = kB + DK * kOwnBox;
+  static constexpr int kY = kX + kStages * DK * kTileBox;
+  // dkdv: stages x the tile rows' lse (log2 units) and D_i, f32
+  static constexpr int kStat = kY + kStages * DK * kTileBox;
+  static constexpr int kBar = kStat + kStages * 2 * kTile * 4;
+  // own_full, x_full[stages], y_full[stages], empty[stages]
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages);
 };
 
+// scores of the warpgroup's 64 own rows against a streamed tile (async):
+// DK k-steps of m64n64k16, both operands K-major from their boxes
 template <int DK>
-__global__ void __launch_bounds__(kMThreads)
-    dq_bf16_kernel(const BwdArgs a) {
-  using L = MmaLayout<DK>;
-  using bf = __nv_bfloat16;
-  constexpr int D = L::D;
-  extern __shared__ __align__(16) unsigned char raw[];
-  bf* qs = reinterpret_cast<bf*>(raw);
-  bf* gs = qs + L::kRow;  // dO
-  bf* ks = gs + L::kRow;
-  bf* vs = ks + L::kRow;
-  float* dl_s = reinterpret_cast<float*>(vs + L::kRow);  // [kT]: D_i
-
-  const int nq = (a.Sq + kT - 1) / kT;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * kT;
-  const int b = blockIdx.y / a.H;
-  const int h = blockIdx.y - b * a.H;
-  const int hk = h / (a.H / a.Hkv);
-  const bf* qp = static_cast<const bf*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf* gp = static_cast<const bf*>(a.g) + b * a.g_sb + h * a.g_sh;
-  const bf* op = static_cast<const bf*>(a.o) + b * a.o_sb + h * a.o_sh;
-  const bf* kp = static_cast<const bf*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const bf* vp = static_cast<const bf*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  const int64_t rowbase = ((int64_t)b * a.H + h) * a.Sq;
-  const int w = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  load_bf16(qs, L::kLR, qp, a.q_ss, q0, a.Sq, D);
-  load_bf16(gs, L::kLR, gp, a.g_ss, q0, a.Sq, D);
-
-  // D_i of the block's 64 rows, two threads a row, into dl_s and out
-  // for the dkdv launch; then lse_i and D_i of the thread's two fragment
-  // rows (16 w + g and + 8) into registers
-  {
-    const int r = threadIdx.x >> 1;
-    const int row = q0 + r;
-    float acc = 0.f;
-    if (row < a.Sq)
-      for (int d = (threadIdx.x & 1) * 8; d < D; d += 16) {
-        const uint4 gv =
-            *reinterpret_cast<const uint4*>(gp + (int64_t)row * a.g_ss + d);
-        const uint4 ov =
-            *reinterpret_cast<const uint4*>(op + (int64_t)row * a.o_ss + d);
-        const bf* gx = reinterpret_cast<const bf*>(&gv);
-        const bf* ox = reinterpret_cast<const bf*>(&ov);
+__device__ __forceinline__ void issue_scores(float (&s)[kNS], uint32_t own,
+                                             uint32_t tile) {
+  wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          acc = fmaf(__bfloat162float(gx[i]), __bfloat162float(ox[i]), acc);
-      }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if ((threadIdx.x & 1) == 0) {
-      dl_s[r] = acc;
-      if (row < a.Sq) a.delta[rowbase + row] = acc;
+  for (int kk = 0; kk < DK; ++kk)
+    Wgmma<kTile>::ss(s, sw32_desc(own + kk * kOwnBox, 16, 256),
+                     sw32_desc(tile + kk * kTileBox, 16, 256), kk > 0);
+  wgmma_commit();
+}
+
+// acc += X T (async, not committed): X the 64 x kTile bf16 fragments in
+// registers, T a streamed tile as the N-major operand (its rows the
+// product's K, its D columns N: next 16 columns one box on)
+template <int DK>
+__device__ __forceinline__ void issue_acc(float (&acc)[8 * DK],
+                                          const uint32_t (&x)[kK16][4],
+                                          uint32_t tile) {
+#pragma unroll
+  for (int k16 = 0; k16 < kK16; ++k16)
+    Wgmma<16 * DK>::rs(acc, x[k16],
+                       sw32_desc(tile + k16 * 16 * 32, kTileBox, 256));
+}
+
+// f32 scores as the bf16 A fragments of kK16 16-deep steps, each value
+// rounded once
+__device__ __forceinline__ void to_frag(const float (&s)[kNS],
+                                        uint32_t (&x)[kK16][4]) {
+#pragma unroll
+  for (int k16 = 0; k16 < kK16; ++k16)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      x[k16][j] = pack_f32(s[8 * k16 + 2 * j], s[8 * k16 + 2 * j + 1]);
+}
+
+__device__ __forceinline__ void init_barriers(uint32_t bar_own) {
+  if (threadIdx.x == 0) {
+    mbar_init(bar_own, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_own + 8 + 8 * s, 1);                    // x_full
+      mbar_init(bar_own + 8 + 8 * (kStages + s), 1);        // y_full
+      mbar_init(bar_own + 8 + 8 * (2 * kStages + s), kConsumers * 128);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  float lse[2], dl[2];
-  int rows[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    rows[r] = q0 + 16 * w + g + 8 * r;
-    lse[r] = rows[r] < a.Sq ? a.lse[rowbase + rows[r]] : 0.f;
-    dl[r] = dl_s[16 * w + g + 8 * r];
+}
+
+// dQ of kOwn query rows of one head, and each row's (lse, D_i) for the
+// dkdv kernel. Grid (B * H, row blocks), the longest causal rows first.
+template <int DK>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_attention_bwd_dq(const __grid_constant__ CUtensorMap tmq,
+                           const __grid_constant__ CUtensorMap tmg,
+                           const __grid_constant__ CUtensorMap tmk,
+                           const __grid_constant__ CUtensorMap tmv,
+                           const BwdArgs a, const float scale_log2) {
+  using L = BwdLayout<DK>;
+  using bf = __nv_bfloat16;
+  constexpr int D = 16 * DK;
+  extern __shared__ unsigned char bwd_smem_raw[];
+  // swizzled boxes want their 256-byte pattern aligned: align to 1024
+  const uint32_t base = (smem_u32(bwd_smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_own = base + L::kBar;
+  const uint32_t bar_x = bar_own + 8;
+  const uint32_t bar_y = bar_x + 8 * kStages;
+  const uint32_t bar_e = bar_y + 8 * kStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  const int hk = h / (a.H / a.Hkv);
+  const int nq = (a.Sq + kOwn - 1) / kOwn;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kOwn;
+  int kt_begin, kt_end;
+  key_tiles(a, q0, kOwn, kTile, kt_begin, kt_end);
+  init_barriers(bar_own);
+
+  if (threadIdx.x >= kConsumers * 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(bar_own, 2 * DK * kOwnBox);
+      for (int kk = 0; kk < DK; ++kk) {
+        tma_load_4d(base + L::kA + kk * kOwnBox, &tmq, bar_own, 16 * kk, h,
+                    q0, b);
+        tma_load_4d(base + L::kB + kk * kOwnBox, &tmg, bar_own, 16 * kk, h,
+                    q0, b);
+      }
+      for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
+        const int s = it % kStages;
+        mbar_wait(bar_e + 8 * s, ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(bar_x + 8 * s, DK * kTileBox);
+        for (int kk = 0; kk < DK; ++kk)
+          tma_load_4d(base + L::kX + (s * DK + kk) * kTileBox, &tmk,
+                      bar_x + 8 * s, 16 * kk, hk, kt * kTile, b);
+        mbar_expect_tx(bar_y + 8 * s, DK * kTileBox);
+        for (int kk = 0; kk < DK; ++kk)
+          tma_load_4d(base + L::kY + (s * DK + kk) * kTileBox, &tmv,
+                      bar_y + 8 * s, 16 * kk, hk, kt * kTile, b);
+      }
+    }
+    return;
   }
 
-  int kt_begin, kt_end;
-  key_tiles(a, q0, kt_begin, kt_end);
-  float acc[2 * DK][4];
-#pragma unroll
-  for (int n = 0; n < 2 * DK; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int c = threadIdx.x / 128;
+  const int t = threadIdx.x - 128 * c;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int r0 = q0 + 64 * c + 16 * warp + g;  // and r0 + 8
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kT;
-    __syncthreads();  // the previous tile's readers are done
-    load_bf16(ks, L::kLR, kp, a.k_ss, k0, a.Sk, D);
-    load_bf16(vs, L::kLR, vp, a.v_ss, k0, a.Sk, D);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    rows_dot<DK>(s, qs, ks, L::kLR, w, g, t);
-    rows_dot<DK>(dp, gs, vs, L::kLR, w, g, t);
+  // D_i and lse_i (log2 units) of the thread's two rows: the quad of
+  // threads sharing a row splits its 16-byte chunks; written out for
+  // the dkdv kernel (zeros past Sq, up to Sq_pad)
+  float lse2[2], dl[2];
+  {
+    const bf* gp = static_cast<const bf*>(a.g) + b * a.g_sb + h * a.g_sh;
+    const bf* op = static_cast<const bf*>(a.o) + b * a.o_sb + h * a.o_sh;
+    float* stat = a.delta + (int64_t)bh * 2 * a.Sq_pad;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      float acc = 0.f;
+      if (row < a.Sq)
+        for (int j = tg; j < 2 * DK; j += 4) {
+          const uint4 gv = *reinterpret_cast<const uint4*>(
+              gp + (int64_t)row * a.g_ss + 8 * j);
+          const uint4 ov = *reinterpret_cast<const uint4*>(
+              op + (int64_t)row * a.o_ss + 8 * j);
+          const bf* gx = reinterpret_cast<const bf*>(&gv);
+          const bf* ox = reinterpret_cast<const bf*>(&ov);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int key = k0 + 8 * n + 2 * t + (e & 1);
-        const float p = allowed(a, rows[r], key)
-                            ? __expf(s[n][e] * a.scale - lse[r])
-                            : 0.f;
-        s[n][e] = p * (dp[n][e] - dl[r]);
+          for (int i = 0; i < 8; ++i)
+            acc = fmaf(__bfloat162float(gx[i]), __bfloat162float(ox[i]), acc);
+        }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      dl[r] = acc;
+      lse2[r] = row < a.Sq ? a.lse[(int64_t)bh * a.Sq + row] * kLog2e : 0.f;
+      if (tg == 0) {
+        stat[row] = lse2[r];
+        stat[a.Sq_pad + row] = acc;
       }
-    acc_dot<DK>(acc, s, ks, L::kLR, lane);  // dQ += dS K
+    }
+  }
+
+  const int wg_lo = a.q_offset + q0 + 64 * c;  // the warpgroup's first row
+  const int qpos[2] = {a.q_offset + r0, a.q_offset + r0 + 8};
+  float dq[8 * DK];
+#pragma unroll
+  for (int i = 0; i < 8 * DK; ++i) dq[i] = 0.f;
+  const uint32_t q_own = base + L::kA + c * 64 * 32;
+  const uint32_t g_own = base + L::kB + c * 64 * 32;
+
+  mbar_wait(bar_own, 0);
+  for (int it = 0; it < kt_end - kt_begin; ++it) {
+    const int s = it % kStages;
+    const uint32_t parity = (it / kStages) & 1;
+    const int k0 = (kt_begin + it) * kTile;
+    const uint32_t k_tile = base + L::kX + s * DK * kTileBox;
+    const uint32_t v_tile = base + L::kY + s * DK * kTileBox;
+    float sc[kNS], dp[kNS];
+    mbar_wait(bar_x + 8 * s, parity);
+    issue_scores<DK>(sc, q_own, k_tile);  // S = Q K^T
+    mbar_wait(bar_y + 8 * s, parity);
+    issue_scores<DK>(dp, g_own, v_tile);  // dP = dO V^T
+    wgmma_wait<1>();
+    fence_regs(sc);
+    // P = 2^(s scale log2(e) - lse log2(e)); masked scores give 0
+#pragma unroll
+    for (int i = 0; i < kNS; ++i)
+      sc[i] = ex2(fmaf(sc[i], scale_log2, -lse2[(i >> 1) & 1]));
+    const bool cut = k0 + kTile > a.Sk ||
+                     (a.causal && k0 + kTile - 1 > wg_lo) ||
+                     (a.window > 0 && wg_lo + 63 - k0 >= a.window);
+    if (cut) {
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        const int qp = qpos[(i >> 1) & 1];
+        const int key = k0 + 8 * (i >> 2) + 2 * tg + (i & 1);
+        bool ok = key < a.Sk;
+        if (a.causal) ok = ok && qp >= key;
+        if (a.window > 0) ok = ok && qp - key < a.window;
+        if (!ok) sc[i] = 0.f;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) dp[i] = sc[i] * (dp[i] - dl[(i >> 1) & 1]);
+    uint32_t ds[kK16][4];
+    to_frag(dp, ds);
+    wgmma_fence();
+    issue_acc<DK>(dq, ds, k_tile);  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(ds);
+    mbar_arrive(bar_e + 8 * s);
   }
 
   bf* dqp = static_cast<bf*>(a.dq) + ((int64_t)b * a.Sq * a.H + h) * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (rows[r] < a.Sq) {
-      bf* out = dqp + (int64_t)rows[r] * a.H * D + 2 * t;
+    const int row = r0 + 8 * r;
+    if (row < a.Sq) {
+      bf* out = dqp + (int64_t)row * a.H * D + 2 * tg;
 #pragma unroll
-      for (int n = 0; n < 2 * DK; ++n)
-        *reinterpret_cast<uint32_t*>(out + 8 * n) =
-            pack_bf16(acc[n][2 * r] * a.scale, acc[n][2 * r + 1] * a.scale);
+      for (int nd = 0; nd < D / 8; ++nd)
+        *reinterpret_cast<uint32_t*>(out + 8 * nd) =
+            pack_f32(dq[4 * nd + 2 * r] * a.scale,
+                     dq[4 * nd + 2 * r + 1] * a.scale);
     }
   }
 }
 
-// dK and dV of one key tile from one query head h. With GQA (`part` not
-// null) they are f32 partials at (b, key, h) of two (B, Sk, H, D) arrays;
-// without, bf16 at (b, key, h) of dk and dv.
+// dK and dV of kOwn keys of one kv head from `hpb` of its query heads.
+// Grid (B * Hkv * groups, key blocks), key block 0 (the longest causal
+// run) first. With one group (`part` null) they go to dk and dv in bf16;
+// with several, group j's f32 sums go to slot (b, key, hk * groups + j)
+// of two (B, Sk, Hkv * groups, D) arrays in `part`.
 template <int DK>
-__global__ void __launch_bounds__(kMThreads)
-    dkdv_bf16_kernel(const BwdArgs a, float* part) {
-  using L = MmaLayout<DK>;
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_attention_bwd_dkdv(const __grid_constant__ CUtensorMap tmk,
+                             const __grid_constant__ CUtensorMap tmv,
+                             const __grid_constant__ CUtensorMap tmq,
+                             const __grid_constant__ CUtensorMap tmg,
+                             const BwdArgs a, const float scale_log2,
+                             const int hpb, float* part) {
+  using L = BwdLayout<DK>;
   using bf = __nv_bfloat16;
-  constexpr int D = L::D;
-  extern __shared__ __align__(16) unsigned char raw[];
-  bf* ks = reinterpret_cast<bf*>(raw);
-  bf* vs = ks + L::kRow;
-  bf* qs = vs + L::kRow;
-  bf* gs = qs + L::kRow;
-  float* lse_s = reinterpret_cast<float*>(gs + L::kRow);
-  float* dl_s = lse_s + kT;
+  constexpr int D = 16 * DK;
+  extern __shared__ unsigned char bwd_smem_raw[];
+  const uint32_t raw = smem_u32(bwd_smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bar_own = base + L::kBar;
+  const uint32_t bar_x = bar_own + 8;
+  const uint32_t bar_y = bar_x + 8 * kStages;
+  const uint32_t bar_e = bar_y + 8 * kStages;
 
-  const int k0 = blockIdx.x * kT;  // the causal band's longest first
-  const int b = blockIdx.y / a.H;
-  const int h = blockIdx.y - b * a.H;
-  const int hk = h / (a.H / a.Hkv);
-  const bf* kp = static_cast<const bf*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const bf* vp = static_cast<const bf*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  const bf* qp = static_cast<const bf*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf* gp = static_cast<const bf*>(a.g) + b * a.g_sb + h * a.g_sh;
-  const int64_t rowbase = ((int64_t)b * a.H + h) * a.Sq;
-  const int w = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  load_bf16(ks, L::kLR, kp, a.k_ss, k0, a.Sk, D);
-  load_bf16(vs, L::kLR, vp, a.v_ss, k0, a.Sk, D);
+  const int groups = a.H / a.Hkv / hpb;
+  const int b = blockIdx.x / (a.Hkv * groups);
+  const int hg = blockIdx.x - b * a.Hkv * groups;  // hk * groups + group
+  const int hk = hg / groups;
+  const int h0 = hk * (a.H / a.Hkv) + (hg - hk * groups) * hpb;
+  const int k0 = blockIdx.y * kOwn;
   int qt_begin, qt_end;
-  query_tiles(a, k0, qt_begin, qt_end);
-  const int keys[2] = {k0 + 16 * w + g, k0 + 16 * w + g + 8};
+  query_tiles(a, k0, kOwn, kTile, qt_begin, qt_end);
+  const int nt = qt_end - qt_begin;  // tiles a head
+  init_barriers(bar_own);
 
-  float dk[2 * DK][4], dv[2 * DK][4];
-#pragma unroll
-  for (int n = 0; n < 2 * DK; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  for (int qt = qt_begin; qt < qt_end; ++qt) {
-    const int q0 = qt * kT;
-    __syncthreads();  // the previous tile's readers are done
-    load_bf16(qs, L::kLR, qp, a.q_ss, q0, a.Sq, D);
-    load_bf16(gs, L::kLR, gp, a.g_ss, q0, a.Sq, D);
-    if (threadIdx.x < kT) {
-      const int row = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < a.Sq ? a.lse[rowbase + row] : 0.f;
-      dl_s[threadIdx.x] = row < a.Sq ? a.delta[rowbase + row] : 0.f;
-    }
-    __syncthreads();
-    // S^T and dP^T: the warp's 16 keys against the tile's 64 rows
-    float s[8][4], dp[8][4];
-    rows_dot<DK>(s, ks, qs, L::kLR, w, g, t);
-    rows_dot<DK>(dp, vs, gs, L::kLR, w, g, t);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = 8 * n + 2 * t + (e & 1);  // row within the tile
-        const float p = allowed(a, q0 + r, keys[e >> 1])
-                            ? __expf(s[n][e] * a.scale - lse_s[r])
-                            : 0.f;
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - dl_s[r]);
+  if (threadIdx.x >= kConsumers * 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(bar_own, 2 * DK * kOwnBox);
+      for (int kk = 0; kk < DK; ++kk) {
+        tma_load_4d(base + L::kA + kk * kOwnBox, &tmk, bar_own, 16 * kk, hk,
+                    k0, b);
+        tma_load_4d(base + L::kB + kk * kOwnBox, &tmv, bar_own, 16 * kk, hk,
+                    k0, b);
       }
-    acc_dot<DK>(dv, s, gs, L::kLR, lane);   // dV += P^T dO
-    acc_dot<DK>(dk, dp, qs, L::kLR, lane);  // dK += dS^T Q
+      for (int it = 0; it < hpb * nt; ++it) {
+        const int hh = it / nt;
+        const int h = h0 + hh;
+        const int q0 = (qt_begin + it - hh * nt) * kTile;
+        const float* stat = a.delta + (int64_t)(b * a.H + h) * 2 * a.Sq_pad;
+        const int s = it % kStages;
+        const uint32_t st = base + L::kStat + s * 2 * kTile * 4;
+        mbar_wait(bar_e + 8 * s, ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(bar_x + 8 * s, DK * kTileBox + kTile * 4);
+        for (int kk = 0; kk < DK; ++kk)
+          tma_load_4d(base + L::kX + (s * DK + kk) * kTileBox, &tmq,
+                      bar_x + 8 * s, 16 * kk, h, q0, b);
+        bulk_load(st, stat + q0, kTile * 4, bar_x + 8 * s);
+        mbar_expect_tx(bar_y + 8 * s, DK * kTileBox + kTile * 4);
+        for (int kk = 0; kk < DK; ++kk)
+          tma_load_4d(base + L::kY + (s * DK + kk) * kTileBox, &tmg,
+                      bar_y + 8 * s, 16 * kk, h, q0, b);
+        bulk_load(st + kTile * 4, stat + a.Sq_pad + q0, kTile * 4,
+                  bar_y + 8 * s);
+      }
+    }
+    return;
   }
 
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int c = threadIdx.x / 128;
+  const int t = threadIdx.x - 128 * c;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int kw = k0 + 64 * c;  // the warpgroup's first key
+  const int keys[2] = {kw + 16 * warp + g, kw + 16 * warp + g + 8};
+  const float* stats =
+      reinterpret_cast<const float*>(bwd_smem_raw + (base - raw) + L::kStat);
+  float dk[8 * DK], dv[8 * DK];
+#pragma unroll
+  for (int i = 0; i < 8 * DK; ++i) dk[i] = dv[i] = 0.f;
+  const uint32_t k_own = base + L::kA + c * 64 * 32;
+  const uint32_t v_own = base + L::kB + c * 64 * 32;
+
+  mbar_wait(bar_own, 0);
+  for (int it = 0; it < hpb * nt; ++it) {
+    const int hh = it / nt;
+    const int q0 = (qt_begin + it - hh * nt) * kTile;
+    const int s = it % kStages;
+    const uint32_t parity = (it / kStages) & 1;
+    const uint32_t q_tile = base + L::kX + s * DK * kTileBox;
+    const uint32_t g_tile = base + L::kY + s * DK * kTileBox;
+    const float* lse2 = stats + s * 2 * kTile + 2 * tg;
+    const float* dl = lse2 + kTile;
+    float st[kNS], dpt[kNS];
+    mbar_wait(bar_x + 8 * s, parity);
+    issue_scores<DK>(st, k_own, q_tile);  // S^T = K Q^T
+    mbar_wait(bar_y + 8 * s, parity);
+    issue_scores<DK>(dpt, v_own, g_tile);  // dP^T = V dO^T
+    wgmma_wait<1>();
+    fence_regs(st);
+    // P^T: column 8 nb + 2 tg + (e & 1) is query row q0 + that
+#pragma unroll
+    for (int nb = 0; nb < kNS / 4; ++nb) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * nb);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        st[4 * nb + e] =
+            ex2(fmaf(st[4 * nb + e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+    }
+    const bool cut = q0 + kTile > a.Sq || kw + 64 > a.Sk ||
+                     (a.causal && a.q_offset + q0 < kw + 63) ||
+                     (a.window > 0 &&
+                      a.q_offset + q0 + kTile - 1 - kw >= a.window);
+    if (cut) {
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        const int row = q0 + 8 * (i >> 2) + 2 * tg + (i & 1);
+        const int key = keys[(i >> 1) & 1];
+        const int qp = a.q_offset + row;
+        bool ok = row < a.Sq && key < a.Sk;
+        if (a.causal) ok = ok && qp >= key;
+        if (a.window > 0) ok = ok && qp - key < a.window;
+        if (!ok) st[i] = 0.f;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dpt);
+#pragma unroll
+    for (int nb = 0; nb < kNS / 4; ++nb) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * nb);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[4 * nb + e] = st[4 * nb + e] *
+                          (dpt[4 * nb + e] - ((e & 1) ? d2.y : d2.x));
+    }
+    uint32_t pf[kK16][4], dsf[kK16][4];
+    to_frag(st, pf);
+    to_frag(dpt, dsf);
+    wgmma_fence();
+    issue_acc<DK>(dv, pf, g_tile);   // dV += P^T dO
+    issue_acc<DK>(dk, dsf, q_tile);  // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pf);
+    fence_regs(dsf);
+    mbar_arrive(bar_e + 8 * s);
+  }
+
+  const int hkg = a.Hkv * groups;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (keys[r] >= a.Sk) continue;
-    if (part != nullptr) {
-      const int64_t at = (((int64_t)b * a.Sk + keys[r]) * a.H + h) * D + 2 * t;
-      float* pk = part + at;
-      float* pv = part + (int64_t)a.B * a.Sk * a.H * D + at;
-#pragma unroll
-      for (int n = 0; n < 2 * DK; ++n) {
-        *reinterpret_cast<float2*>(pk + 8 * n) =
-            make_float2(dk[n][2 * r] * a.scale, dk[n][2 * r + 1] * a.scale);
-        *reinterpret_cast<float2*>(pv + 8 * n) =
-            make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
-      }
-    } else {
-      const int64_t at = (((int64_t)b * a.Sk + keys[r]) * a.Hkv + hk) * D +
-                         2 * t;
+    if (part == nullptr) {
+      const int64_t at =
+          (((int64_t)b * a.Sk + keys[r]) * a.Hkv + hk) * D + 2 * tg;
       bf* ko = static_cast<bf*>(a.dk) + at;
       bf* vo = static_cast<bf*>(a.dv) + at;
 #pragma unroll
-      for (int n = 0; n < 2 * DK; ++n) {
-        *reinterpret_cast<uint32_t*>(ko + 8 * n) =
-            pack_bf16(dk[n][2 * r] * a.scale, dk[n][2 * r + 1] * a.scale);
-        *reinterpret_cast<uint32_t*>(vo + 8 * n) =
-            pack_bf16(dv[n][2 * r], dv[n][2 * r + 1]);
+      for (int nd = 0; nd < D / 8; ++nd) {
+        *reinterpret_cast<uint32_t*>(ko + 8 * nd) =
+            pack_f32(dk[4 * nd + 2 * r] * a.scale,
+                     dk[4 * nd + 2 * r + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(vo + 8 * nd) =
+            pack_f32(dv[4 * nd + 2 * r], dv[4 * nd + 2 * r + 1]);
+      }
+    } else {
+      const int64_t at =
+          (((int64_t)b * a.Sk + keys[r]) * hkg + hg) * D + 2 * tg;
+      float* pk = part + at;
+      float* pv = part + (int64_t)a.B * a.Sk * hkg * D + at;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        *reinterpret_cast<float2*>(pk + 8 * nd) =
+            make_float2(dk[4 * nd + 2 * r] * a.scale,
+                        dk[4 * nd + 2 * r + 1] * a.scale);
+        *reinterpret_cast<float2*>(pv + 8 * nd) =
+            make_float2(dv[4 * nd + 2 * r], dv[4 * nd + 2 * r + 1]);
       }
     }
   }
 }
 
-// dk and dv (bf16) as the sums, in head order, of the H / Hkv query
-// heads' f32 partials: one thread an element of (B, Sk, Hkv, D)
+// dk and dv (bf16) as the sums, in head order, of the `groups` f32
+// partials of each kv head: four elements of (B, Sk, Hkv, D) a thread
 __global__ void __launch_bounds__(256)
-    sum_heads_kernel(const BwdArgs a, const float* part) {
-  const int64_t n = (int64_t)a.B * a.Sk * a.Hkv * a.D;
+    flash_attention_bwd_sum_heads(const BwdArgs a, const float* part,
+                                  const int groups) {
+  const int64_t n = (int64_t)a.B * a.Sk * a.Hkv * a.D / 4;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int G = a.H / a.Hkv;
-  const int d = (int)(i % a.D);
-  const int64_t bsk = i / a.D;  // (b * Sk + key) * Hkv + hk
-  const int hk = (int)(bsk % a.Hkv);
-  const int64_t bs = bsk / a.Hkv;
-  const float* pk = part + (bs * a.H + (int64_t)hk * G) * a.D + d;
-  const float* pv = pk + (int64_t)a.B * a.Sk * a.H * a.D;
-  float sk = 0.f, sv = 0.f;
-  for (int j = 0; j < G; ++j) {
-    sk += pk[(int64_t)j * a.D];
-    sv += pv[(int64_t)j * a.D];
+  const int d4 = (int)(i % (a.D / 4));
+  const int64_t bsk = i / (a.D / 4);  // (b * Sk + key) * Hkv + hk
+  const float* pk = part + bsk * groups * a.D + 4 * d4;
+  const float* pv = pk + (int64_t)a.B * a.Sk * a.Hkv * groups * a.D;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  for (int j = 0; j < groups; ++j) {
+    const float4 x = *reinterpret_cast<const float4*>(pk + (int64_t)j * a.D);
+    const float4 y = *reinterpret_cast<const float4*>(pv + (int64_t)j * a.D);
+    sk = make_float4(sk.x + x.x, sk.y + x.y, sk.z + x.z, sk.w + x.w);
+    sv = make_float4(sv.x + y.x, sv.y + y.y, sv.z + y.z, sv.w + y.w);
   }
-  static_cast<__nv_bfloat16*>(a.dk)[i] = __float2bfloat16_rn(sk);
-  static_cast<__nv_bfloat16*>(a.dv)[i] = __float2bfloat16_rn(sv);
+  const int64_t at = bsk * a.D + 4 * d4;
+  *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(a.dk) + at) =
+      make_uint2(pack_f32(sk.x, sk.y), pack_f32(sk.z, sk.w));
+  *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(a.dv) + at) =
+      make_uint2(pack_f32(sv.x, sv.y), pack_f32(sv.z, sv.w));
 }
 
 // ---- host side ----
@@ -765,27 +904,88 @@ cudaError_t launch_f32(const BwdArgs& a, cudaStream_t stream) {
   const size_t sq = (size_t)(4 * a.D * kLD + kT * kLD) * sizeof(float);
   const size_t sk =
       (size_t)(4 * a.D * kLD + 2 * kT * kLD + 2 * kT) * sizeof(float);
-  cudaError_t err = run(dq_f32_kernel<DC>, gq, kThreads, sq, stream, a);
+  cudaError_t err =
+      run(flash_attention_bwd_dq_f32<DC>, gq, kThreads, sq, stream, a);
   if (err != cudaSuccess) return err;
-  return run(dkdv_f32_kernel<DC>, gk, kThreads, sk, stream, a);
+  return run(flash_attention_bwd_dkdv_f32<DC>, gk, kThreads, sk, stream, a);
+}
+
+// query heads a dkdv block takes: all of its kv head's when that still
+// leaves 4 blocks an SM (enough for the causal band's unequal blocks to
+// even out), else the largest divisor of H / Hkv that does, else one
+constexpr int kBlocksPerSm = 4;
+
+int heads_per_block(const BwdArgs& a, int sms) {
+  const int G = a.H / a.Hkv;
+  const int64_t kblocks = (int64_t)a.B * a.Hkv * ((a.Sk + kOwn - 1) / kOwn);
+  for (int hpb = G; hpb > 1; --hpb)
+    if (G % hpb == 0 && kblocks * (G / hpb) >= kBlocksPerSm * sms) return hpb;
+  return 1;
 }
 
 template <int DK>
 cudaError_t launch_bf16(const BwdArgs& a, float* part, cudaStream_t stream) {
-  using L = MmaLayout<DK>;
-  const dim3 gq((unsigned)((a.Sq + kT - 1) / kT), (unsigned)(a.B * a.H));
-  const dim3 gk((unsigned)((a.Sk + kT - 1) / kT), (unsigned)(a.B * a.H));
-  const size_t sq = (size_t)4 * L::kRow * sizeof(__nv_bfloat16) +
-                    kT * sizeof(float);
-  const size_t sk = (size_t)4 * L::kRow * sizeof(__nv_bfloat16) +
-                    2 * kT * sizeof(float);
-  float* p = a.H == a.Hkv ? nullptr : part;
-  cudaError_t err = run(dq_bf16_kernel<DK>, gq, kMThreads, sq, stream, a);
+  // Once a thread and device: the shared-memory attributes (runtime
+  // calls, which also make the device's context current on this thread,
+  // as cuTensorMapEncodeTiled needs: autograd runs a backward on a
+  // thread of its own) and the SM count.
+  const size_t smem = BwdLayout<DK>::kBytes + 1024;
+  static thread_local int ready_on = -1, sms = 0;
+  cudaError_t err;
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (ready_on != dev) {
+    if ((err = cudaFuncSetAttribute(
+             flash_attention_bwd_dq<DK>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+            cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             flash_attention_bwd_dkdv<DK>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+            cudaSuccess ||
+        (err = cudaDeviceGetAttribute(
+             &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+    ready_on = dev;
+  }
+  // the dq kernel's maps: q and dO in kOwn-row boxes, k and v in kTile;
+  // the dkdv kernel's the other way round
+  CUtensorMap q_own, g_own, k_tile, v_tile, k_own, v_own, q_tile, g_tile;
+  if (!encode_bshd(&q_own, a.q, a.B, a.Sq, a.H, a.D, a.q_sb, a.q_ss, a.q_sh,
+                   kOwn) ||
+      !encode_bshd(&g_own, a.g, a.B, a.Sq, a.H, a.D, a.g_sb, a.g_ss, a.g_sh,
+                   kOwn) ||
+      !encode_bshd(&q_tile, a.q, a.B, a.Sq, a.H, a.D, a.q_sb, a.q_ss,
+                   a.q_sh, kTile) ||
+      !encode_bshd(&g_tile, a.g, a.B, a.Sq, a.H, a.D, a.g_sb, a.g_ss,
+                   a.g_sh, kTile) ||
+      !encode_bshd(&k_own, a.k, a.B, a.Sk, a.Hkv, a.D, a.k_sb, a.k_ss,
+                   a.k_sh, kOwn) ||
+      !encode_bshd(&v_own, a.v, a.B, a.Sk, a.Hkv, a.D, a.v_sb, a.v_ss,
+                   a.v_sh, kOwn) ||
+      !encode_bshd(&k_tile, a.k, a.B, a.Sk, a.Hkv, a.D, a.k_sb, a.k_ss,
+                   a.k_sh, kTile) ||
+      !encode_bshd(&v_tile, a.v, a.B, a.Sk, a.Hkv, a.D, a.v_sb, a.v_ss,
+                   a.v_sh, kTile))
+    return cudaErrorInvalidValue;
+  const float scale_log2 = a.scale * kLog2e;
+  const dim3 gq((unsigned)(a.B * a.H), (unsigned)((a.Sq + kOwn - 1) / kOwn));
+  flash_attention_bwd_dq<DK><<<gq, kBwdThreads, smem, stream>>>(
+      q_own, g_own, k_tile, v_tile, a, scale_log2);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = run(dkdv_bf16_kernel<DK>, gk, kMThreads, sk, stream, a, p);
+  const int hpb = heads_per_block(a, sms);
+  const int groups = a.H / a.Hkv / hpb;
+  float* p = groups == 1 ? nullptr : part;
+  const dim3 gk((unsigned)(a.B * a.Hkv * groups),
+                (unsigned)((a.Sk + kOwn - 1) / kOwn));
+  flash_attention_bwd_dkdv<DK><<<gk, kBwdThreads, smem, stream>>>(
+      k_own, v_own, q_tile, g_tile, a, scale_log2, hpb, p);
+  err = cudaGetLastError();
   if (err != cudaSuccess || p == nullptr) return err;
-  const int64_t n = (int64_t)a.B * a.Sk * a.Hkv * a.D;
-  sum_heads_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(a, p);
+  const int64_t n = (int64_t)a.B * a.Sk * a.Hkv * a.D / 4;
+  flash_attention_bwd_sum_heads<<<(unsigned)((n + 255) / 256), 256, 0,
+                                  stream>>>(a, p, groups);
   return cudaGetLastError();
 }
 
@@ -817,9 +1017,9 @@ cudaError_t launch(const BwdArgs& a, float* part, int dtype, cudaStream_t s) {
   }
 }
 
-// the layouts the bf16 kernels' 16-byte loads take: D a multiple of 16,
-// 16-byte aligned pointers, strides of the axes longer than 1 positive
-// multiples of 8 elements
+// the layouts the bf16 kernel's tensor maps describe: D a multiple of
+// 16, 16-byte aligned pointers, strides of the axes longer than 1
+// positive multiples of 8 elements below 2^39 elements
 bool bf16_ok(const BwdArgs& a) {
   if (a.D % 16 != 0) return false;
   const void* ptrs[8] = {a.q, a.k, a.v, a.o, a.g, a.dq, a.dk, a.dv};
@@ -832,21 +1032,33 @@ bool bf16_ok(const BwdArgs& a) {
                          a.Hkv, a.B, a.Sq, a.H, a.B, a.Sq, a.H};
   for (int i = 0; i < 15; ++i) {
     if (sizes[i] == 1) continue;
-    if (strides[i] <= 0 || strides[i] % 8 != 0) return false;
+    const int64_t st = strides[i];
+    if (st <= 0 || st % 8 != 0 || st >= (int64_t(1) << 39)) return false;
   }
   return true;
 }
 
 }  // namespace
 
+// The floats of f32 scratch `delta` that flash_attention_bwd_launch needs:
+// each row's (lse, D_i), padded to the dQ kernel's blocks of kOwn rows.
+extern "C" long long flash_attention_bwd_delta_floats(long long B,
+                                                      long long H,
+                                                      long long Sq) {
+  return B * H * 2 * ((Sq + kOwn - 1) / kOwn * kOwn);
+}
+
 // dims: B, H, Hkv, Sq, Sk, D, causal, window, q_offset, then the element
-// strides of (batch, seq, head) of q, k, v, o and dO (24 values). lse is
-// the forward's (B, H, Sq) f32 logsumexp; delta is (B, H, Sq) f32 scratch;
-// part, for bf16 with H > Hkv, 2 x (B, Sk, H, D) f32 scratch (else unused).
-// dq (B, Sq, H, D) and dk, dv (B, Sk, Hkv, D) are contiguous, of the
-// inputs' dtype: 0 = f32, 1 = bf16. Two launches on `stream`. Returns the
-// CUDA error of the launches (0 on success); cudaErrorInvalidValue for a
-// shape or a bf16 layout that the kernels do not take.
+// strides of (batch, seq, head) of q, k, v, o and dO, then delta's length
+// in floats (25 values). lse is the forward's (B, H, Sq) f32 logsumexp;
+// delta is f32 scratch of at least flash_attention_bwd_delta_floats
+// floats, and a shorter one is refused; part, for
+// bf16 with H > Hkv, 2 x (B, Sk, H, D) f32 scratch (else unused). dq
+// (B, Sq, H, D) and dk, dv (B, Sk, Hkv, D) are contiguous, of the
+// inputs' dtype: 0 = f32, 1 = bf16. Two or three launches on `stream`.
+// Returns the CUDA error of the launches (0 on success);
+// cudaErrorInvalidValue for a shape or a bf16 layout that the kernels do
+// not take.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k,
                                           const void* v, const void* o,
                                           const void* dout, const float* lse,
@@ -874,6 +1086,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k,
   a.causal = (int)dims[6];
   a.window = (int)dims[7];
   a.q_offset = (int)dims[8];
+  a.Sq_pad = (a.Sq + kOwn - 1) / kOwn * kOwn;
   int64_t* st[15] = {&a.q_sb, &a.q_ss, &a.q_sh, &a.k_sb, &a.k_ss,
                      &a.k_sh, &a.v_sb, &a.v_ss, &a.v_sh, &a.o_sb,
                      &a.o_ss, &a.o_sh, &a.g_sb, &a.g_ss, &a.g_sh};
@@ -881,7 +1094,8 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k,
   // the forward's scale: the f32 rounding of 1/sqrt(D)
   a.scale = (float)(1.0 / sqrt((double)a.D));
   if (a.D < 1 || a.D > kMaxD || a.Hkv < 1 || a.H % a.Hkv != 0 ||
-      a.Sq < 1 || a.Sk < 1 || a.q_offset < 0 || a.B * a.H > 65535)
+      a.Sq < 1 || a.Sk < 1 || a.q_offset < 0 || a.B * a.H > 65535 ||
+      dims[24] < flash_attention_bwd_delta_floats(a.B, a.H, a.Sq))
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && !bf16_ok(a)) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;

@@ -29,11 +29,12 @@ Training: on a CUDA tensor both wrappers go through one
 ``torch.autograd.Function``. Its forward launches the kernel and, when
 an input requires grad, has it also write each query row's logsumexp
 (f32, (B, H, Sq)); its backward launches ``csrc/flash_attention_bwd.cu``
-(FlashAttention-2's scheme: P recomputed from that logsumexp tile by
-tile, dQ by query block, dK/dV by key block and query head with the
-heads' partials summed in order, no atomics), which is the
-port's counterpart of the reference's XLA autodiff of its plain
-attention (the TPU kernel has no backward). The backward takes the
+(P recomputed from that logsumexp tile by tile, dQ by query block,
+dK/dV by key block, no atomics; bf16 as the forward, TMA-fed ``wgmma``,
+a kv head's query heads in one block or in groups whose partials a
+third kernel sums in head order), which is the port's counterpart of
+the reference's XLA autodiff of its plain attention (the TPU kernel has
+no backward). The backward takes the
 layouts the forward takes (bf16: :func:`bf16_refusal`); a query row with
 no valid key (a window shorter than its distance past the last key) is
 outside what either kernel matches. Inference calls never ask for the
@@ -44,7 +45,7 @@ On a CPU tensor each wrapper takes its plain version
 CUDA tensor it launches the kernel or raises; nothing falls back.
 ``launches`` counts forward launches and ``bwd_launches`` backward
 launches (one a backward call, which is two kernels: dQ with the row
-sums D_i, then dK and dV; a third sums bf16 GQA heads), never
+sums D_i, then dK and dV; a third sums bf16 GQA head groups), never
 plain-version calls.
 """
 from __future__ import annotations
@@ -78,15 +79,22 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/flash_attention_bwd.cu``) with its C
+    signatures."""
+    p, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.flash_attention_bwd_launch.argtypes = [
+        p] * 11 + [ctypes.POINTER(ll), ctypes.c_int, p]
+    lib.flash_attention_bwd_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_delta_floats.argtypes = [ll] * 3
+    lib.flash_attention_bwd_delta_floats.restype = ll
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_library() -> ctypes.CDLL:
     """The backward kernel's library, built on first use."""
-    lib = _build.load("flash_attention_bwd")
-    p = ctypes.c_void_p
-    lib.flash_attention_bwd_launch.argtypes = [
-        p] * 11 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, p]
-    lib.flash_attention_bwd_launch.restype = ctypes.c_int
-    return lib
+    return bind_bwd(_build.load("flash_attention_bwd"))
 
 
 def bf16_refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -188,15 +196,20 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    # bf16 with GQA: each query head's f32 dK and dV partials, summed in
-    # head order by the third kernel
+    lib = _bwd_library()
+    # each row's D_i (f32), or its (lse, D_i) padded to the bf16 dQ
+    # kernel's blocks, at the length the library asks for
+    delta = torch.empty(lib.flash_attention_bwd_delta_floats(B, H, Sq),
+                        dtype=torch.float32, device=q.device)
+    # bf16 with GQA: f32 dK and dV partials of groups of a kv head's
+    # query heads (at most one group a head), summed in head order by
+    # the third kernel
     part = None
     if q.dtype == torch.bfloat16 and H != k.shape[2]:
         part = torch.empty((2, B, k.shape[1], H, q.shape[3]),
                            dtype=torch.float32, device=q.device)
-    dims = _dims(q, k, causal, window, q_offset, q, k, v, out, dout)
-    lib = _bwd_library()
+    dims = _dims(q, k, causal, window, q_offset, q, k, v, out, dout) + [
+        delta.numel()]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_bwd_launch(

@@ -16,6 +16,8 @@ per-row logsumexp asked for only when an input requires grad, gradients
 of the (BH, S, D) wrapper through its views), and the bf16 kernel's
 roundings (P and dS to bf16 before their second product, f32 sums) are
 emulated and held to the card check's 2e-2 of the largest gradient.
+The kernels' library is named by the hash of the source and its shared
+headers.
 """
 import math
 
@@ -215,13 +217,17 @@ def test_function_through_the_bh_views(plain_launches):
 # ---------------------------------------------------------------------------
 
 def _bwd_bf16_emulated(q, k, v, o, g, lse, *, causal, window, q_offset):
-    """The bf16 kernels' arithmetic in plain torch: bf16 operands, f32
-    sums, P rounded to bf16 before dV = Pᵀ dO and dS rounded to bf16
-    before dQ = dS K and dK = dSᵀ Q, D_i from the bf16 o and dO."""
+    """The bf16 kernel's arithmetic in plain torch: bf16 operands, f32
+    sums, P = 2^(s · scale log2(e) − lse log2(e)) in f32 (the log2
+    domain the kernel works in), P rounded to bf16 before dV = Pᵀ dO and
+    dS rounded to bf16 before dQ = dS K and dK = dSᵀ Q, D_i from the
+    bf16 o and dO."""
     f32, bf = torch.float32, torch.bfloat16
     B, Sq, H, D = q.shape
     G = H // k.shape[2]
     scale = float(np.float32(1.0 / math.sqrt(D)))
+    log2e = float(np.float32(math.log2(math.e)))
+    scale_log2 = float(np.float32(scale) * np.float32(log2e))
     qf, gf, of = (t.to(f32) for t in (q, g, o))
     kf = torch.repeat_interleave(k.to(f32), G, 2)
     vf = torch.repeat_interleave(v.to(f32), G, 2)
@@ -233,7 +239,7 @@ def _bwd_bf16_emulated(q, k, v, o, g, lse, *, causal, window, q_offset):
         ok &= qp[:, None] >= kp[None]
     if window:
         ok &= qp[:, None] - kp[None] < window
-    p = torch.where(ok, torch.exp(s * scale - lse[..., None]),
+    p = torch.where(ok, torch.exp2(s * scale_log2 - (lse * log2e)[..., None]),
                     torch.zeros(()))
     delta = (gf * of).sum(-1).transpose(1, 2)
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", gf, vf) - delta[..., None])
@@ -247,10 +253,20 @@ def _bwd_bf16_emulated(q, k, v, o, g, lse, *, causal, window, q_offset):
     return dq.to(bf), dk.to(bf), dv.to(bf)
 
 
-def test_bf16_roundings_within_the_card_check():
-    """At qwen2-0.5b's heads (14 over 2 of 64), causal, the bf16 kernel's
-    roundings keep each gradient within 2e-2 of its largest entry."""
-    shape = (1, 256, 256, 14, 2, 64, True, 0, 0)
+#: qwen2-0.5b's heads (14 over 2 of 64), causal; D = 128 with GQA 4/1 and
+#: a window (the MoE and VLM families' head size); a non-causal
+#: cross-attention with Sq != Sk (whisper's decoder over its frames)
+ROUNDING_SHAPES = [(1, 256, 256, 14, 2, 64, True, 0, 0),
+                   (1, 256, 256, 4, 1, 128, True, 96, 0),
+                   (2, 96, 300, 4, 4, 64, False, 0, 0)]
+
+
+@pytest.mark.parametrize("shape", ROUNDING_SHAPES,
+                         ids=["qwen2-H14/2-D64", "D128-H4/1-w96",
+                              "cross-Sq96-Sk300"])
+def test_bf16_roundings_within_the_card_check(shape):
+    """The bf16 kernel's roundings keep each gradient within 2e-2 of its
+    largest entry (the card check's tolerance)."""
     q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16)
                   for a in _inputs(shape, 9))
     mask = _mask(shape)
@@ -262,6 +278,24 @@ def test_bf16_roundings_within_the_card_check():
     for a, b in zip(got, exp):
         err = float((a.float() - b).abs().max())
         assert err <= 2e-2 * float(b.abs().max()), err
+
+
+def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel's library is named by its source and every csrc/*.cuh
+    header, so an edited header (hopper.cuh, which both attention
+    sources include) builds a new library instead of loading a stale
+    one."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = _build.library_path("k")
+    assert second != first and second.parent == _build.BUILD
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert _build.library_path("k") not in (first, second)
 
 
 @pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[5]], ids=[IDS[0],
