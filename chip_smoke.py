@@ -131,6 +131,25 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  ranks), a rank's bytes by collective, peak by rank. (c)
                  2 of the 24 layers at full width in f32: one round on
                  the card against the CPU within 1e-4 (TF32 off).
+7d. lm_train_families — the same trainer and launcher defaults for
+                 whisper-medium (whole, 2 x (1500 frames + 448 tokens)),
+                 mixtral-8x7b (3 of 32 layers, 1 x 8192, window 4096)
+                 and pixtral-12b (12 of 40 layers, 1 x (1024 patches +
+                 3072 tokens)) at full width, bf16 from a seeded
+                 generator on the card (the cuts: LM_TRAIN_FAMILIES),
+                 one replica in a world of one, 2 rounds each: params
+                 (asserted) and GB after init, that the launcher's
+                 expanded frames and patches reach the model dense,
+                 seconds, local-step positions a second, loss and peak
+                 a round, a held-out batch's loss before and after,
+                 mixtral's dropped assignments a MoE layer in the first
+                 step, B4 forward and backward launches a local step
+                 (72 + 72, 3 + 3, 12 + 12: asserted), one profiled local
+                 step by part. Then one f32 round on the card against
+                 the CPU within 1e-4 (TF32 off) for whisper-medium at
+                 full width and 2 + 2 layers and for the reduced
+                 mixtral, llama4-maverick and pixtral, B4's launches
+                 asserted (none on the CPU).
 8. lm decode  — the same model in f32: the kernel forward's logits over
                  2 x 512 tokens against 512 decode steps (no kernel),
                  within the reference's atol = rtol = 0.05; then the
@@ -296,6 +315,39 @@ LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_ROUNDS = 4, 2048, 3
 LM_TRAIN_RANKS, LM_TRAIN_RANK_BATCH, LM_TRAIN_RANK_SEQ = 4, 2, 1024
 #: (c): card against CPU, 2 of the 24 layers at full width in f32
 LM_TRAIN_PARITY_LAYERS, LM_TRAIN_PARITY_SEQ = 2, 256
+#: phase 7d: federated training of the MoE, encoder-decoder and VLM
+#: families at full width (bf16, seeded generator on the card), one
+#: replica in a world of one at the launcher's defaults: arch -> (layers
+#: run, None for all; batch; text tokens a row; params, asserted).
+#: The peak at the SGD update is 12 bytes a parameter (bf16 params and
+#: grads, f32 mu and the f32 update tree ``lr * mu``) plus the f32 copy
+#: of the largest gradient leaf: whisper-medium is whole (9.7 GB), and
+#: mixtral-8x7b (1,451,270,144 params a layer, 262,148,096 outside) is
+#: cut to 3 of 32 layers (55.4 GB; 4 would need 72.8). The backward
+#: peaks higher, holding each layer's gradients and their stacked copy:
+#: 64.7 GB for mixtral, and 72.8 GB for pixtral-12b at 14 layers
+#: (272,640,000 params a layer, 1,368,396,800 outside; 62.2 GB at the
+#: update), whose second round then ran out of memory with 11.7 GiB
+#: cached in pieces too small for the update's 2.5 GiB embedding leaf.
+#: So pixtral is cut to 12 of 40 layers, 55.7 GB at the update, where
+#: mixtral's 55.4 GB trained with room (PERF.md section 4)
+LM_TRAIN_FAMILIES = {
+    "whisper-medium": (None, 2, 448, 811_569_152),
+    "mixtral-8x7b": (3, 1, 8192, 3 * 1_451_270_144 + 262_148_096),
+    "pixtral-12b": (12, 1, 3072, 12 * 272_640_000 + 1_368_396_800),
+}
+LM_TRAIN_FAMILY_ROUNDS = 2
+#: (c) card against CPU in f32, one round each: arch -> (reduced, layers
+#: (encdec: encoder and decoder), batch, text tokens a row). whisper at
+#: full width and 2 + 2 layers; at full width the others' f32 state
+#: would pass 20 GB of host memory, so they run reduced (llama4's
+#: reduced window of 64 binds at 128 tokens)
+LM_TRAIN_FAMILY_PARITY = {
+    "whisper-medium": (False, 2, 1, 256),
+    "mixtral-8x7b": (True, 2, 2, 128),
+    "llama4-maverick-400b-a17b": (True, 2, 2, 128),
+    "pixtral-12b": (True, 2, 2, 120),
+}
 #: the MoE, encoder-decoder and VLM prefills at full width: arch ->
 #: (layers run, None for all; batch; text tokens; B4 launches a
 #: forward). mixtral's 32 layers of experts (93 GB in bf16) and
@@ -3173,9 +3225,39 @@ def _lm_train_rank(flag_sets) -> list:
     return out
 
 
+def _train_parity(dev: torch.device, exp, batch):
+    """One global round of ``exp`` (f32) in a world of one on the card
+    and on the CPU from the same seeded init (``Generator`` seed 3, on
+    the CPU) and ``batch``: the params' max abs difference, then (loss,
+    seconds, (B4 forward, backward launches)) on the card and on the
+    CPU."""
+    from repro_torch import tree as tr
+    from repro_torch.core.sharded import ShardedCEFedAvg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models import model as mdl
+    init = mdl.init_model(torch.Generator().manual_seed(3), exp.model, "cpu")
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        with lm.single_rank_world("gloo", where) as mesh:
+            trn = ShardedCEFedAvg(exp, mesh)
+            params = tr.tree_map(lambda t: t.to(where), init)
+            opt = trn.opt_init(params)
+            fa.launches = fa.bwd_launches = 0
+            t0 = time.perf_counter()
+            params, opt, metrics, _ = trn.make_global_round()(
+                params, opt, batch, 0)
+            out[where.type] = (tr.tree_map(lambda t: t.cpu(), params),
+                               (metrics["loss"], time.perf_counter() - t0,
+                                (fa.launches, fa.bwd_launches)))
+    (pc, card), (ph, host) = out["cuda"], out["cpu"]
+    err = max(float((a - b).abs().max()) for a, b in
+              zip(tr.tree_leaves(pc), tr.tree_leaves(ph)))
+    return err, card, host
+
+
 def phase_lm_train(dev: torch.device):
     """Returns B4's forward and backward launches in (a)."""
-    from repro_torch import tree as tr
     from repro_torch.core.sharded import ShardedCEFedAvg
     from repro_torch.data.lm import learnable_lm_batch
     from repro_torch.kernels import flash_attention as fa
@@ -3299,26 +3381,10 @@ def phase_lm_train(dev: torch.device):
     # (c) card against CPU: 2 layers at full width in f32, one round
     pcfg = dataclasses.replace(cfg, num_layers=LM_TRAIN_PARITY_LAYERS,
                                dtype="float32", param_dtype="float32")
-    pexp = dataclasses.replace(exp, model=pcfg)
-    init = mdl.init_model(torch.Generator().manual_seed(3), pcfg, "cpu")
     batch = learnable_lm_batch((fl.q, fl.tau, 1, 1, LM_TRAIN_PARITY_SEQ),
                                pcfg.vocab_size, seed=7)
-    out = {}
-    for where in (dev, torch.device("cpu")):
-        with lm.single_rank_world("gloo", where) as mesh:
-            trn = ShardedCEFedAvg(pexp, mesh)
-            params = tr.tree_map(lambda t: t.to(where), init)
-            opt = trn.opt_init(params)
-            fa.launches = fa.bwd_launches = 0
-            t0 = time.perf_counter()
-            params, opt, metrics, _ = trn.make_global_round()(
-                params, opt, batch, 0)
-            out[where.type] = (tr.tree_map(lambda t: t.cpu(), params),
-                               metrics["loss"], time.perf_counter() - t0,
-                               (fa.launches, fa.bwd_launches))
-    (pc, lc, sc, nc), (ph, lh, sh, nh) = out["cuda"], out["cpu"]
-    err = max(float((a - b).abs().max()) for a, b in
-              zip(tr.tree_leaves(pc), tr.tree_leaves(ph)))
+    err, (lc, sc, nc), (lh, sh, nh) = _train_parity(
+        dev, dataclasses.replace(exp, model=pcfg), batch)
     log(f"[lm_train] parity: {LM_TRAIN_PARITY_LAYERS} of {cfg.num_layers} "
         f"layers at full width in f32, one round of 1 x "
         f"{LM_TRAIN_PARITY_SEQ} tokens a step: card ({sc:.2f} s; B4 "
@@ -3330,6 +3396,226 @@ def phase_lm_train(dev: torch.device):
     assert nc == (LM_TRAIN_PARITY_LAYERS * steps,) * 2 and nh == (0, 0), \
         (nc, nh)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7d: federated training of the MoE, encoder-decoder and VLM
+# families at full width
+# ---------------------------------------------------------------------------
+
+def _attention_calls(cfg) -> int:
+    """Attention calls a forward of ``cfg`` makes, B4's launches a local
+    step each way: whisper's encoder self, decoder self and cross
+    attention; one a layer otherwise (llama4 counts a pair as 2
+    layers)."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+def _extra_input(cfg) -> tuple:
+    """The batch key and length of the positions a family feeds besides
+    its tokens: encdec frames, vlm patch embeddings; (None, 0)
+    otherwise."""
+    return {"encdec": ("frames", cfg.encoder_seq),
+            "vlm": ("patch_embeds", cfg.num_patches)}.get(cfg.family,
+                                                         (None, 0))
+
+
+def _train_family_batch(cfg, lead, S: int, dev, seed: int) -> dict:
+    """Tokens and labels ``lead + (S,)`` of the reference example's
+    learnable stream, plus encdec frames or vlm patch embeddings (seeded
+    normals x 0.02 in the config's dtype, made on ``dev``)."""
+    from repro_torch.data.lm import learnable_lm_batch
+    batch = learnable_lm_batch(tuple(lead) + (S,), cfg.vocab_size,
+                               seed=seed)
+    key, n = _extra_input(cfg)
+    if key is not None:
+        gen = torch.Generator(dev).manual_seed(seed)
+        batch[key] = (torch.randn(tuple(lead) + (n, cfg.d_model),
+                                  device=dev, generator=gen) * 0.02
+                      ).to(getattr(torch, cfg.dtype))
+    return batch
+
+
+def phase_lm_train_families(dev: torch.device) -> tuple:
+    """Federated training (``ShardedCEFedAvg``, one replica in a world of
+    one, the launcher's defaults: tau 2, q 2, pi 4, SGD momentum 0.9 at
+    lr 0.05) of whisper-medium (whole: 24 + 24 layers, 2 x (1500 frames
+    + 448 tokens) a local step), mixtral-8x7b (3 of 32 layers, 1 x 8192:
+    the 4096 window binds) and pixtral-12b (12 of 40 layers, 1 x (1024
+    patches + 3072 tokens)) at full width, bf16 from a seeded generator
+    on the card, on the example's learnable stream; the cuts and why
+    are LM_TRAIN_FAMILIES'. For each: params (asserted) and GB after
+    init;
+    that the launcher's expanded frames or patches reach the model
+    dense; 2 rounds (the first warms up): seconds, local-step tokens
+    (positions) a second, loss, peak; a held-out batch's loss before and
+    after; mixtral's dropped assignments a MoE layer in the first step;
+    B4's forward and backward launches a local step (asserted against
+    the config); one profiled local step by part. Then (c) one f32 round
+    on the card against the CPU (LM_TRAIN_FAMILY_PARITY) within
+    LM_PARITY_TOL, B4's launches asserted (none on the CPU). Returns
+    B4's forward and backward launches of the bf16 rounds."""
+    import gc
+    from repro_torch.configs import get_model_config
+    from repro_torch.core.sharded import ShardedCEFedAvg
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import train
+    from repro_torch.models import model as mdl
+
+    total = [0, 0]
+    for arch, (layers, B, S, want_n) in LM_TRAIN_FAMILIES.items():
+        tag = f"lm_train_families {arch}"
+        args = train._parser().parse_args(
+            ["--arch", arch, "--batch", str(B), "--seq", str(S),
+             "--dist-backend", "gloo"])
+        exp = train.lm_experiment(args)
+        cut = layers is not None
+        if cut:
+            exp = dataclasses.replace(exp, model=dataclasses.replace(
+                exp.model, num_layers=layers))
+        fl, cfg = exp.fl, exp.model
+        key, extra = _extra_input(cfg)
+        steps = fl.q * fl.tau
+        positions = steps * B * (S + extra)
+        calls = _attention_calls(cfg)
+        held = {k: torch.as_tensor(v).to(dev) for k, v in
+                _train_family_batch(cfg, (B,), S, dev, seed=1000).items()}
+
+        def held_out(params) -> float:
+            """The loss on one batch the rounds never see (no grad)."""
+            with torch.no_grad():
+                return float(mdl.lm_loss(cfg, params, held))
+
+        with lm.single_rank_world("gloo", dev) as mesh:
+            trn = ShardedCEFedAvg(exp, mesh)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            params, opt = trn.init_fn()(0)
+            torch.cuda.synchronize()
+            n = mdl.param_count(params)
+            log(f"[{tag}] {n:,} params ({cfg.family}, {cfg.param_dtype}, "
+                + (f"{cfg.encoder_layers} encoder + " if key == "frames"
+                   else "")
+                + f"{cfg.num_layers} layers{' (cut)' if cut else ''}, "
+                f"d_model {cfg.d_model}, heads {cfg.num_heads}/"
+                f"{cfg.num_kv_heads} of {cfg.resolved_head_dim}, vocab "
+                f"{cfg.vocab_size}); "
+                f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB on the "
+                f"card after init ({time.perf_counter() - t0:.2f} s, peak "
+                f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB); "
+                f"tau {fl.tau}, q {fl.q}, pi {fl.pi}, SGD momentum "
+                f"{exp.train.momentum} at lr {exp.train.learning_rate}; "
+                f"{B} x ({f'{extra} + ' if extra else ''}{S}) positions "
+                f"a local step")
+            assert n == want_n, (arch, n)
+            if key is not None:
+                # the launcher's zero frames / patches are expanded views
+                # (stride 0): they reach the model as dense tensors
+                fed = trn._on_device(train.lm_round_batch(
+                    TokenStream(cfg.vocab_size, 1, trn.geo.cluster_of),
+                    cfg, fl.q, fl.tau, B, S))[key]
+                assert fed.is_contiguous() and 0 not in fed.stride(), \
+                    fed.stride()
+                del fed
+            before = held_out(params)
+            batches = [_train_family_batch(cfg, (fl.q, fl.tau, 1, B), S,
+                                           dev, seed=r)
+                       for r in range(LM_TRAIN_FAMILY_ROUNDS)]
+            dropped = []
+            if cfg.family == "moe":
+                # the first local step's routing: its microbatch through
+                # the params it starts from
+                drops = []
+                with torch.no_grad():
+                    mb = {k: v[0, 0] for k, v in
+                          trn._on_device(batches[0]).items()}
+                    mdl.forward(cfg, params, mb, drops=drops)
+                dropped = [int(d) for d in drops]
+                del mb
+                assert len(dropped) == _moe_layers(cfg), dropped
+            round_fn = trn.make_global_round()
+            step, losses = 0, []
+            fa.launches = fa.bwd_launches = 0
+            for r, batch in enumerate(batches):
+                torch.cuda.reset_peak_memory_stats(dev)
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, metrics, step = round_fn(params, opt, batch,
+                                                      step)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                losses.append(metrics["loss"])
+                log(f"[{tag}] round {r}: {sec:.3f} s, "
+                    f"{positions / sec:,.0f} local-step positions/s, loss "
+                    f"{metrics['loss']:.4f}, peak device memory "
+                    f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+                    f"({torch.cuda.max_memory_reserved(dev) / 1e9:.2f} GB "
+                    f"reserved)")
+            launches = (fa.launches, fa.bwd_launches)
+            after = held_out(params)
+            n_steps = steps * LM_TRAIN_FAMILY_ROUNDS
+            log(f"[{tag}] {n_steps} local steps: flash_attention launches "
+                f"{launches[0]}, flash_attention_bwd {launches[1]} (want "
+                f"{calls} + {calls} a step); round loss "
+                f"{' -> '.join(f'{x:.4f}' for x in losses)}, held-out "
+                f"batch {before:.4f} -> {after:.4f} (ln V = "
+                f"{math.log(cfg.vocab_size):.2f})"
+                + (f"; dropped assignments a MoE layer in the first step "
+                   f"{dropped} of {B * S * cfg.experts_per_token:,}"
+                   if dropped else ""))
+            assert launches == (calls * n_steps,) * 2, launches
+            assert all(math.isfinite(x) for x in losses + [before, after])
+            total[0] += launches[0]
+            total[1] += launches[1]
+
+            # one local step under the profiler
+            local = trn.make_local_step()
+            params, opt, _, step = local(params, opt, held, step)  # warm
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, opt, _, step = local(params, opt, held, step)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            log(f"[{tag}] one local step under the profiler: {wall:.3f} s "
+                f"({B * (S + extra) / wall:,.0f} positions/s)")
+            _train_breakdown(prof, wall, tag)
+            del params, opt, prof, trn, round_fn, local, batches, held
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) card against CPU in f32, one round each
+    for arch, (reduced, layers, B, S) in LM_TRAIN_FAMILY_PARITY.items():
+        cfg = get_model_config(arch)
+        if reduced:
+            cfg, what = cfg.reduced(), "reduced"
+        else:
+            cfg = dataclasses.replace(
+                cfg, num_layers=layers, encoder_layers=layers,
+                dtype="float32", param_dtype="float32")
+            what = f"{layers} + {layers} layers at full width"
+        exp = train.lm_experiment(train._parser().parse_args(
+            ["--arch", arch, "--dist-backend", "gloo"]))
+        exp = dataclasses.replace(exp, model=cfg)
+        fl = exp.fl
+        batch = _train_family_batch(cfg, (fl.q, fl.tau, 1, B), S,
+                                    torch.device("cpu"), seed=7)
+        err, (lc, sc, nc), (lh, sh, nh) = _train_parity(dev, exp, batch)
+        log(f"[lm_train_families] parity: {arch} ({what}, f32), one round "
+            f"of {B} x {S} tokens a step: card ({sc:.2f} s; B4 forward "
+            f"x{nc[0]}, backward x{nc[1]}) vs CPU ({sh:.2f} s, plain, "
+            f"x{nh[0]}) params max abs diff {err:.3e}, loss {lc:.6f} vs "
+            f"{lh:.6f} (atol {LM_PARITY_TOL}, TF32 off)")
+        assert err <= LM_PARITY_TOL and abs(lc - lh) <= LM_PARITY_TOL, arch
+        want = _attention_calls(cfg) * fl.q * fl.tau
+        assert nc == (want, want) and nh == (0, 0), (arch, nc, nh)
+    return tuple(total)
 
 
 
@@ -3377,11 +3663,16 @@ def main() -> int:
     family_attn = phase_lm_families(dev)
     phase_start(dev, "lm_train")
     train_attn, attn_bwd["launches"] = phase_lm_train(dev)
+    phase_start(dev, "lm_train_families")
+    fam_train_attn, fam_train_bwd = phase_lm_train_families(dev)
     log(f"[done] flash_attention launches: zamba2-2.7b prefill "
         f"{attn['launches']}, the four family prefills {family_attn}, "
-        f"qwen2-0.5b training {train_attn}; flash_attention_bwd launches "
-        f"in training {attn_bwd['launches']}")
-    attn["launches"] += family_attn + train_attn
+        f"qwen2-0.5b training {train_attn}, the three families' training "
+        f"{fam_train_attn}; flash_attention_bwd launches in training "
+        f"{attn_bwd['launches']} (qwen2-0.5b) + {fam_train_bwd} (the "
+        f"families)")
+    attn["launches"] += family_attn + train_attn + fam_train_attn
+    attn_bwd["launches"] += fam_train_bwd
     phase_start(dev, "lm decode")
     phase_lm_decode(dev)
     phase_lm_decode_families(dev)

@@ -35,3 +35,16 @@ def test_topology_study_twin_prints_the_reference_traffic(capsys):
     assert len(ref) == len(rows) == 4
     assert port == ref
     assert all(0.0 <= r["acc"] <= 1.0 for r in rows)
+
+
+def test_serve_batched_twin_serves_on_the_cpu(capsys):
+    """``examples/serve_batched_torch.py`` (twin of
+    ``examples/serve_batched.py``) with ``--device cpu``: reduced
+    qwen2-0.5b and mamba2-2.7b, 16 prompt and 8 decoded tokens a row,
+    finite logits."""
+    out = _load("serve_batched_torch").main(device="cpu")
+    assert set(out) == {"qwen2-0.5b", "mamba2-2.7b"}
+    for res in out.values():
+        assert res["finite"] and tuple(res["tokens"].shape) == (2, 9)
+    text = capsys.readouterr().out
+    assert "serving mamba2-2.7b (reduced)" in text and "device=cpu" in text

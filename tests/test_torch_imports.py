@@ -23,6 +23,7 @@ STANDALONE = [os.path.join(REPO, "chip_smoke.py"),
               os.path.join(REPO, "examples", "quickstart_torch.py"),
               os.path.join(REPO, "examples",
                            "compressed_federated_torch.py"),
+              os.path.join(REPO, "examples", "serve_batched_torch.py"),
               os.path.join(REPO, "examples", "topology_study_torch.py"),
               os.path.join(REPO, "examples", "train_lm_federated_torch.py")]
 

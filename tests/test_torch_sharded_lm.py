@@ -41,6 +41,7 @@ from repro.core.sharded import ShardedCEFedAvg as RSharded
 from repro.core.sharded import stacked_abstract as r_stacked
 from repro.models import model as rm
 from repro_torch import tree as tr
+from repro_torch.configs import ARCHS
 from repro_torch.convert import tree_from_numpy
 from repro_torch.core import sharded as ts
 from repro_torch.launch import mesh as lm
@@ -192,26 +193,20 @@ def test_launcher_rounds_and_checkpoint(ranks):
 # in this process
 # ---------------------------------------------------------------------------
 
-def test_world_of_one_matches_reference_trainer():
-    """The port's trainer in a world of one against the reference's on a
-    1 x 1 mesh: 2 rounds of SGD with momentum 0.9, params and loss."""
-    from repro_torch.data.lm import synthetic_lm_batch
-    name = "simulator"
-    rexp = dataclasses.replace(
-        cases.lm_experiment("repro", name),
-        fl=dataclasses.replace(cases.lm_experiment("repro", name).fl,
-                               num_clusters=1, devices_per_cluster=1))
-    rexp = dataclasses.replace(rexp, train=dataclasses.replace(
-        rexp.train, momentum=0.9, learning_rate=0.05))
-    texp = cases.lm_experiment("repro_torch", name)
-    texp = dataclasses.replace(
-        texp, fl=dataclasses.replace(texp.fl, num_clusters=1,
-                                     devices_per_cluster=1),
-        train=dataclasses.replace(texp.train, momentum=0.9,
+def _sgd_momentum(exp):
+    """``exp`` in a world of one: 1 cluster of 1, SGD with momentum 0.9
+    at lr 0.05."""
+    return dataclasses.replace(
+        exp, fl=dataclasses.replace(exp.fl, num_clusters=1,
+                                    devices_per_cluster=1),
+        train=dataclasses.replace(exp.train, momentum=0.9,
                                   learning_rate=0.05))
-    batches = [synthetic_lm_batch((2, 2, 1, 2, 16),
-                                  texp.model.vocab_size, seed=s)
-               for s in (1, 2)]
+
+
+def _world_of_one(rexp, texp, batches):
+    """The port's trainer in a world of one against the reference's on a
+    1 x 1 mesh, a round a batch, from the reference's init: loss, params
+    and ``mu`` within TOL."""
     mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1),
                 ("data", "model"))
     rtr = RSharded(rexp, mesh)
@@ -235,32 +230,93 @@ def test_world_of_one_matches_reference_trainer():
         for b in batches:
             params, opt, m, step = round_fn(params, opt, b, step)
             tlosses.append(m["loss"])
-    assert step == int(rtr.fl.q * rtr.fl.tau * 2)
+    assert step == int(rtr.fl.q * rtr.fl.tau * len(batches))
     np.testing.assert_allclose(tlosses, rlosses, atol=TOL, rtol=0)
     gap = _gap([t.numpy() for t in tr.tree_leaves(params)],
                [a[0] for a in jax.tree.leaves(jax.device_get(rp))])
-    print(f"world of one: max abs gap to the reference trainer {gap:.3e}")
+    print(f"{texp.model.name}, world of one: max abs gap to the reference "
+          f"trainer {gap:.3e}")
     assert gap < TOL
     mu = _gap([t.numpy() for t in tr.tree_leaves(opt["mu"])],
               [a[0] for a in jax.tree.leaves(jax.device_get(ro["mu"]))])
     assert mu < TOL
+    return host
 
 
-def test_abstract_shapes_match_reference():
+def test_world_of_one_matches_reference_trainer():
+    """The port's trainer in a world of one against the reference's on a
+    1 x 1 mesh: 2 rounds of SGD with momentum 0.9, params and loss."""
+    from repro_torch.data.lm import synthetic_lm_batch
+    name = "simulator"
+    texp = _sgd_momentum(cases.lm_experiment("repro_torch", name))
+    batches = [synthetic_lm_batch((2, 2, 1, 2, 16),
+                                  texp.model.vocab_size, seed=s)
+               for s in (1, 2)]
+    _world_of_one(_sgd_momentum(cases.lm_experiment("repro", name)), texp,
+                  batches)
+
+
+#: the families' worlds of one: arch -> ``reduced`` overrides (mixtral's
+#: capacity binds: both rounds drop assignments)
+FAMILY_WORLDS = {"mixtral-8x7b": dict(capacity_factor=0.5),
+                 "whisper-medium": {}}
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_WORLDS))
+def test_world_of_one_families_match_reference_trainer(arch):
+    """The MoE (binding capacity) and encoder-decoder (the ``frames``
+    batch key) families through both trainers: 2 rounds of SGD with
+    momentum 0.9 at lr 0.05, loss, params and ``mu`` within TOL."""
+    from repro.config import ExperimentConfig as RExp
+    from repro.configs import get_model_config as rcfg
+    from repro_torch.config import ExperimentConfig as TExp
+    from repro_torch.configs import get_model_config as tcfg
+    from repro_torch.data.lm import synthetic_lm_batch
+    from repro_torch.models import model as tm
+    kw = FAMILY_WORLDS[arch]
+    fl = dict(num_clusters=1, devices_per_cluster=1, tau=2, q=2, pi=2)
+    rexp = _sgd_momentum(RExp(model=rcfg(arch).reduced(**kw)))
+    rexp = dataclasses.replace(rexp, fl=dataclasses.replace(rexp.fl, **fl))
+    texp = _sgd_momentum(TExp(model=tcfg(arch).reduced(**kw)))
+    texp = dataclasses.replace(texp, fl=dataclasses.replace(texp.fl, **fl))
+    cfg = texp.model
+    lead = (fl["q"], fl["tau"], 1, 2)
+    batches = []
+    for s in (1, 2):
+        b = synthetic_lm_batch(lead + (16,), cfg.vocab_size, seed=s)
+        if cfg.family == "encdec":
+            b["frames"] = (np.random.default_rng(s).standard_normal(
+                lead + (cfg.encoder_seq, cfg.d_model)) * 0.02
+            ).astype(np.float32)
+        batches.append(b)
+    host = _world_of_one(rexp, texp, batches)
+    if cfg.family == "moe":
+        params = tree_from_numpy(tr.tree_map(lambda a: a[0], host))
+        for b in batches:
+            drops = []
+            tm.forward(cfg, params, {k: v[0, 0, 0] for k, v in b.items()},
+                       drops=drops)
+            assert len(drops) == cfg.num_layers
+            assert sum(int(d) for d in drops) > 0, drops
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_abstract_shapes_match_reference(arch):
+    """The stacked shapes and dtypes of every registered arch against the
+    reference's ``stacked_abstract``, and one replica's against them."""
     from repro.configs import get_model_config as rcfg
     from repro_torch.configs import get_model_config as tcfg
-    for arch in ("qwen2-0.5b", "zamba2-2.7b", "whisper-medium"):
-        shapes, _ = r_stacked(rcfg(arch), 4)
-        got = ts.stacked_abstract(tcfg(arch), 4)
-        assert all(t.is_meta for t in tr.tree_leaves(got))
-        exp = jax.tree.leaves(shapes)
-        assert len(exp) == len(tr.tree_leaves(got))
-        for t, s in zip(tr.tree_leaves(got), exp):
-            assert tuple(t.shape) == s.shape
-            assert str(t.dtype).removeprefix("torch.") == str(s.dtype)
-        one = ts.abstract_model(tcfg(arch))
-        assert [tuple(t.shape) for t in tr.tree_leaves(one)] == \
-            [s.shape[1:] for s in exp]
+    shapes, _ = r_stacked(rcfg(arch), 4)
+    got = ts.stacked_abstract(tcfg(arch), 4)
+    assert all(t.is_meta for t in tr.tree_leaves(got))
+    exp = jax.tree.leaves(shapes)
+    assert len(exp) == len(tr.tree_leaves(got))
+    for t, s in zip(tr.tree_leaves(got), exp):
+        assert tuple(t.shape) == s.shape
+        assert str(t.dtype).removeprefix("torch.") == str(s.dtype)
+    one = ts.abstract_model(tcfg(arch))
+    assert [tuple(t.shape) for t in tr.tree_leaves(one)] == \
+        [s.shape[1:] for s in exp]
 
 
 def test_replica_seeds_differ_and_repeat():
