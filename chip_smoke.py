@@ -59,8 +59,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  SDPA backward, and its device time by kernel; then
                  bf16 at the seven FA_FAMILY_PATHS shapes (D = 128,
                  windows, non-causal, cross; the plain version a batch
-                 row's kv group at a time where its scores pass 8 GB),
-                 each timed beside the SDPA backward. Both backwards
+                 row's kv group at a time where its scores pass 8 GB)
+                 and at the training shapes of 7d they lack
+                 (FA_BWD_TRAIN_PATHS), each timed beside the SDPA
+                 backward. Both backwards
                  run through ``torch.autograd.grad`` and are timed by
                  the profiler's device time (``device_ms``).
 3. main       — the paper's FEMNIST experiment (``configs/femnist_cnn``:
@@ -108,7 +110,7 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  (1 of its 24 (dense, MoE) pairs), whisper-medium and
                  pixtral-12b at full width (bf16, seeded generator on
                  the card), one at a time: a prefill forward (B4
-                 launches as LM_FAMILIES says, finite logits, each MoE
+                 launches as the config counts, finite logits, each MoE
                  layer's dropped assignments, peak memory), a second
                  under the profiler (B4, GEMMs, the rest; device busy
                  share), then the serve driver at the reference's
@@ -141,11 +143,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  (asserted) and GB after init, that the launcher's
                  expanded frames and patches reach the model dense,
                  seconds, local-step positions a second, loss and peak
-                 a round, a held-out batch's loss before and after,
-                 mixtral's dropped assignments a MoE layer in the first
-                 step, B4 forward and backward launches a local step
-                 (72 + 72, 3 + 3, 12 + 12: asserted), one profiled local
-                 step by part. Then one f32 round on the card against
+                 a round, a held-out batch's loss before and after
+                 (must fall), mixtral's dropped assignments a MoE layer
+                 in the first step, B4 forward and backward launches a
+                 local step (72 + 72, 3 + 3, 12 + 12: asserted) at no
+                 shape phase 2c did not check (asserted), what is live
+                 at the allocator's peak of the first round and of a
+                 local step (mixtral, pixtral), one profiled local step
+                 by part. Then one f32 round on the card against
                  the CPU within 1e-4 (TF32 off) for whisper-medium at
                  full width and 2 + 2 layers and for the reduced
                  mixtral, llama4-maverick and pixtral, B4's launches
@@ -319,46 +324,46 @@ LM_TRAIN_PARITY_LAYERS, LM_TRAIN_PARITY_SEQ = 2, 256
 #: families at full width (bf16, seeded generator on the card), one
 #: replica in a world of one at the launcher's defaults: arch -> (layers
 #: run, None for all; batch; text tokens a row; params, asserted).
-#: The peak at the SGD update is 12 bytes a parameter (bf16 params and
-#: grads, f32 mu and the f32 update tree ``lr * mu``) plus the f32 copy
-#: of the largest gradient leaf: whisper-medium is whole (9.7 GB), and
-#: mixtral-8x7b (1,451,270,144 params a layer, 262,148,096 outside) is
-#: cut to 3 of 32 layers (55.4 GB; 4 would need 72.8). The backward
-#: peaks higher, holding each layer's gradients and their stacked copy:
-#: 64.7 GB for mixtral, and 72.8 GB for pixtral-12b at 14 layers
-#: (272,640,000 params a layer, 1,368,396,800 outside; 62.2 GB at the
-#: update), whose second round then ran out of memory with 11.7 GiB
-#: cached in pieces too small for the update's 2.5 GiB embedding leaf.
-#: So pixtral is cut to 12 of 40 layers, 55.7 GB at the update, where
-#: mixtral's 55.4 GB trained with room (PERF.md section 4)
+#: A local step peaks at the SGD update, 12 bytes a parameter (bf16
+#: params and grads, f32 mu and the f32 update tree ``lr * mu``):
+#: whisper-medium is whole (9.7 GB), and mixtral-8x7b (1,451,270,144
+#: params a layer, 262,148,096 outside) is cut to 3 of 32 layers (55.4
+#: GB; 4 would need 72.8). A round peaks higher (what is live at both
+#: peaks, the phase prints): 64.7 GB for mixtral, and 72.8 GB for
+#: pixtral-12b at 14 layers (272,640,000 params a layer, 1,368,396,800
+#: outside; 62.2 GB at the update), whose second round then ran out of
+#: memory with 11.7 GiB cached in pieces too small for the update's 2.5
+#: GiB embedding leaf. So pixtral is cut to 12 of 40 layers, 55.7 GB at
+#: the update, where mixtral's 55.4 GB trained with room (PERF.md
+#: section 4)
 LM_TRAIN_FAMILIES = {
     "whisper-medium": (None, 2, 448, 811_569_152),
     "mixtral-8x7b": (3, 1, 8192, 3 * 1_451_270_144 + 262_148_096),
     "pixtral-12b": (12, 1, 3072, 12 * 272_640_000 + 1_368_396_800),
 }
 LM_TRAIN_FAMILY_ROUNDS = 2
-#: (c) card against CPU in f32, one round each: arch -> (reduced, layers
-#: (encdec: encoder and decoder), batch, text tokens a row). whisper at
-#: full width and 2 + 2 layers; at full width the others' f32 state
-#: would pass 20 GB of host memory, so they run reduced (llama4's
-#: reduced window of 64 binds at 128 tokens)
+#: (c) card against CPU in f32, one round each: arch -> (layers at full
+#: width (encdec: encoder and decoder), None for the reduced config;
+#: batch; text tokens a row). whisper at full width and 2 + 2 layers; at
+#: full width the others' f32 state would pass 20 GB of host memory, so
+#: they run reduced (llama4's reduced window of 64 binds at 128 tokens)
 LM_TRAIN_FAMILY_PARITY = {
-    "whisper-medium": (False, 2, 1, 256),
-    "mixtral-8x7b": (True, 2, 2, 128),
-    "llama4-maverick-400b-a17b": (True, 2, 2, 128),
-    "pixtral-12b": (True, 2, 2, 120),
+    "whisper-medium": (2, 1, 256),
+    "mixtral-8x7b": (None, 2, 128),
+    "llama4-maverick-400b-a17b": (None, 2, 128),
+    "pixtral-12b": (None, 2, 120),
 }
 #: the MoE, encoder-decoder and VLM prefills at full width: arch ->
-#: (layers run, None for all; batch; text tokens; B4 launches a
-#: forward). mixtral's 32 layers of experts (93 GB in bf16) and
-#: llama4-maverick's 24 (dense, MoE) pairs (32.2 GB of experts a pair)
-#: are cut to what one card holds; whisper-medium and pixtral-12b run
-#: whole (pixtral: 1024 patches + 3072 tokens = 4096 positions)
+#: (layers run, None for all; batch; text tokens). mixtral's 32 layers
+#: of experts (93 GB in bf16) and llama4-maverick's 24 (dense, MoE)
+#: pairs (32.2 GB of experts a pair) are cut to what one card holds;
+#: whisper-medium and pixtral-12b run whole (pixtral: 1024 patches +
+#: 3072 tokens = 4096 positions)
 LM_FAMILIES = {
-    "mixtral-8x7b": (8, 1, 8192, 8),
-    "llama4-maverick-400b-a17b": (2, 2, 4096, 2),
-    "whisper-medium": (None, 2, 448, 24 + 24 + 24),
-    "pixtral-12b": (None, 2, 3072, 40),
+    "mixtral-8x7b": (8, 1, 8192),
+    "llama4-maverick-400b-a17b": (2, 2, 4096),
+    "whisper-medium": (None, 2, 448),
+    "pixtral-12b": (None, 2, 3072),
 }
 #: B4 at those prefills' shapes: (what, B, Sq, Sk, H, Hkv, D, causal,
 #: window)
@@ -370,6 +375,15 @@ FA_FAMILY_PATHS = (
     ("whisper decoder", 2, 448, 448, 16, 16, 64, True, 0),
     ("whisper cross", 2, 448, 1500, 16, 16, 64, False, 0),
     ("pixtral-12b", 2, 4096, 4096, 32, 8, 128, True, 0),
+)
+#: B4's backward also at the shapes phase 7d trains at that
+#: FA_FAMILY_PATHS lacks (7d asserts it launches no other): pixtral-12b
+#: trains at batch 1, where the backward takes another launch than at
+#: batch 2 (``heads_per_block`` in csrc/flash_attention_bwd.cu: one
+#: query head a dK/dV block, the f32 partials of a kv head's four summed
+#: by the third kernel)
+FA_BWD_TRAIN_PATHS = (
+    ("pixtral-12b training", 1, 4096, 4096, 32, 8, 128, True, 0),
 )
 #: the reduced families' decode against prefill: tokens a row (past the
 #: reduced sliding window of 64)
@@ -925,12 +939,14 @@ def _site(frames) -> str:
 
 
 def peak_breakdown(snap: dict, dev: torch.device, base: int,
-                   top: int = 8) -> None:
+                   top: int = 8, tag: str = "main",
+                   what: str = "set-up and round 1") -> None:
     """The blocks live at the allocator's peak, from a memory-history
     snapshot: replay the trace's allocs and frees (``allocated_bytes``
     falls at ``free_requested``), find the point of most bytes, and group
     the blocks live there by allocation site. ``base`` is what was
-    allocated before the history started."""
+    allocated before the history started (``what`` the span it
+    recorded)."""
     trace = snap["device_traces"][dev.index]
 
     def replay(stop=None):
@@ -951,13 +967,33 @@ def peak_breakdown(snap: dict, dev: torch.device, base: int,
         g = groups[(_site(e.get("frames", [])), e["size"])]
         g[0] += e["size"]
         g[1] += 1
-    log(f"[main] allocator peak over set-up and round 1 {peak / 1e9:.2f} GB"
+    log(f"[{tag}] allocator peak over {what} {peak / 1e9:.2f} GB"
         f" ({base / 1e9:.2f} GB allocated before the history); live at the "
         f"peak, by site:")
     for (site, size), (total, count) in sorted(
             groups.items(), key=lambda kv: -kv[1][0])[:top]:
-        log(f"[main]   {total / 1e9:6.3f} GB = {count:4d} x "
+        log(f"[{tag}]   {total / 1e9:6.3f} GB = {count:4d} x "
             f"{size / 1e6:9.3f} MB  {site[:150]}")
+
+
+def _start_memory_history(dev: torch.device) -> int:
+    """Start the allocator's memory history with every frame (C++ frames
+    name the autograd node and ATen function of each block; dladdr is
+    the quickest of torch's symbol resolvers). Returns what is allocated
+    before it."""
+    os.environ.setdefault("TORCH_SYMBOLIZE_MODE", "dladdr")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.memory._record_memory_history(stacks="all",
+                                             max_entries=2_000_000)
+    return base
+
+
+def _stop_memory_history() -> dict:
+    """The history's snapshot; stops recording."""
+    snap = torch.cuda.memory._snapshot()
+    torch.cuda.memory._record_memory_history(enabled=None)
+    return snap
 
 
 def phase_main(dev: torch.device, rounds: int = 2) -> int:
@@ -968,13 +1004,7 @@ def phase_main(dev: torch.device, rounds: int = 2) -> int:
     from repro_torch.kernels import gossip_mix as gm
     from repro_torch.models.cnn import apply_femnist_cnn, init_femnist_cnn
     fl = cfg.FL
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated(dev)
-    # C++ frames name the autograd node and ATen function of each block;
-    # dladdr is the quickest of torch's symbol resolvers
-    os.environ.setdefault("TORCH_SYMBOLIZE_MODE", "dladdr")
-    torch.cuda.memory._record_memory_history(stacks="all",
-                                             max_entries=2_000_000)
+    base = _start_memory_history(dev)
     sim = FLSimulator(init_femnist_cnn, apply_femnist_cnn, fl,
                       femnist_data(fl), lr=0.1, batch_size=16, seed=0,
                       device=dev)
@@ -1004,8 +1034,7 @@ def phase_main(dev: torch.device, rounds: int = 2) -> int:
             dt = time.perf_counter() - t0
         peaks.append(torch.cuda.max_memory_allocated(dev))
         if r == 0:
-            snap = torch.cuda.memory._snapshot()
-            torch.cuda.memory._record_memory_history(enabled=None)
+            snap = _stop_memory_history()
             peak_breakdown(snap, dev, base)
             del snap
         if last:
@@ -2659,6 +2688,16 @@ def _family_batch(cfg, B: int, S: int, dev, seed: int) -> dict:
     return batch
 
 
+def _attention_calls(cfg) -> int:
+    """Attention calls a forward of ``cfg`` makes: B4's launches a
+    forward, and a local step's each way. whisper's encoder self,
+    decoder self and cross attention; one a layer otherwise (llama4
+    counts a pair as 2 layers)."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
 def _moe_layers(cfg) -> int:
     """MoE layers in a forward of ``cfg`` (llama4: one a pair)."""
     if cfg.family != "moe":
@@ -2670,20 +2709,21 @@ def phase_lm_families(dev: torch.device) -> int:
     """mixtral-8x7b, llama4-maverick, whisper-medium and pixtral-12b at
     full width (bf16, seeded generator on the card, depth cut where one
     card cannot hold the model): one prefill forward (B4 launches as in
-    LM_FAMILIES, each MoE layer's dropped assignments, finite logits,
-    peak memory), a second under the profiler, then the serve driver at
-    the reference's defaults. Returns the B4 launches of the four
-    prefills."""
+    ``_attention_calls``, each MoE layer's dropped assignments, finite
+    logits, peak memory), a second under the profiler, then the serve
+    driver at the reference's defaults. Returns the B4 launches of the
+    four prefills."""
     from repro_torch.configs import get_model_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve
     from repro_torch.models import model as mdl
     total = 0
-    for arch, (layers, B, S, want) in LM_FAMILIES.items():
+    for arch, (layers, B, S) in LM_FAMILIES.items():
         cfg = get_model_config(arch)
         cut = layers is not None and layers != cfg.num_layers
         if cut:
             cfg = dataclasses.replace(cfg, num_layers=layers)
+        want = _attention_calls(cfg)
         tag = f"lm_families {arch}"
         with torch.inference_mode():
             batch = _family_batch(cfg, B, S, dev, seed=0)
@@ -3129,7 +3169,8 @@ def _sdpa_bwd(q, k, v, do, mask):
 def _fa_bwd_family_paths(dev: torch.device, gen: torch.Generator) -> float:
     """B4's backward in bf16 through autograd at the FA_FAMILY_PATHS
     shapes (D = 128 with GQA 32/8 and 40/8, windows 4096 and 8192, the
-    non-causal whisper encoder, 448 queries across 1500 frames): held
+    non-causal whisper encoder, 448 queries across 1500 frames) and at
+    FA_BWD_TRAIN_PATHS (pixtral-12b's training batch of 1): held
     against ``flash_attention_bwd_ref`` by ``_bwd_check`` (the plain
     version on each batch row's kv groups in turn where its f32 scores
     would pass FA_BWD_CHECK_BYTES), then its device time through
@@ -3139,7 +3180,8 @@ def _fa_bwd_family_paths(dev: torch.device, gen: torch.Generator) -> float:
     from repro_torch.kernels import ref
     bf = torch.bfloat16
     worst = 0.0
-    for what, B, Sq, Sk, H, Hkv, D, causal, window in FA_FAMILY_PATHS:
+    for what, B, Sq, Sk, H, Hkv, D, causal, window in (
+            FA_FAMILY_PATHS + FA_BWD_TRAIN_PATHS):
         q, do = (torch.randn((B, Sq, H, D), device=dev, generator=gen
                              ).to(bf) for _ in range(2))
         k, v = (torch.randn((B, Sk, Hkv, D), device=dev, generator=gen
@@ -3403,16 +3445,6 @@ def phase_lm_train(dev: torch.device):
 # families at full width
 # ---------------------------------------------------------------------------
 
-def _attention_calls(cfg) -> int:
-    """Attention calls a forward of ``cfg`` makes, B4's launches a local
-    step each way: whisper's encoder self, decoder self and cross
-    attention; one a layer otherwise (llama4 counts a pair as 2
-    layers)."""
-    if cfg.family == "encdec":
-        return cfg.encoder_layers + 2 * cfg.num_layers
-    return cfg.num_layers
-
-
 def _extra_input(cfg) -> tuple:
     """The batch key and length of the positions a family feeds besides
     its tokens: encdec frames, vlm patch embeddings; (None, 0)
@@ -3453,8 +3485,12 @@ def phase_lm_train_families(dev: torch.device) -> tuple:
     (positions) a second, loss, peak; a held-out batch's loss before and
     after; mixtral's dropped assignments a MoE layer in the first step;
     B4's forward and backward launches a local step (asserted against
-    the config); one profiled local step by part. Then (c) one f32 round
-    on the card against the CPU (LM_TRAIN_FAMILY_PARITY) within
+    the config), at shapes phase 2c held the backward at (asserted:
+    FA_FAMILY_PATHS, FA_BWD_TRAIN_PATHS); the held-out loss must fall;
+    for the cut archs, what is live at the allocator's peak of the first
+    (warm-up) round and of the warm-up step before the profiled one (the
+    memory history); one profiled local step by part. Then (c) one f32
+    round on the card against the CPU (LM_TRAIN_FAMILY_PARITY) within
     LM_PARITY_TOL, B4's launches asserted (none on the CPU). Returns
     B4's forward and backward launches of the bf16 rounds."""
     import gc
@@ -3466,6 +3502,8 @@ def phase_lm_train_families(dev: torch.device) -> tuple:
     from repro_torch.launch import train
     from repro_torch.models import model as mdl
 
+    checked = {row[1:] for row in FA_FAMILY_PATHS + FA_BWD_TRAIN_PATHS}
+    orig_bshd = fa.flash_attention_bshd
     total = [0, 0]
     for arch, (layers, B, S, want_n) in LM_TRAIN_FAMILIES.items():
         tag = f"lm_train_families {arch}"
@@ -3539,23 +3577,48 @@ def phase_lm_train_families(dev: torch.device) -> tuple:
                 assert len(dropped) == _moe_layers(cfg), dropped
             round_fn = trn.make_global_round()
             step, losses = 0, []
+            # the shapes B4 attends at in training (a forward that
+            # records the graph runs the backward at the same shapes)
+            shapes = set()
+
+            def spy(q, k, v, causal=True, window=0, q_offset=0):
+                if q.requires_grad or k.requires_grad or v.requires_grad:
+                    shapes.add((q.shape[0], q.shape[1], k.shape[1],
+                                q.shape[2], k.shape[2], q.shape[3], causal,
+                                window, q_offset))
+                return orig_bshd(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
             fa.launches = fa.bwd_launches = 0
             for r, batch in enumerate(batches):
                 torch.cuda.reset_peak_memory_stats(dev)
                 torch.cuda.empty_cache()
                 torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                params, opt, metrics, step = round_fn(params, opt, batch,
-                                                      step)
-                torch.cuda.synchronize()
-                sec = time.perf_counter() - t0
+                # the cut archs, whose depth memory sets: the first
+                # (warm-up) round under the allocator's memory history
+                hist = cut and r == 0
+                if hist:
+                    base = _start_memory_history(dev)
+                fa.flash_attention_bshd = spy if r == 0 else orig_bshd
+                try:
+                    t0 = time.perf_counter()
+                    params, opt, metrics, step = round_fn(params, opt,
+                                                          batch, step)
+                    torch.cuda.synchronize()
+                    sec = time.perf_counter() - t0
+                finally:
+                    fa.flash_attention_bshd = orig_bshd
+                    snap = _stop_memory_history() if hist else None
                 losses.append(metrics["loss"])
-                log(f"[{tag}] round {r}: {sec:.3f} s, "
+                log(f"[{tag}] round {r}: {sec:.3f} s"
+                    f"{' (under the memory history)' if hist else ''}, "
                     f"{positions / sec:,.0f} local-step positions/s, loss "
                     f"{metrics['loss']:.4f}, peak device memory "
                     f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
                     f"({torch.cuda.max_memory_reserved(dev) / 1e9:.2f} GB "
                     f"reserved)")
+                if hist:
+                    peak_breakdown(snap, dev, base, tag=tag, what="round 0")
+                    del snap
             launches = (fa.launches, fa.bwd_launches)
             after = held_out(params)
             n_steps = steps * LM_TRAIN_FAMILY_ROUNDS
@@ -3568,15 +3631,33 @@ def phase_lm_train_families(dev: torch.device) -> tuple:
                 + (f"; dropped assignments a MoE layer in the first step "
                    f"{dropped} of {B * S * cfg.experts_per_token:,}"
                    if dropped else ""))
+            log(f"[{tag}] B4 training shapes (B, Sq, Sk, H, Hkv, D, causal, "
+                f"window, q_offset): {sorted(shapes)}; phase 2c held the "
+                f"backward at each: "
+                f"{all(x[:-1] in checked and x[-1] == 0 for x in shapes)}")
             assert launches == (calls * n_steps,) * 2, launches
             assert all(math.isfinite(x) for x in losses + [before, after])
+            assert after < before, (arch, before, after)
+            assert shapes and all(x[:-1] in checked and x[-1] == 0
+                                  for x in shapes), sorted(shapes)
             total[0] += launches[0]
             total[1] += launches[1]
 
-            # one local step under the profiler
+            # one local step under the profiler, after a warm-up step
+            # (for the cut archs under the memory history: a step's peak
+            # against the round's)
             local = trn.make_local_step()
-            params, opt, _, step = local(params, opt, held, step)  # warm
-            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = _start_memory_history(dev) if cut else 0
+            try:
+                params, opt, _, step = local(params, opt, held, step)
+                torch.cuda.synchronize()
+            finally:
+                snap = _stop_memory_history() if cut else None
+            if cut:
+                peak_breakdown(snap, dev, base, tag=tag,
+                               what="a local step")
+                del snap
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -3591,9 +3672,9 @@ def phase_lm_train_families(dev: torch.device) -> tuple:
         torch.cuda.empty_cache()
 
     # (c) card against CPU in f32, one round each
-    for arch, (reduced, layers, B, S) in LM_TRAIN_FAMILY_PARITY.items():
+    for arch, (layers, B, S) in LM_TRAIN_FAMILY_PARITY.items():
         cfg = get_model_config(arch)
-        if reduced:
+        if layers is None:
             cfg, what = cfg.reduced(), "reduced"
         else:
             cfg = dataclasses.replace(
