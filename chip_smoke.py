@@ -62,9 +62,19 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  row's kv group at a time where its scores pass 8 GB)
                  and at the training shapes of 7d they lack
                  (FA_BWD_TRAIN_PATHS), each timed beside the SDPA
-                 backward. Both backwards
-                 run through ``torch.autograd.grad`` and are timed by
-                 the profiler's device time (``device_ms``).
+                 backward. B5's backward (``csrc/ssd_scan_bwd.cu``,
+                 phase 2d) through ``torch.autograd.grad`` of
+                 ``ssd_intra_chunk`` against ``ssd_intra_chunk_bwd_ref``
+                 over SSD_BWD_SWEEP (C 64-256, N 16-128, P 32-128, the
+                 reduced configs' (64, 16, 64)), f32 and bf16, with and
+                 without a states gradient (f32 within 1e-4, bf16 2e-2
+                 of each gradient's largest entry), then bf16 at phase
+                 7e's two training shapes, also through
+                 ``make_intra_states_fn`` in the model's strided layout,
+                 two runs bit for bit, timed beside its bound and its
+                 plain version (no library call computes it). The
+                 backwards run through ``torch.autograd.grad`` and are
+                 timed by the profiler's device time (``device_ms``).
 3. main       — the paper's FEMNIST experiment (``configs/femnist_cnn``:
                  64 devices, 8 edge servers on a ring, tau=2, q=8, pi=10)
                  with the LEAF CNN at full width (6,603,710 params), two
@@ -155,6 +165,21 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  full width and 2 + 2 layers and for the reduced
                  mixtral, llama4-maverick and pixtral, B4's launches
                  asserted (none on the CPU).
+7e. lm_train_ssm — the same trainer and defaults, remat on, for
+                 mamba2-2.7b (all 64 layers, 2,832,074,240 params, 4 x
+                 2048 tokens a step) and zamba2-2.7b (all 54 layers, 9
+                 groups of 6 Mamba-2 blocks and the shared attention
+                 block, 2 x 4096) at full width, bf16 from a seeded
+                 generator on the card, 2 rounds each: params
+                 (asserted), seconds, local-step tokens a second, loss
+                 and peak a round, a held-out loss that must fall, B5's
+                 forward and backward launches (2 + 1 a Mamba-2 block
+                 and step) and zamba2's B4 launches (2 + 1 a group) at
+                 shapes 2c checked (asserted), one profiled step by part
+                 (glue, GEMMs, B4, B5, each backward); a bf16 step at
+                 reduced depth with and without remat, bit for bit; one
+                 f32 round of each reduced config on the card against
+                 the CPU within 1e-4.
 8. lm decode  — the same model in f32: the kernel forward's logits over
                  2 x 512 tokens against 512 decode steps (no kernel),
                  within the reference's atol = rtol = 0.05; then the
@@ -384,7 +409,40 @@ FA_FAMILY_PATHS = (
 #: by the third kernel)
 FA_BWD_TRAIN_PATHS = (
     ("pixtral-12b training", 1, 4096, 4096, 32, 8, 128, True, 0),
+    ("zamba2-2.7b training", 2, 4096, 4096, 32, 32, 80, True, 0),
 )
+#: B5's backward (csrc/ssd_scan_bwd.cu) against its plain version: f32
+#: within 1e-4 (rtol, and atol 1e-4 of each gradient's largest entry:
+#: both sides sum in f32 in other orders, and da, a reverse cumulative
+#: sum of differences, has entries near 0 beside entries of hundreds);
+#: bf16 within 2e-2 of each gradient's largest entry (dx, dB and dC are
+#: rounded to bf16 on both sides from f32 sums in other orders)
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: the sweep (BK, H, C, P, N): the forward's, the kernel's other C, N
+#: and P, and the reduced configs' (64, 16, 64)
+SSD_BWD_SWEEP = SSD_SWEEP + ((2, 4, 64, 64, 16), (2, 4, 192, 32, 32),
+                             (1, 3, 256, 128, 128), (3, 2, 64, 32, 64))
+#: the shapes phase 7e trains at: (B, K, C, H, P, N) of each arch
+SSD_BWD_TRAIN_PATHS = {"mamba2-2.7b": (4, 8, 256, 80, 64, 128),
+                       "zamba2-2.7b": (2, 16, 256, 80, 64, 64)}
+#: the name every kernel of B5's backward starts with
+SSD_BWD_KERNEL_PREFIX = "ssd_scan_bwd_"
+#: phase 7e: federated training of the ssm and hybrid families at full
+#: width and depth (bf16, seeded generator on the card), one replica in a
+#: world of one at the launcher's defaults, remat on: arch -> (batch,
+#: tokens a row, params, asserted). A step peaks at the SGD update, 12
+#: bytes a parameter (34.0 and 29.1 GB), and without remat the saved
+#: activations of 64 (54) layers at 8,192 tokens a step would pass the
+#: card; with it a layer's own are live only inside its recomputation
+LM_TRAIN_SSM = {
+    "mamba2-2.7b": (4, 2048, 2_832_074_240),
+    "zamba2-2.7b": (2, 4096, ZAMBA2_PARAMS),
+}
+LM_TRAIN_SSM_ROUNDS = 2
+#: the remat check: layers of a bf16 step at full width, with and
+#: without remat (zamba2: one group of 6 Mamba-2 blocks and the shared
+#: attention block)
+LM_TRAIN_SSM_REMAT_LAYERS = {"mamba2-2.7b": 2, "zamba2-2.7b": 6}
 #: the reduced families' decode against prefill: tokens a row (past the
 #: reduced sliding window of 64)
 FAMILY_DECODE_SEQ = 128
@@ -507,7 +565,7 @@ def max_err(out: torch.Tensor, exp: torch.Tensor, tol: float,
 # ---------------------------------------------------------------------------
 
 KERNEL_SOURCES = ("gossip_mix", "cold_codec", "flash_attention",
-                  "flash_attention_bwd", "ssd_scan")
+                  "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
 
 
 def phase_build() -> None:
@@ -538,7 +596,7 @@ def phase_build() -> None:
 
 #: sources whose ptxas report is printed per kernel instantiation
 PTXAS_DETAIL = ("gossip_mix", "flash_attention", "flash_attention_bwd",
-                "ssd_scan", "cold_codec")
+                "ssd_scan", "ssd_scan_bwd", "cold_codec")
 
 
 def _demangle(name: str) -> str:
@@ -3223,6 +3281,193 @@ def _fa_bwd_family_paths(dev: torch.device, gen: torch.Generator) -> float:
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: B5's backward against its plain version
+# ---------------------------------------------------------------------------
+
+SSD_GRADS = ("dx", "da", "dB", "dC", "ddt")
+
+
+def _ssd_grad(ss, x, a, Bm, Cm, d, dy, dst):
+    """(dx, da, dB, dC, ddt) as training takes them: ``torch.autograd.grad``
+    through ``ssd_intra_chunk`` (``_SSDIntraChunk``: the forward kernel,
+    then the backward kernel) on leaves that share the inputs' storage
+    and strides; with ``dst`` None only y is differentiated (the states
+    get no gradient)."""
+    leaves = [t.detach().requires_grad_(True) for t in (x, a, Bm, Cm, d)]
+    y, st = ss.ssd_intra_chunk(*leaves)
+    if dst is None:
+        return torch.autograd.grad(y, leaves, dy)
+    return torch.autograd.grad((y, st), leaves, (dy, dst))
+
+
+def _ssd_bwd_close(got, exp, dt, what) -> float:
+    """Each gradient against its plain version (SSD_BWD_TOL; see there);
+    returns the worst error over the largest entry."""
+    worst = 0.0
+    for name, a, b in zip(SSD_GRADS, got, exp):
+        assert a.shape == b.shape and a.dtype == b.dtype, (name, a.shape)
+        if dt == torch.float32:
+            scale = float(b.abs().max())
+            err = max_err(a, b, SSD_BWD_TOL[dt] * scale, f"{what} {name}",
+                          rtol=SSD_BWD_TOL[dt])
+            worst = max(worst, err / max(scale, 1e-30))
+        else:
+            worst = max(worst, _rel_err(a, b, SSD_BWD_TOL[dt],
+                                        f"{what} {name}"))
+    return worst
+
+
+def _ssd_bwd_bound(BK: int, H: int, C: int, P: int, N: int):
+    """B5's backward's least time at a bf16 shape: x, dy, dst, a, dt, B
+    and C read once, dx, da, ddt, dB and dC written once; C Bᵀ over the
+    lower triangle once a chunk, dy xᵀ and Mᵀ dy over it a head, B dst
+    and x dstᵀ a head, D B and Dᵀ C once a chunk, on the bf16 tensor
+    cores. Returns (ms, by, bytes, flops)."""
+    tri = C * (C + 1) / 2
+    nbytes = (BK * H * C * P * (2 + 4 + 2) + BK * H * N * P * 4
+              + 4 * 4 * BK * H * C + 4 * 2 * BK * C * N)
+    flops = 2 * BK * (N * tri + H * (2 * P * tri + 2 * C * N * P)
+                      + 2 * N * tri)
+    return (*_bound(nbytes, flops, BF16_FLOPS), nbytes, flops)
+
+
+def _ssd_adapter_check(ss, ref, dev, gen, Bsz, K, C, H, P, N, what):
+    """B5 through ``make_intra_states_fn`` as the model calls it: x, B, C
+    views of one (B, K C, H P + 2 N) conv output, a_t = -dt permuted,
+    bf16; the gradients of the conv output and of dt (autograd through
+    the views) against the plain backward on the same views, mapped back
+    the same way. Returns the worst error over the largest entry."""
+    bf = torch.bfloat16
+    BK = Bsz * K
+    xBC = torch.randn((Bsz, K * C, H * P + 2 * N), device=dev,
+                      generator=gen).to(bf).requires_grad_(True)
+    dtc = (torch.randn((Bsz, K, C, H), device=dev, generator=gen).abs()
+           * 0.1).requires_grad_(True)
+    gy = torch.randn((Bsz, K, C, H, P), device=dev, generator=gen)
+    gs = torch.randn((Bsz, K, H, N, P), device=dev, generator=gen)
+    xv, Bv, Cv = torch.split(xBC, [H * P, N, N], dim=-1)
+    args = (xv.reshape(Bsz, K, C, H, P), (-dtc).permute(0, 1, 3, 2),
+            Bv.reshape(Bsz, K, C, N), Cv.reshape(Bsz, K, C, N), dtc)
+    y, st = ss.make_intra_states_fn()(*args)
+    got = torch.autograd.grad((y, st), (xBC, dtc), (gy, gs))
+    del y, st
+    with torch.no_grad():
+        xc, a_t, Bc, Cc, _ = args
+        dx, da, dB, dC, ddt = ref.ssd_intra_chunk_bwd_ref(
+            xc.permute(0, 1, 3, 2, 4).reshape(BK, H, C, P),
+            a_t.reshape(BK, H, C), Bc.reshape(BK, C, N),
+            Cc.reshape(BK, C, N), dtc.permute(0, 1, 3, 2).reshape(BK, H, C),
+            gy.permute(0, 1, 3, 2, 4).reshape(BK, H, C, P),
+            gs.reshape(BK, H, N, P))
+        back = lambda t: t.reshape(Bsz, K, H, C).permute(0, 1, 3, 2)  # noqa: E731
+        exp_x = torch.cat([dx.reshape(Bsz, K, H, C, P).permute(
+            0, 1, 3, 2, 4).reshape(Bsz, K * C, H * P),
+            dB.reshape(Bsz, K * C, N), dC.reshape(Bsz, K * C, N)], dim=-1)
+        exp_dt = back(ddt) - back(da)
+    return max(_rel_err(got[0], exp_x, SSD_BWD_TOL[bf],
+                        f"{what} conv output"),
+               _rel_err(got[1], exp_dt, SSD_BWD_TOL[bf], f"{what} dt"))
+
+
+def phase_ssd_scan_bwd(dev: torch.device) -> dict:
+    """B5's backward (``csrc/ssd_scan_bwd.cu``) through autograd against
+    ``ssd_intra_chunk_bwd_ref`` on the same inputs (``_ssd_bwd_close``):
+    over SSD_BWD_SWEEP in f32 and bf16, with a states gradient and
+    without; at phase 7e's two training shapes in bf16 through
+    ``ssd_intra_chunk`` and through ``make_intra_states_fn`` in the
+    model's strided layout (``_ssd_adapter_check``), two runs bit for bit
+    (no atomics); each training shape timed by the profiler's device
+    time through ``autograd.grad`` (by kernel), beside its bound and the
+    plain version's time. No one PyTorch call computes this function
+    (library_ms None)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ss
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(14)
+    worst = {dt: 0.0 for dt in SSD_BWD_TOL}
+    for shape in SSD_BWD_SWEEP:
+        for dt in SSD_BWD_TOL:
+            x, a, Bm, Cm, d = _ssd_inputs(gen, dev, *shape, dt)
+            BK, H, C, P, N = shape
+            dy = torch.randn((BK, H, C, P), device=dev, generator=gen)
+            dst = torch.randn((BK, H, N, P), device=dev, generator=gen)
+            for states in (dst, None):
+                got = _ssd_grad(ss, x, a, Bm, Cm, d, dy, states)
+                exp = ref.ssd_intra_chunk_bwd_ref(x, a, Bm, Cm, d, dy,
+                                                  states)
+                worst[dt] = max(worst[dt], _ssd_bwd_close(
+                    got, exp, dt, f"ssd_scan_bwd {shape} {dt} "
+                    f"{'with' if states is not None else 'without'} a "
+                    f"states gradient"))
+    log(f"[kernels] ssd_scan_bwd sweep ({len(SSD_BWD_SWEEP)} shapes: C "
+        f"64-256, N 16-128, P 32-128; f32 and bf16, with and without a "
+        f"states gradient): max err over the largest gradient f32 "
+        f"{worst[torch.float32]:.3e} (tol {SSD_BWD_TOL[torch.float32]}, "
+        f"rtol and atol of the largest), bf16 {worst[torch.bfloat16]:.3e} "
+        f"(tol {SSD_BWD_TOL[torch.bfloat16]})")
+
+    out = None
+    for arch, (Bsz, K, C, H, P, N) in SSD_BWD_TRAIN_PATHS.items():
+        BK = Bsz * K
+        err = _ssd_adapter_check(ss, ref, dev, gen, Bsz, K, C, H, P, N,
+                                 f"ssd_scan_bwd {arch} adapter")
+        torch.cuda.empty_cache()
+        x, a, Bm, Cm, d = _ssd_inputs(gen, dev, BK, H, C, P, N,
+                                      torch.bfloat16)
+        dy = torch.randn((BK, H, C, P), device=dev, generator=gen)
+        dst = torch.randn((BK, H, N, P), device=dev, generator=gen)
+        got = _ssd_grad(ss, x, a, Bm, Cm, d, dy, dst)
+        exp = ref.ssd_intra_chunk_bwd_ref(x, a, Bm, Cm, d, dy, dst)
+        err = max(err, _ssd_bwd_close(got, exp, torch.bfloat16,
+                                      f"ssd_scan_bwd {arch} training shape"))
+        del exp
+        torch.cuda.empty_cache()
+        again = _ssd_grad(ss, x, a, Bm, Cm, d, dy, dst)
+        spread = max(float((p.float() - q.float()).abs().max())
+                     for p, q in zip(got, again))
+        del got, again
+        leaves = [t.detach().requires_grad_(True) for t in (x, a, Bm, Cm, d)]
+        y, st = ss.ssd_intra_chunk(*leaves)
+        bwd = lambda: torch.autograd.grad(  # noqa: E731
+            (y, st), leaves, (dy, dst), retain_graph=True)
+        ms, by_kernel = device_ms(bwd)
+        autograd_ms = time_ms(bwd)
+        del y, st, leaves
+        plain_ms = time_ms(lambda: ref.ssd_intra_chunk_bwd_ref(
+            x, a, Bm, Cm, d, dy, dst), reps=3)
+        torch.cuda.empty_cache()
+        b_ms, b_by, nbytes, flops = _ssd_bwd_bound(BK, H, C, P, N)
+        log(f"[kernels] ssd_scan_bwd {arch} training shape, device time a "
+            f"call by kernel: " + ", ".join(
+                f"{_short_name(n)} {t:.4f} ms" for n, t in by_kernel.items()))
+        log(f"[kernels] ssd_scan_bwd {arch} training shape (BK={BK}, H={H}, "
+            f"C={C}, P={P}, N={N}; x/B/C bf16, a/dt/dy/dst f32): gradients "
+            f"max err {err:.3e} of the largest gradient (tol "
+            f"{SSD_BWD_TOL[torch.bfloat16]}; also through the strided "
+            f"adapter), run-to-run spread {spread:.3e} (no atomics); "
+            f"device time {ms:.4f} ms through autograd (plain {plain_ms:.4f}, "
+            f"bound {b_ms:.4f} by {b_by}: {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.1f} GFLOP; {b_ms / ms:.1%} of the bound; no "
+            f"single library call computes it); a call with its host work "
+            f"(CUDA events) {autograd_ms:.4f}")
+        assert spread == 0.0, spread
+        if out is None:  # the JSON line's numbers: mamba2-2.7b's shape
+            out = {"name": "ssd_scan_bwd", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                   "replaces": "src/repro/models/ssm.py:116",
+                   "launches": 0,
+                   "max_abs_err": max(err, *worst.values()), "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": None}
+        else:
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+        del x, a, Bm, Cm, d, dy, dst
+        torch.cuda.empty_cache()
+    log(f"[kernels] ssd_scan_bwd phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7c: federated LM training at full width
 # ---------------------------------------------------------------------------
 
@@ -3233,8 +3478,9 @@ def _lm_train_args(extra):
 
 
 def _train_breakdown(prof, wall_s: float, tag: str) -> None:
-    """A profiled local step's device time: B4's forward and backward,
-    the GEMMs and the rest, and the device's busy share."""
+    """A profiled local step's device time: B4's and B5's forward and
+    backward (where the step runs them), the GEMMs and the rest (the
+    glue), and the device's busy share."""
     device_breakdown(prof, wall_s, top=8, tag=tag)
     sums = defaultdict(lambda: [0.0, 0])
     for e in prof.events():
@@ -3243,6 +3489,8 @@ def _train_breakdown(prof, wall_s: float, tag: str) -> None:
         name = e.name.lower()
         key = ("B4 backward" if BWD_KERNEL_PREFIX in name
                else "B4 forward" if "flash_attention" in name
+               else "B5 backward" if SSD_BWD_KERNEL_PREFIX in name
+               else "B5 forward" if "ssd_intra_chunk" in name
                else "GEMMs (cuBLAS)" if ("gemm" in name or "nvjet" in name
                                          or "xmma" in name
                                          or "cutlass" in name)
@@ -3700,6 +3948,241 @@ def phase_lm_train_families(dev: torch.device) -> tuple:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 7e: federated training of the ssm and hybrid families at full
+# width and depth
+# ---------------------------------------------------------------------------
+
+def _remat_bitwise(dev: torch.device, cfg, B: int, S: int) -> bool:
+    """One bf16 step's loss and gradients of ``cfg`` (seeded init on the
+    card) with remat and without: equal bit for bit. Under PyTorch's
+    deterministic algorithms (warnings only): the embedding's gradient
+    is an accumulating ``index_put_``, whose order is not fixed
+    otherwise (on the CPU two runs without remat differed there)."""
+    from repro_torch import tree as tr
+    from repro_torch.models import model as mdl
+    params = mdl.init_model(torch.Generator(dev).manual_seed(5), cfg, dev)
+    leaves, treedef = tr.tree_flatten(params)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in
+             _train_family_batch(cfg, (B,), S, dev, seed=11).items()}
+
+    def grads(remat: bool):
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        loss = mdl.lm_loss(cfg, tr.tree_unflatten(treedef, live), batch,
+                           remat=remat)
+        return loss.detach(), torch.autograd.grad(loss, live)
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        l0, g0 = grads(False)
+        l1, g1 = grads(True)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    return torch.equal(l0, l1) and all(torch.equal(a, b)
+                                       for a, b in zip(g0, g1))
+
+
+def phase_lm_train_ssm(dev: torch.device) -> tuple:
+    """Federated training (``ShardedCEFedAvg``, one replica in a world of
+    one, the launcher's defaults: tau 2, q 2, pi 4, SGD momentum 0.9 at
+    lr 0.05) of mamba2-2.7b (all 64 layers, 4 x 2048 tokens a local
+    step) and zamba2-2.7b (all 54 layers: 9 groups of 6 Mamba-2 blocks
+    and the shared attention block, 2 x 4096) at full width, bf16 from a
+    seeded generator on the card, remat on (LM_TRAIN_SSM says why), on
+    the example's learnable stream, 2 rounds each: params (asserted) and
+    GB after init, round seconds, local-step tokens a second, loss and
+    peak; a held-out batch's loss before and after (must fall); B5's
+    forward and backward launches (2 + 1 a Mamba-2 block and local step:
+    the forward and remat's recomputation, then the backward) and
+    zamba2's B4 launches (2 + 1 a group) asserted from the config, B4 at
+    shapes phase 2c held its backward at (asserted); one profiled local
+    step by part. Then a bf16 step at reduced depth with and without
+    remat, bit for bit (LM_TRAIN_SSM_REMAT_LAYERS), and one f32 round of
+    each reduced config on the card against the CPU within
+    LM_PARITY_TOL, launches asserted. Returns the launches (B4 forward,
+    B4 backward, B5 forward, B5 backward) of the bf16 rounds."""
+    import gc
+    from repro_torch.configs import get_model_config
+    from repro_torch.core.sharded import ShardedCEFedAvg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import train
+    from repro_torch.models import model as mdl
+
+    def experiment(arch, cfg=None, extra=()):
+        exp = train.lm_experiment(train._parser().parse_args(
+            ["--arch", arch, "--dist-backend", "gloo", *extra]))
+        exp = dataclasses.replace(exp, train=dataclasses.replace(
+            exp.train, remat=True))
+        return exp if cfg is None else dataclasses.replace(exp, model=cfg)
+
+    def blocks(cfg) -> tuple:
+        """(Mamba-2 blocks, attention calls) of a forward."""
+        return cfg.num_layers, (cfg.num_layers // cfg.attn_every
+                                if cfg.family == "hybrid" else 0)
+
+    checked = {row[1:] for row in FA_FAMILY_PATHS + FA_BWD_TRAIN_PATHS}
+    orig_bshd = fa.flash_attention_bshd
+    total = [0, 0, 0, 0]
+    for arch, (B, S, want_n) in LM_TRAIN_SSM.items():
+        tag = f"lm_train_ssm {arch}"
+        exp = experiment(arch, extra=("--batch", str(B), "--seq", str(S)))
+        fl, cfg = exp.fl, exp.model
+        steps = fl.q * fl.tau
+        tokens = steps * B * S
+        n_ssd, n_attn = blocks(cfg)
+        held = {k: torch.as_tensor(v).to(dev) for k, v in
+                _train_family_batch(cfg, (B,), S, dev, seed=1000).items()}
+
+        def held_out(params) -> float:
+            """The loss on one batch the rounds never see (no grad)."""
+            with torch.no_grad():
+                return float(mdl.lm_loss(cfg, params, held))
+
+        with lm.single_rank_world("gloo", dev) as mesh:
+            trn = ShardedCEFedAvg(exp, mesh)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            params, opt = trn.init_fn()(0)
+            torch.cuda.synchronize()
+            n = mdl.param_count(params)
+            log(f"[{tag}] {n:,} params ({cfg.family}, {cfg.param_dtype}, "
+                f"{cfg.num_layers} layers"
+                + (f" in groups of {cfg.attn_every} + the shared attention "
+                   f"block (heads {cfg.num_heads} of {cfg.resolved_head_dim})"
+                   if n_attn else "")
+                + f", d_model {cfg.d_model}, {cfg.ssm_heads} SSD heads of "
+                f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+                f"{cfg.ssm_chunk}, vocab {cfg.vocab_size}); "
+                f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB on the "
+                f"card after init ({time.perf_counter() - t0:.2f} s); tau "
+                f"{fl.tau}, q {fl.q}, pi {fl.pi}, SGD momentum "
+                f"{exp.train.momentum} at lr {exp.train.learning_rate}, "
+                f"remat; {B} x {S} tokens a local step")
+            assert n == want_n, (arch, n)
+            before = held_out(params)
+            batches = [_train_family_batch(cfg, (fl.q, fl.tau, 1, B), S,
+                                           dev, seed=r)
+                       for r in range(LM_TRAIN_SSM_ROUNDS)]
+            round_fn = trn.make_global_round()
+            step, losses = 0, []
+            shapes = set()
+
+            def spy(q, k, v, causal=True, window=0, q_offset=0):
+                if q.requires_grad or k.requires_grad or v.requires_grad:
+                    shapes.add((q.shape[0], q.shape[1], k.shape[1],
+                                q.shape[2], k.shape[2], q.shape[3], causal,
+                                window, q_offset))
+                return orig_bshd(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+            fa.launches = fa.bwd_launches = 0
+            ss.launches = ss.bwd_launches = 0
+            for r, batch in enumerate(batches):
+                torch.cuda.reset_peak_memory_stats(dev)
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                fa.flash_attention_bshd = spy if r == 0 else orig_bshd
+                try:
+                    t0 = time.perf_counter()
+                    params, opt, metrics, step = round_fn(params, opt,
+                                                          batch, step)
+                    torch.cuda.synchronize()
+                    sec = time.perf_counter() - t0
+                finally:
+                    fa.flash_attention_bshd = orig_bshd
+                losses.append(metrics["loss"])
+                log(f"[{tag}] round {r}: {sec:.3f} s, {tokens / sec:,.0f} "
+                    f"local-step tokens/s, loss {metrics['loss']:.4f}, peak "
+                    f"device memory "
+                    f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+                    f"({torch.cuda.max_memory_reserved(dev) / 1e9:.2f} GB "
+                    f"reserved)")
+            launches = (fa.launches, fa.bwd_launches, ss.launches,
+                        ss.bwd_launches)
+            after = held_out(params)
+            n_steps = steps * LM_TRAIN_SSM_ROUNDS
+            want = (2 * n_attn * n_steps, n_attn * n_steps,
+                    2 * n_ssd * n_steps, n_ssd * n_steps)
+            log(f"[{tag}] {n_steps} local steps: launches B4 forward "
+                f"{launches[0]}, backward {launches[1]}, B5 forward "
+                f"{launches[2]}, backward {launches[3]} (want {want}: 2 + 1 "
+                f"a block and step under remat); round loss "
+                f"{' -> '.join(f'{x:.4f}' for x in losses)}, held-out batch "
+                f"{before:.4f} -> {after:.4f} (ln V = "
+                f"{math.log(cfg.vocab_size):.2f})")
+            if n_attn:
+                log(f"[{tag}] B4 training shapes (B, Sq, Sk, H, Hkv, D, "
+                    f"causal, window, q_offset): {sorted(shapes)}; phase 2c "
+                    f"held the backward at each: "
+                    f"{all(x[:-1] in checked and x[-1] == 0 for x in shapes)}")
+                assert shapes and all(x[:-1] in checked and x[-1] == 0
+                                      for x in shapes), sorted(shapes)
+            assert launches == want, (launches, want)
+            assert all(math.isfinite(x) for x in losses + [before, after])
+            assert after < before, (arch, before, after)
+            for i in range(4):
+                total[i] += launches[i]
+
+            # one local step under the profiler, after a warm-up step
+            local = trn.make_local_step()
+            torch.cuda.reset_peak_memory_stats(dev)
+            params, opt, _, step = local(params, opt, held, step)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, opt, _, step = local(params, opt, held, step)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            log(f"[{tag}] one local step under the profiler: {wall:.3f} s "
+                f"({B * S / wall:,.0f} tokens/s), peak device memory "
+                f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+            _train_breakdown(prof, wall, tag)
+            del params, opt, prof, trn, round_fn, local, batches, held
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        layers = LM_TRAIN_SSM_REMAT_LAYERS[arch]
+        t0 = time.perf_counter()
+        same = _remat_bitwise(dev, dataclasses.replace(cfg,
+                                                       num_layers=layers),
+                              B, S)
+        log(f"[{tag}] remat: {layers} of {cfg.num_layers} layers at full "
+            f"width, one bf16 step of {B} x {S} tokens with and without "
+            f"remat: loss and gradients equal bit for bit: {same} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        assert same, arch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # card against CPU in f32: one round of each reduced config
+    for arch in LM_TRAIN_SSM:
+        cfg = get_model_config(arch).reduced()
+        exp = experiment(arch, cfg)
+        fl = exp.fl
+        batch = _train_family_batch(cfg, (fl.q, fl.tau, 1, 2), 128,
+                                    torch.device("cpu"), seed=7)
+        ss.launches = ss.bwd_launches = 0
+        err, (lc, sc, nc), (lh, sh, nh) = _train_parity(dev, exp, batch)
+        nss = (ss.launches, ss.bwd_launches)
+        n_ssd, n_attn = blocks(cfg)
+        steps = fl.q * fl.tau
+        log(f"[lm_train_ssm] parity: {arch} (reduced: {cfg.num_layers} "
+            f"layers, d_model {cfg.d_model}, {cfg.ssm_heads} SSD heads of "
+            f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+            f"{cfg.ssm_chunk}; f32, remat), one round of 2 x 128 tokens a "
+            f"step: card ({sc:.2f} s; B5 forward x{nss[0]}, backward "
+            f"x{nss[1]}; B4 x{nc[0]}, x{nc[1]}) vs CPU ({sh:.2f} s, plain) "
+            f"params max abs diff {err:.3e}, loss {lc:.6f} vs {lh:.6f} "
+            f"(atol {LM_PARITY_TOL}, TF32 off)")
+        assert err <= LM_PARITY_TOL and abs(lc - lh) <= LM_PARITY_TOL, arch
+        assert nss == (2 * n_ssd * steps, n_ssd * steps), (arch, nss)
+        assert nc == (2 * n_attn * steps, n_attn * steps) and \
+            nh == (0, 0), (arch, nc, nh)
+    return tuple(total)
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; this smoke run "
@@ -3719,6 +4202,7 @@ def main() -> int:
     attn = phase_flash_attention(dev)
     attn_bwd = phase_flash_attention_bwd(dev)
     ssd = phase_ssd_scan(dev)
+    ssd_bwd = phase_ssd_scan_bwd(dev)
     phase_start(dev, "main")
     entry["launches"] = phase_main(dev)
     phase_start(dev, "population")
@@ -3746,14 +4230,22 @@ def main() -> int:
     train_attn, attn_bwd["launches"] = phase_lm_train(dev)
     phase_start(dev, "lm_train_families")
     fam_train_attn, fam_train_bwd = phase_lm_train_families(dev)
+    phase_start(dev, "lm_train_ssm")
+    ssm_attn, ssm_attn_bwd, ssm_ssd, ssd_bwd["launches"] = \
+        phase_lm_train_ssm(dev)
     log(f"[done] flash_attention launches: zamba2-2.7b prefill "
         f"{attn['launches']}, the four family prefills {family_attn}, "
         f"qwen2-0.5b training {train_attn}, the three families' training "
-        f"{fam_train_attn}; flash_attention_bwd launches in training "
+        f"{fam_train_attn}, zamba2-2.7b training {ssm_attn}; "
+        f"flash_attention_bwd launches in training "
         f"{attn_bwd['launches']} (qwen2-0.5b) + {fam_train_bwd} (the "
-        f"families)")
-    attn["launches"] += family_attn + train_attn + fam_train_attn
-    attn_bwd["launches"] += fam_train_bwd
+        f"families) + {ssm_attn_bwd} (zamba2-2.7b); ssd_intra_chunk "
+        f"launches: zamba2-2.7b prefill {ssd['launches']}, mamba2-2.7b "
+        f"and zamba2-2.7b training {ssm_ssd}; ssd_scan_bwd launches in "
+        f"training {ssd_bwd['launches']}")
+    attn["launches"] += family_attn + train_attn + fam_train_attn + ssm_attn
+    attn_bwd["launches"] += fam_train_bwd + ssm_attn_bwd
+    ssd["launches"] += ssm_ssd
     phase_start(dev, "lm decode")
     phase_lm_decode(dev)
     phase_lm_decode_families(dev)
@@ -3761,7 +4253,7 @@ def main() -> int:
     phase_parity(dev)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [entry, encode, decode, attn, attn_bwd,
-                                  ssd]}))
+                                  ssd, ssd_bwd]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

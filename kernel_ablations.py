@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """What each part of the port's gossip-mix (B1), flash-attention (B4),
-SSD intra-chunk (B5) and int8 cold-encode (B2) kernels costs, on one
-NVIDIA GPU.
+SSD intra-chunk (B5, and its backward) and int8 cold-encode (B2)
+kernels costs, on one NVIDIA GPU.
 
   python3 kernel_ablations.py
 
 Builds variants of ``src/repro_torch/kernels/csrc/gossip_mix.cu``,
-``flash_attention.cu``, ``flash_attention_bwd.cu``, ``ssd_scan.cu`` and
-``cold_codec.cu`` with one part of the work taken out (by text
-substitution of the committed sources, into a scratch build directory
+``flash_attention.cu``, ``flash_attention_bwd.cu``, ``ssd_scan.cu``,
+``ssd_scan_bwd.cu`` and ``cold_codec.cu`` with one part of the work
+taken out (by text substitution of the committed sources, into a
+scratch build directory
 under ``src/repro_torch/kernels/_build/``), and times each at the main
 path's shapes beside the committed kernel, CUDA events, median of 20:
 
@@ -24,7 +25,12 @@ path's shapes beside the committed kernel, CUDA events, median of 20:
   bf16, causal), through its wrapper, by its device time (the
   profiler's kernel time over 10 calls, as ``chip_smoke.py`` times it):
   with one dK/dV block a kv head (its 7 query heads in turn, no head
-  sum) in place of one a query head, and without the head sum.
+  sum) in place of one a query head, and without the head sum;
+- B5's backward at mamba2-2.7b's training shape (32 chunks of 256, 80
+  heads of 64, state 128, bf16), through its wrapper, by its device time
+  and its per-(chunk, head) kernel's: without the per-head dS stores
+  (the head sum then reads garbage), without the M^T dy products and
+  without the dy x^T products.
 
 A variant computes wrong results by design and is only timed; the
 committed kernel is checked against its plain version first. A
@@ -117,6 +123,27 @@ SSD_CUTS["loads only"] = SSD_CUTS["no states pass"] + [(
     "      if (has_y) {\n#pragma unroll\n        for (int b = 0; b < kMaxBlocks;",
     "      if (has_y && g.BK < 0) {\n#pragma unroll\n        for (int b = 0; "
     "b < kMaxBlocks;")]
+
+SSD_BWD_CUTS = {
+    "no dS stores": [(
+        "    dp[0] = make_float4(ds[0], ds[1], ds[2], ds[3]);\n"
+        "    dp[1] = make_float4(ds[4], ds[5], ds[6], ds[7]);\n",
+        "    if (g.BK < 0) dp[0] = make_float4(ds[0], ds[1], ds[2], ds[3]);\n")],
+    "no dx products": [(
+        "      mma_bf16(acc[2 * pp], mh, bh[0], bh[1]);\n"
+        "      mma_bf16(acc[2 * pp + 1], mh, bh[2], bh[3]);\n"
+        "      mma_bf16(acc[2 * pp], ml, bh[0], bh[1]);\n"
+        "      mma_bf16(acc[2 * pp + 1], ml, bh[2], bh[3]);\n"
+        "      mma_bf16(acc[2 * pp], mh, bl[0], bl[1]);\n"
+        "      mma_bf16(acc[2 * pp + 1], mh, bl[2], bl[3]);\n",
+        "      (void)bh;\n      (void)bl;\n")],
+    "no G products": [(
+        "      mma_bf16(gt, af, bh[0], bh[1]);\n"
+        "      mma_bf16(gt + 4, af, bh[2], bh[3]);\n"
+        "      mma_bf16(gt, af, bl[0], bl[1]);\n"
+        "      mma_bf16(gt + 4, af, bl[2], bl[3]);\n",
+        "      (void)af;\n      (void)bh;\n      (void)bl;\n")],
+}
 
 ENCODE_CUTS = {
     "absmax pass alone": [(
@@ -306,6 +333,41 @@ def ssd(libs, dev) -> dict:
     return out
 
 
+def ssd_bwd(libs, dev) -> dict:
+    """B5's backward through its wrapper at mamba2-2.7b's training shape
+    (32 chunks of 256, 80 heads of 64, state 128, bf16), each variant's
+    library in place of the committed one: the call's device time and,
+    beside it, its per-(chunk, head) kernel's (``ssd_scan_bwd_chunk``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ss
+    Bsz, K, C, H, P, N = cs.SSD_BWD_TRAIN_PATHS["mamba2-2.7b"]
+    BK = Bsz * K
+    gen = torch.Generator(dev).manual_seed(14)
+    x, a, Bm, Cm, d = cs._ssd_inputs(gen, dev, BK, H, C, P, N,
+                                     torch.bfloat16)
+    dy = torch.randn((BK, H, C, P), device=dev, generator=gen)
+    dst = torch.randn((BK, H, N, P), device=dev, generator=gen)
+    committed = ss._bwd_library
+    out = {}
+    try:
+        for name, lib in libs.items():
+            ss._bwd_library = lambda lib=ss.bind_bwd(lib): lib
+
+            def run():
+                return ss._launch_bwd(x, a, Bm, Cm, d, dy, dst)
+            if name == "kernel":
+                cs._ssd_bwd_close(run(), ref.ssd_intra_chunk_bwd_ref(
+                    x, a, Bm, Cm, d, dy, dst), torch.bfloat16,
+                    "ssd_scan_bwd training shape")
+            ms, by_kernel = cs.device_ms(run)
+            out[name] = ms
+            out[f"{name}, per-(chunk, head) kernel"] = sum(
+                t for k, t in by_kernel.items() if "ssd_scan_bwd_chunk" in k)
+    finally:
+        ss._bwd_library = committed
+    return out
+
+
 def encode(libs, dev) -> dict:
     from repro_torch.kernels import cold_codec as cc
     from repro_torch.kernels import ref
@@ -358,6 +420,7 @@ KERNELS = (("gossip_mix", "gossip_mix.cu", GOSSIP_CUTS, gossip),
            ("flash_attention_bwd", "flash_attention_bwd.cu",
             ATTENTION_BWD_CUTS, attention_bwd),
            ("ssd_intra_chunk", "ssd_scan.cu", SSD_CUTS, ssd),
+           ("ssd_scan_bwd", "ssd_scan_bwd.cu", SSD_BWD_CUTS, ssd_bwd),
            ("int8 encode", "cold_codec.cu", ENCODE_CUTS, encode))
 
 

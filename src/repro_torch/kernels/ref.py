@@ -213,6 +213,67 @@ def ssd_intra_chunk_ref(x: torch.Tensor, a_t: torch.Tensor,
     return y, states
 
 
+def ssd_intra_chunk_bwd_ref(x: torch.Tensor, a_t: torch.Tensor,
+                            Bc: torch.Tensor, Cc: torch.Tensor,
+                            dtc: torch.Tensor, dy: torch.Tensor,
+                            dst: torch.Tensor | None):
+    """Plain version of the SSD intra-chunk backward
+    (``kernels.ssd_scan``'s ``_launch_bwd``): the gradients of
+    :func:`ssd_intra_chunk_ref` written out in f32. Shapes as there, dy
+    (BK, H, C, P) and dst (BK, H, N, P) f32 (None: no gradient of the
+    states). Per (chunk, head), with cum = cumsum(a), L_ij = exp(cum_i -
+    cum_j) for i >= j (else 0), S = C Bᵀ, M = S ∘ L ∘ dt_j, w_j =
+    exp(cum_end - cum_j) dt_j and G = dy xᵀ masked to i >= j:
+
+        dx     = Mᵀ dy + w ∘ (B dst)
+        dS     = G ∘ L ∘ dt_j;  D = Σ_h dS
+        dC     = D B;  dB = Dᵀ C + Σ_h w ∘ (x dstᵀ)
+        ddt_j  = Σ_i (G ∘ S ∘ L)_ij + exp(cum_end - cum_j) x_j·(B_j dst)
+        dcum_i = Σ_j (G ∘ M)_ij - Σ_k (G ∘ M)_ki - R_i (+ Σ_j R_j at the
+                 chunk's last row), R_j = w_j x_j·(B_j dst)
+
+    and da the reverse cumulative sum of dcum. Returns (dx, da, dB, dC,
+    ddt), each in its input's dtype."""
+    f32 = torch.float32
+    xf, a, Bf, Cf, dt = (t.to(f32) for t in (x, a_t, Bc, Cc, dtc))
+    g = dy.to(f32)
+    C = x.shape[2]
+    cum = torch.cumsum(a, dim=-1)                        # (BK,H,C)
+    mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=x.device))
+    diff = cum[..., :, None] - cum[..., None, :]
+    zero = torch.zeros((), device=x.device)
+    # exp only below the diagonal: above it the exponent may be positive
+    L = torch.where(mask, torch.exp(torch.where(mask, diff, zero)), zero)
+    S = torch.einsum("bin,bjn->bij", Cf, Bf)[:, None]    # (BK,1,C,C)
+    G = torch.where(mask, torch.einsum("bhip,bhjp->bhij", g, xf), zero)
+    dtj = dt[..., None, :]
+    M = S * L * dtj
+    dS = G * L * dtj
+    GSL = G * S * L
+    GM = GSL * dtj
+    dx = torch.einsum("bhij,bhip->bhjp", M, g)
+    ddt = GSL.sum(dim=-2)
+    dcum = GM.sum(dim=-1) - GM.sum(dim=-2)
+    D = dS.sum(dim=1)                                    # (BK,C,C)
+    dC = torch.einsum("bij,bjn->bin", D, Bf)
+    dB = torch.einsum("bij,bin->bjn", D, Cf)
+    if dst is not None:
+        sf = dst.to(f32)
+        e = torch.exp(cum[..., -1:] - cum)               # (BK,H,C)
+        w = e * dt
+        Q = torch.einsum("bjn,bhnp->bhjp", Bf, sf)       # B dst
+        dx = dx + w[..., None] * Q
+        xq = (xf * Q).sum(dim=-1)                        # x_j·(B_j dst)
+        ddt = ddt + e * xq
+        R = w * xq
+        dcum = dcum - R
+        dcum[..., -1] += R.sum(dim=-1)
+        dB = dB + torch.einsum("bhj,bhjp,bhnp->bjn", w, xf, sf)
+    da = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), dim=-1), (-1,))
+    return (dx.to(x.dtype), da.to(a_t.dtype), dB.to(Bc.dtype),
+            dC.to(Cc.dtype), ddt.to(dtc.dtype))
+
+
 def ssd_intra_states_fn_ref(xc: torch.Tensor, a_t: torch.Tensor,
                             Bc: torch.Tensor, Cc: torch.Tensor,
                             dtc: torch.Tensor):

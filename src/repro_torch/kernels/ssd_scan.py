@@ -32,10 +32,20 @@ aligned x, B and C whose strides are multiples of 8 elements (and
 writes 16-byte aligned outputs with strides that are multiples of 4,
 as the wrappers allocate them); the launch of any other bf16 layout
 raises. On a CPU tensor each wrapper takes its plain version
-(:mod:`repro_torch.kernels.ref`). On a CUDA tensor it launches the
-kernel or raises; nothing falls back. The kernel has no backward (nor
-has the TPU kernel): a CUDA input that requires grad raises
-NotImplementedError. ``launches`` counts kernel launches.
+(:mod:`repro_torch.kernels.ref`), which autograd differentiates. On a
+CUDA tensor it launches the kernel or raises; nothing falls back.
+
+Training: on a CUDA tensor that requires grad (autograd recording) the
+wrappers go through ``_SSDIntraChunk``, a ``torch.autograd.Function``
+whose forward is one launch of the kernel above (saving its inputs) and
+whose backward is one launch of ``csrc/ssd_scan_bwd.cu``, B5's backward
+(the TPU kernel has none; the reference trains through XLA's autodiff
+of its einsum path): dx in x's type and layout, da and ddt in f32, dB
+and dC summed over the heads in head order (no atomics), and a states
+gradient of None (``make_intra_fn`` drops the states) taken as none.
+``launches`` counts forward launches and ``bwd_launches`` backward
+launches (one a backward call, which is four kernels: the scores once a
+chunk, the per-(chunk, head) gradients, the head sum, dB and dC).
 """
 from __future__ import annotations
 
@@ -53,9 +63,10 @@ STATE_SIZES = (16, 32, 64, 128)
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-#: launches of the CUDA kernel; reset it to 0 before a run whose
-#: launches are to be read
+#: launches of the CUDA forward and backward kernels; reset them to 0
+#: before a run whose launches are to be read
 launches = 0
+bwd_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,6 +81,27 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C signatures of a build of ``csrc/ssd_scan_bwd.cu`` (also a
+    variant's, for ``kernel_ablations.py``)."""
+    p = ctypes.c_void_p
+    ll = ctypes.c_longlong
+    lib.ssd_scan_bwd_workspace.argtypes = [ll, ll, ll, ll, ctypes.c_int]
+    lib.ssd_scan_bwd_workspace.restype = ll
+    lib.ssd_scan_bwd_launch.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, p, p, p,
+        ctypes.POINTER(ll), ctypes.c_int, p]
+    lib.ssd_scan_bwd_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    """The backward's library, built on first use, with its C
+    signatures."""
+    return bind_bwd(_build.load("ssd_scan_bwd"))
+
+
 def _launch(x: torch.Tensor, a: torch.Tensor, Bc: torch.Tensor,
             Cc: torch.Tensor, dt: torch.Tensor, y: torch.Tensor,
             st: torch.Tensor) -> None:
@@ -77,11 +109,6 @@ def _launch(x: torch.Tensor, a: torch.Tensor, Bc: torch.Tensor,
     (BK, H, C), B/C (BK, C, N), st (BK, H, N, P): any strides, the last
     axis of x, B, C, y and st contiguous."""
     global launches
-    if any(t.requires_grad for t in (x, a, Bc, Cc, dt)):
-        raise NotImplementedError(
-            "ssd_intra_chunk has no backward yet (nor has the TPU kernel), "
-            "so ssm and hybrid models do not train on the card: ROADMAP "
-            "A17 (B5's backward, then ssm/hybrid training)")
     for t in (a, Bc, Cc, dt, y, st):
         if t.device != x.device:
             raise ValueError(f"ssd_intra_chunk: tensors on {x.device} and "
@@ -126,6 +153,108 @@ def _launch(x: torch.Tensor, a: torch.Tensor, Bc: torch.Tensor,
     launches += 1
 
 
+def _new_like(x: torch.Tensor, dtype: torch.dtype, last: int):
+    """An empty (BK, H, C, last) tensor of ``dtype`` laid out as x is: a
+    view of (BK, C, H, last) where x is one (the model's layout), else
+    contiguous."""
+    BK, H, C, _ = x.shape
+    if H > 1 and x.stride(1) < x.stride(2):
+        return torch.empty((BK, C, H, last), dtype=dtype,
+                           device=x.device).transpose(1, 2)
+    return torch.empty((BK, H, C, last), dtype=dtype, device=x.device)
+
+
+def _forward(x, a, Bc, Cc, dt):
+    """(y, states) of one forward launch on (BK, H, C, P) CUDA views, y
+    laid out as x is."""
+    BK, H, C, P = x.shape
+    y = _new_like(x, torch.float32, P)
+    st = torch.empty((BK, H, Bc.shape[-1], P), dtype=torch.float32,
+                     device=x.device)
+    _launch(x, a, Bc, Cc, dt, y, st)
+    return y, st
+
+
+def _launch_bwd(x: torch.Tensor, a: torch.Tensor, Bc: torch.Tensor,
+                Cc: torch.Tensor, dt: torch.Tensor, dy: torch.Tensor,
+                dst):
+    """(dx, da, dB, dC, ddt) of the intra-chunk block on the card: B5's
+    backward, one call of ``csrc/ssd_scan_bwd.cu``. x (BK, H, C, P), a/dt
+    (BK, H, C) f32, B/C (BK, C, N), dy (BK, H, C, P) f32, dst (BK, H, N,
+    P) f32 or None: x, a, B, C and dt as the forward's launch took them
+    (``_launch`` checked them), dy and dst of any strides. dx comes back
+    in x's type and layout, dB and dC in B's and C's type, da and ddt
+    f32."""
+    global bwd_launches
+    BK, H, C, P = x.shape
+    N = Bc.shape[-1]
+    dy, dst = (None if t is None else t if t.stride(-1) == 1 else
+               t.contiguous() for t in (dy, dst))
+    dx = _new_like(x, x.dtype, P)
+    da = torch.empty((BK, H, C), dtype=torch.float32, device=x.device)
+    ddt = torch.empty_like(da)
+    dB = torch.empty((BK, C, N), dtype=Bc.dtype, device=x.device)
+    dC = torch.empty((BK, C, N), dtype=Cc.dtype, device=x.device)
+    lib = _bwd_library()
+    ws = torch.empty(lib.ssd_scan_bwd_workspace(BK, H, C, N,
+                                                int(dst is not None)),
+                     dtype=torch.float32, device=x.device)
+    dims = [BK, H, C, P, N]
+    for t in (x, a, dt):
+        dims += [t.stride(0), t.stride(1), t.stride(2)]
+    for t in (Bc, Cc):
+        dims += [t.stride(0), t.stride(1)]
+    for t in (dy, dst if dst is not None else dy, dx):
+        dims += [t.stride(0), t.stride(1), t.stride(2)]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ssd_scan_bwd_launch(
+            x.data_ptr(), a.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+            dt.data_ptr(), dy.data_ptr(),
+            None if dst is None else dst.data_ptr(), dx.data_ptr(),
+            da.data_ptr(), dB.data_ptr(), dC.data_ptr(), ddt.data_ptr(),
+            ws.data_ptr(), (ctypes.c_longlong * len(dims))(*dims),
+            _DTYPE_CODE[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_intra_chunk backward launch failed: CUDA "
+                           f"error {rc} (x {tuple(x.shape)} {x.dtype}, N "
+                           f"{N}; bf16 takes only 16-byte aligned x with "
+                           f"strides that are multiples of 8)")
+    bwd_launches += 1
+    return dx, da, dB, dC, ddt
+
+
+class _SSDIntraChunk(torch.autograd.Function):
+    """The intra-chunk block on the card with the hand-written backward:
+    x (BK, H, C, P), a/dt (BK, H, C) f32, B/C (BK, C, N) -> (y_intra
+    (BK, H, C, P), states (BK, H, N, P)) f32, y laid out as x is
+    (``_new_like``)."""
+
+    @staticmethod
+    def forward(ctx, x, a, Bc, Cc, dt):
+        y, st = _forward(x, a, Bc, Cc, dt)
+        ctx.save_for_backward(x, a, Bc, Cc, dt)
+        ctx.set_materialize_grads(False)
+        return y, st
+
+    @staticmethod
+    def backward(ctx, dy, dst):
+        x, a, Bc, Cc, dt = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        return _launch_bwd(x, a, Bc, Cc, dt, dy, dst)
+
+
+def _intra_chunk(x, a, Bc, Cc, dt):
+    """(y, states) of (BK, H, C, P) CUDA views: through ``_SSDIntraChunk``
+    when autograd records and an input requires grad, else one forward
+    launch. y is laid out as x is."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, a, Bc, Cc, dt)):
+        return _SSDIntraChunk.apply(x, a, Bc, Cc, dt)
+    return _forward(x, a, Bc, Cc, dt)
+
+
 def ssd_intra_chunk(x: torch.Tensor, a_t: torch.Tensor, Bc: torch.Tensor,
                     Cc: torch.Tensor, dtc: torch.Tensor):
     """x: (BK, H, C, P); a_t/dtc: (BK, H, C); Bc/Cc: (BK, C, N). Returns
@@ -134,30 +263,22 @@ def ssd_intra_chunk(x: torch.Tensor, a_t: torch.Tensor, Bc: torch.Tensor,
         return _ref.ssd_intra_chunk_ref(x, a_t, Bc, Cc, dtc)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_intra_chunk: no kernel for {x.device}")
-    BK, H, C, P = x.shape
-    N = Bc.shape[-1]
-    y = torch.empty((BK, H, C, P), dtype=torch.float32, device=x.device)
-    st = torch.empty((BK, H, N, P), dtype=torch.float32, device=x.device)
-    _launch(x, a_t.float(), Bc, Cc, dtc.float(), y, st)
-    return y, st
+    return _intra_chunk(x, a_t.float(), Bc, Cc, dtc.float())
 
 
 def _intra_kernel(xc, a_t, Bc, Cc, dtc):
     """The adapters' launch: the kernel reads the (B,K,C,H,P) layout and
     writes y_intra in it through strides, and the states as (B,K,H,N,P).
     """
-    if xc.device.type != "cuda":
-        raise ValueError(f"ssd_intra_chunk: no kernel for {xc.device}")
     B, K, C, H, P = xc.shape
     N = Bc.shape[-1]
-    y = torch.empty((B, K, C, H, P), dtype=torch.float32, device=xc.device)
-    st = torch.empty((B, K, H, N, P), dtype=torch.float32, device=xc.device)
-    _launch(xc.permute(0, 1, 3, 2, 4).reshape(B * K, H, C, P),
-            a_t.reshape(B * K, H, C).float(), Bc.reshape(B * K, C, N),
-            Cc.reshape(B * K, C, N),
-            dtc.permute(0, 1, 3, 2).reshape(B * K, H, C).float(),
-            y.view(B * K, C, H, P).transpose(1, 2), st.view(B * K, H, N, P))
-    return y, st
+    y, st = _intra_chunk(
+        xc.permute(0, 1, 3, 2, 4).reshape(B * K, H, C, P),
+        a_t.reshape(B * K, H, C).float(), Bc.reshape(B * K, C, N),
+        Cc.reshape(B * K, C, N),
+        dtc.permute(0, 1, 3, 2).reshape(B * K, H, C).float())
+    return (y.transpose(1, 2).reshape(B, K, C, H, P),
+            st.reshape(B, K, H, N, P))
 
 
 def make_intra_states_fn():
@@ -167,6 +288,8 @@ def make_intra_states_fn():
     def intra(xc, a_t, Bc, Cc, dtc):
         if xc.device.type == "cpu":
             return _ref.ssd_intra_states_fn_ref(xc, a_t, Bc, Cc, dtc)
+        if xc.device.type != "cuda":
+            raise ValueError(f"ssd_intra_chunk: no kernel for {xc.device}")
         return _intra_kernel(xc, a_t, Bc, Cc, dtc)
     return intra
 
@@ -178,5 +301,7 @@ def make_intra_fn():
     def intra(xc, a_t, Bc, Cc, dtc):
         if xc.device.type == "cpu":
             return _ref.ssd_intra_fn_ref(xc, a_t, Bc, Cc, dtc)
+        if xc.device.type != "cuda":
+            raise ValueError(f"ssd_intra_chunk: no kernel for {xc.device}")
         return _intra_kernel(xc, a_t, Bc, Cc, dtc)[0]
     return intra

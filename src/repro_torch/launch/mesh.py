@@ -205,6 +205,13 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
+    if backend == "gloo":
+        # gloo connects the full mesh inside init, and a rank may return
+        # from it while a peer is still reading its side of a pair: were
+        # that rank to finish and close its pairs (a short ``fn``), the
+        # peer's init fails ("Connection closed by peer"). No rank leaves
+        # before every rank has joined.
+        dist.barrier()
     return dev
 
 

@@ -10,7 +10,11 @@ The intra-chunk block goes through a hook of :func:`ssd_chunked`.
 Without one, a CUDA tensor takes the hand-written kernel
 (:func:`repro_torch.kernels.ssd_scan.make_intra_states_fn`), whose one
 launch also gives the chunk states, and a CPU tensor the plain einsum
-path of the reference. The recurrence stays plain torch on both.
+path of the reference. Under autograd the kernel's gradients come from
+its hand-written backward (``csrc/ssd_scan_bwd.cu``, through
+``kernels.ssd_scan._SSDIntraChunk``), so the ssm and hybrid families
+train on the card; on the CPU autograd differentiates the einsum path.
+The recurrence stays plain torch on both.
 """
 from __future__ import annotations
 

@@ -227,11 +227,12 @@ def test_forward_remat_keeps_the_outputs():
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "pixtral-12b",
-                                  "whisper-medium"])
+                                  "whisper-medium", "mamba2-2.7b",
+                                  "zamba2-2.7b"])
 def test_launcher_trains_the_families(arch):
     """``--engine pytree`` (the launcher's default) for one arch of each
-    of the moe, vlm and encdec families: one reduced round on the CPU in
-    a world of one, a finite loss."""
+    of the moe, vlm, encdec, ssm and hybrid families: one reduced round
+    on the CPU in a world of one, a finite loss."""
     from repro_torch.launch import train
     out = train.main(["--arch", arch, "--reduced", "--device", "cpu",
                       "--dist-backend", "gloo", "--rounds", "1"])
