@@ -66,13 +66,15 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  phase 2d) through ``torch.autograd.grad`` of
                  ``ssd_intra_chunk`` against ``ssd_intra_chunk_bwd_ref``
                  over SSD_BWD_SWEEP (C 64-256, N 16-128, P 32-128, the
-                 reduced configs' (64, 16, 64)), f32 and bf16, with and
-                 without a states gradient (f32 within 1e-4, bf16 2e-2
-                 of each gradient's largest entry), then bf16 at phase
-                 7e's two training shapes, also through
-                 ``make_intra_states_fn`` in the model's strided layout,
-                 two runs bit for bit, timed beside its bound and its
-                 plain version (no library call computes it). The
+                 reduced configs' (64, 16, 64), one head group to a
+                 group a head), f32 and bf16, with and without a states
+                 gradient (f32 within 1e-4, bf16 2e-2 of each gradient's
+                 largest entry), then bf16 at phase 7e's two training
+                 shapes, also through ``make_intra_states_fn`` in the
+                 model's strided layout, two runs bit for bit, timed by
+                 kernel beside its bound and its plain version (no
+                 library call computes it), its workspace logged (at
+                 most 0.1 GB at mamba2-2.7b's shape, asserted). The
                  backwards run through ``torch.autograd.grad`` and are
                  timed by the profiler's device time (``device_ms``).
 3. main       — the paper's FEMNIST experiment (``configs/femnist_cnn``:
@@ -419,9 +421,17 @@ FA_BWD_TRAIN_PATHS = (
 #: rounded to bf16 on both sides from f32 sums in other orders)
 SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: the sweep (BK, H, C, P, N): the forward's, the kernel's other C, N
-#: and P, and the reduced configs' (64, 16, 64)
+#: and P, and the reduced configs' (64, 16, 64); then the head groups of
+#: the tiles kernel (``head_groups`` in csrc/ssd_scan_bwd.cu: the fewest
+#: that leave 528 blocks): one group of two heads (132 chunks of 4
+#: column tiles), and four uneven groups of 1, 2, 2 and 2 heads (33
+#: chunks); the shapes above take a group a head, the training shapes 5
+#: groups of 16
 SSD_BWD_SWEEP = SSD_SWEEP + ((2, 4, 64, 64, 16), (2, 4, 192, 32, 32),
-                             (1, 3, 256, 128, 128), (3, 2, 64, 32, 64))
+                             (1, 3, 256, 128, 128), (3, 2, 64, 32, 64),
+                             (132, 2, 256, 64, 16), (33, 7, 256, 32, 64))
+#: the workspace B5's backward may take at mamba2-2.7b's training shape
+SSD_BWD_MAX_WORKSPACE = 0.1e9
 #: the shapes phase 7e trains at: (B, K, C, H, P, N) of each arch
 SSD_BWD_TRAIN_PATHS = {"mamba2-2.7b": (4, 8, 256, 80, 64, 128),
                        "zamba2-2.7b": (2, 16, 256, 80, 64, 64)}
@@ -3378,7 +3388,8 @@ def phase_ssd_scan_bwd(dev: torch.device) -> dict:
     model's strided layout (``_ssd_adapter_check``), two runs bit for bit
     (no atomics); each training shape timed by the profiler's device
     time through ``autograd.grad`` (by kernel), beside its bound and the
-    plain version's time. No one PyTorch call computes this function
+    plain version's time, and its workspace (SSD_BWD_MAX_WORKSPACE at
+    mamba2-2.7b's shape). No one PyTorch call computes this function
     (library_ms None)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ss
@@ -3400,8 +3411,9 @@ def phase_ssd_scan_bwd(dev: torch.device) -> dict:
                     f"{'with' if states is not None else 'without'} a "
                     f"states gradient"))
     log(f"[kernels] ssd_scan_bwd sweep ({len(SSD_BWD_SWEEP)} shapes: C "
-        f"64-256, N 16-128, P 32-128; f32 and bf16, with and without a "
-        f"states gradient): max err over the largest gradient f32 "
+        f"64-256, N 16-128, P 32-128, one head group to a group a head; "
+        f"f32 and bf16, with and without a states gradient): max err over "
+        f"the largest gradient f32 "
         f"{worst[torch.float32]:.3e} (tol {SSD_BWD_TOL[torch.float32]}, "
         f"rtol and atol of the largest), bf16 {worst[torch.bfloat16]:.3e} "
         f"(tol {SSD_BWD_TOL[torch.bfloat16]})")
@@ -3437,9 +3449,13 @@ def phase_ssd_scan_bwd(dev: torch.device) -> dict:
             x, a, Bm, Cm, d, dy, dst), reps=3)
         torch.cuda.empty_cache()
         b_ms, b_by, nbytes, flops = _ssd_bwd_bound(BK, H, C, P, N)
+        ws = 4 * ss._bwd_library().ssd_scan_bwd_workspace(BK, H, C, N, 1)
         log(f"[kernels] ssd_scan_bwd {arch} training shape, device time a "
             f"call by kernel: " + ", ".join(
-                f"{_short_name(n)} {t:.4f} ms" for n, t in by_kernel.items()))
+                f"{_short_name(n)} {t:.4f} ms" for n, t in by_kernel.items())
+            + f"; workspace {ws / 1e6:.1f} MB")
+        if arch == "mamba2-2.7b":
+            assert ws <= SSD_BWD_MAX_WORKSPACE, ws
         log(f"[kernels] ssd_scan_bwd {arch} training shape (BK={BK}, H={H}, "
             f"C={C}, P={P}, N={N}; x/B/C bf16, a/dt/dy/dst f32): gradients "
             f"max err {err:.3e} of the largest gradient (tol "

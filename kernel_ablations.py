@@ -28,9 +28,15 @@ path's shapes beside the committed kernel, CUDA events, median of 20:
   sum) in place of one a query head, and without the head sum;
 - B5's backward at mamba2-2.7b's training shape (32 chunks of 256, 80
   heads of 64, state 128, bf16), through its wrapper, by its device time
-  and its per-(chunk, head) kernel's: without the per-head dS stores
-  (the head sum then reads garbage), without the M^T dy products and
-  without the dy x^T products.
+  and each of its three kernels': without adding dS into D's sum over
+  the heads, without the M^T dy products, without the dy x^T and B C^T
+  products, without the elementwise terms, and with all of these and
+  the hi/lo split of the tiles cut (the loads, barriers and stores
+  alone); without the tile copies (the stages keep stale data: the
+  compute alone); with twice the head groups (half the heads a block,
+  twice D's partials); and with the grid's other order (the column tiles
+  of a (chunk, head group) side by side, for dy's reuse in L2, in place
+  of the longest column tiles first).
 
 A variant computes wrong results by design and is only timed; the
 committed kernel is checked against its plain version first. A
@@ -125,25 +131,41 @@ SSD_CUTS["loads only"] = SSD_CUTS["no states pass"] + [(
     "b < kMaxBlocks;")]
 
 SSD_BWD_CUTS = {
-    "no dS stores": [(
-        "    dp[0] = make_float4(ds[0], ds[1], ds[2], ds[3]);\n"
-        "    dp[1] = make_float4(ds[4], ds[5], ds[6], ds[7]);\n",
-        "    if (g.BK < 0) dp[0] = make_float4(ds[0], ds[1], ds[2], ds[3]);\n")],
+    "no D accumulation over heads": [(
+        "    if (!first) {\n      const float4 o = dpos[nb * 128 + t];",
+        "    if (N < 0) {\n      const float4 o = dpos[nb * 128 + t];"), (
+        "    dpos[nb * 128 + t] = d;\n",
+        "    if (N < 0) dpos[nb * 128 + t] = d;\n")],
     "no dx products": [(
-        "      mma_bf16(acc[2 * pp], mh, bh[0], bh[1]);\n"
-        "      mma_bf16(acc[2 * pp + 1], mh, bh[2], bh[3]);\n"
-        "      mma_bf16(acc[2 * pp], ml, bh[0], bh[1]);\n"
-        "      mma_bf16(acc[2 * pp + 1], ml, bh[2], bh[3]);\n"
-        "      mma_bf16(acc[2 * pp], mh, bl[0], bl[1]);\n"
-        "      mma_bf16(acc[2 * pp + 1], mh, bl[2], bl[3]);\n",
-        "      (void)bh;\n      (void)bl;\n")],
-    "no G products": [(
-        "      mma_bf16(gt, af, bh[0], bh[1]);\n"
-        "      mma_bf16(gt + 4, af, bh[2], bh[3]);\n"
-        "      mma_bf16(gt, af, bl[0], bl[1]);\n"
-        "      mma_bf16(gt + 4, af, bl[2], bl[3]);\n",
-        "      (void)af;\n      (void)bh;\n      (void)bl;\n")],
+        "      issue_dx<P>(hs.dx, mh, ml, hi, lo);\n",
+        "      if (g.BK < 0) issue_dx<P>(hs.dx, mh, ml, hi, lo);\n")],
+    "no G/S products": [(
+        "      issue_g<P>(acc, xt, hi, lo);\n",
+        "#pragma unroll\n      for (int i = 0; i < kNS; ++i) acc[i] = 0.f;\n"), (
+        "      for (int kb = 0; kb < NB; ++kb)\n        Wgmma<kT>::ss(sreg[q],",
+        "      for (int kb = 0; kb < NB && g.BK < 0; ++kb)\n"
+        "        Wgmma<kT>::ss(sreg[q],")],
+    "no elementwise terms": [(
+        "      if (p >= nr)\n        elementwise<kVirtual>(",
+        "      if (g.BK >= 0) {\n      } else if (p >= nr)\n"
+        "        elementwise<kVirtual>(")],
 }
+SSD_BWD_CUTS["the column tiles of a (chunk, group) together"] = [(
+    "  const int per = g.BK * g.groups;\n  jt = b / per;\n"
+    "  const int rest = b - jt * per;\n",
+    "  jt = b % g.ntj;\n  const int rest = b / g.ntj;\n")]
+SSD_BWD_CUTS["no tile loads (the compute alone)"] = [(
+    "      wait_bar(bar_full + 8 * s, (n / SW) & 1);\n",
+    "      if (g.BK < 0) wait_bar(bar_full + 8 * s, (n / SW) & 1);\n"), (
+    "  auto load_tile = [&](int n) {\n",
+    "  auto load_tile = [&](int n) {\n    if (g.BK >= 0) return;\n")]
+SSD_BWD_CUTS["twice the head groups"] = [(
+    "constexpr int kTargetBlocks = 528;", "constexpr int kTargetBlocks = 1056;")]
+SSD_BWD_CUTS["loads only"] = [(
+    "      split_tile<P>(sm + L::kRing",
+    "      if (g.BK < 0) split_tile<P>(sm + L::kRing")] + [
+    cut for name in SSD_BWD_CUTS for cut in SSD_BWD_CUTS[name]
+    if name in ("no dx products", "no G/S products", "no elementwise terms")]
 
 ENCODE_CUTS = {
     "absmax pass alone": [(
@@ -337,7 +359,8 @@ def ssd_bwd(libs, dev) -> dict:
     """B5's backward through its wrapper at mamba2-2.7b's training shape
     (32 chunks of 256, 80 heads of 64, state 128, bf16), each variant's
     library in place of the committed one: the call's device time and,
-    beside it, its per-(chunk, head) kernel's (``ssd_scan_bwd_chunk``)."""
+    beside it, each of its three kernels' (``ssd_scan_bwd_tiles``,
+    ``_dbdc``, ``_da``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as ss
     Bsz, K, C, H, P, N = cs.SSD_BWD_TRAIN_PATHS["mamba2-2.7b"]
@@ -361,8 +384,10 @@ def ssd_bwd(libs, dev) -> dict:
                     "ssd_scan_bwd training shape")
             ms, by_kernel = cs.device_ms(run)
             out[name] = ms
-            out[f"{name}, per-(chunk, head) kernel"] = sum(
-                t for k, t in by_kernel.items() if "ssd_scan_bwd_chunk" in k)
+            for kernel in ("tiles", "dbdc", "da"):
+                out[f"{name}, {kernel}"] = sum(
+                    t for k, t in by_kernel.items()
+                    if cs._short_name(k) == f"ssd_scan_bwd_{kernel}")
     finally:
         ss._bwd_library = committed
     return out

@@ -44,8 +44,9 @@ of its einsum path): dx in x's type and layout, da and ddt in f32, dB
 and dC summed over the heads in head order (no atomics), and a states
 gradient of None (``make_intra_fn`` drops the states) taken as none.
 ``launches`` counts forward launches and ``bwd_launches`` backward
-launches (one a backward call, which is four kernels: the scores once a
-chunk, the per-(chunk, head) gradients, the head sum, dB and dC).
+launches (one a backward call, which is three kernels: the gradients of
+a (chunk, 64-wide column tile, head group), with D = Σ_h dS summed over
+the group's heads on chip; dB and dC from the groups' partials; da).
 """
 from __future__ import annotations
 
