@@ -60,9 +60,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  bf16 at the seven FA_FAMILY_PATHS shapes (D = 128,
                  windows, non-causal, cross; the plain version a batch
                  row's kv group at a time where its scores pass 8 GB)
-                 and at the training shapes of 7d they lack
-                 (FA_BWD_TRAIN_PATHS), each timed beside the SDPA
-                 backward. B5's backward (``csrc/ssd_scan_bwd.cu``,
+                 and at the training shapes of 7d and 7f they lack
+                 (FA_BWD_TRAIN_PATHS; 7f's rank shapes also in f32 and
+                 the forward's output, FA_TP_PATHS, and the reduced
+                 rounds' in f32, FA_TP_REDUCED), each timed beside the
+                 SDPA backward. B5's backward (``csrc/ssd_scan_bwd.cu``,
                  phase 2d) through ``torch.autograd.grad`` of
                  ``ssd_intra_chunk`` against ``ssd_intra_chunk_bwd_ref``
                  over SSD_BWD_SWEEP (C 64-256, N 16-128, P 32-128, the
@@ -70,7 +72,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  group a head), f32 and bf16, with and without a states
                  gradient (f32 within 1e-4, bf16 2e-2 of each gradient's
                  largest entry), then bf16 at phase 7e's two training
-                 shapes, also through ``make_intra_states_fn`` in the
+                 shapes and 7f's rank shape of 40 heads (forward and
+                 backward, bf16 and f32; the reduced rounds' in f32),
+                 also through ``make_intra_states_fn`` in the
                  model's strided layout, two runs bit for bit, timed by
                  kernel beside its bound and its plain version (no
                  library call computes it), its workspace logged (at
@@ -182,6 +186,21 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  reduced depth with and without remat, bit for bit; one
                  f32 round of each reduced config on the card against
                  the CPU within 1e-4.
+7f. lm_train_tp — tensor parallelism within a replica
+                 (``--model-parallel``) over gloo ranks sharing the
+                 card: qwen2-0.5b whole at dp 2 x mp 2 (4 ranks, 2 x
+                 1024) beside dp 2 x mp 1 from the same seed,
+                 zamba2-2.7b whole at mp 2 (remat, 1 x 4096) and
+                 mixtral-8x7b at 3 of 32 layers at mp 2 (1 x 8192), 2
+                 rounds each at the launcher's defaults: params a rank,
+                 round seconds (max over ranks), a rank's bytes by group
+                 (model, data) and collective, peak by rank, B4's and
+                 B5's launches a step (asserted), every launch at a
+                 shape phases 2c and 2d held in its dtype (asserted), a
+                 held-out loss that must fall; then one reduced f32
+                 round of every family at dp 2 x mp 2 against dp 2 x mp
+                 1 on the card within 1e-4 (TF32 off). The round times
+                 are gloo's through host memory, not NCCL's.
 8. lm decode  — the same model in f32: the kernel forward's logits over
                  2 x 512 tokens against 512 decode steps (no kernel),
                  within the reference's atol = rtol = 0.05; then the
@@ -409,10 +428,21 @@ FA_FAMILY_PATHS = (
 #: batch 2 (``heads_per_block`` in csrc/flash_attention_bwd.cu: one
 #: query head a dK/dV block, the f32 partials of a kv head's four summed
 #: by the third kernel)
+#: phase 7f's tensor-parallel training attends at each rank's heads:
+#: qwen2-0.5b's 14 / 2 split to 7 / 1 (and its dp 2 x mp 1 world beside
+#: it at 2 x 1024), zamba2-2.7b's shared block 32 / 32 to 16 / 16 and
+#: mixtral-8x7b's 32 / 8 to 16 / 4; held in bf16 and f32, the forward's
+#: output too (``_fa_tp_paths``)
+FA_TP_PATHS = (
+    ("qwen2-0.5b mp 2", 2, 1024, 1024, 7, 1, 64, True, 0),
+    ("qwen2-0.5b mp 1 at 2 x 1024", 2, 1024, 1024, 14, 2, 64, True, 0),
+    ("zamba2-2.7b mp 2", 1, 4096, 4096, 16, 16, 80, True, 0),
+    ("mixtral-8x7b mp 2", 1, 8192, 8192, 16, 4, 128, True, 4096),
+)
 FA_BWD_TRAIN_PATHS = (
     ("pixtral-12b training", 1, 4096, 4096, 32, 8, 128, True, 0),
     ("zamba2-2.7b training", 2, 4096, 4096, 32, 32, 80, True, 0),
-)
+) + FA_TP_PATHS
 #: B5's backward (csrc/ssd_scan_bwd.cu) against its plain version: f32
 #: within 1e-4 (rtol, and atol 1e-4 of each gradient's largest entry:
 #: both sides sum in f32 in other orders, and da, a reverse cumulative
@@ -434,7 +464,26 @@ SSD_BWD_SWEEP = SSD_SWEEP + ((2, 4, 64, 64, 16), (2, 4, 192, 32, 32),
 SSD_BWD_MAX_WORKSPACE = 0.1e9
 #: the shapes phase 7e trains at: (B, K, C, H, P, N) of each arch
 SSD_BWD_TRAIN_PATHS = {"mamba2-2.7b": (4, 8, 256, 80, 64, 128),
-                       "zamba2-2.7b": (2, 16, 256, 80, 64, 64)}
+                       "zamba2-2.7b": (2, 16, 256, 80, 64, 64),
+                       # phase 7f: the rank's 40 of 80 heads at 1 x
+                       # 4096, in 9 uneven head groups (4 and 5 heads)
+                       "zamba2-2.7b mp 2": (1, 16, 256, 40, 64, 64)}
+#: phase 7f's reduced f32 rounds (B = 2, 128 positions a row) at mp 1
+#: and mp 2: B4 at (B, Sq, Sk, causal, window) for each (H, Hkv) of the
+#: reduced configs' 4 / 2 heads of 64 and a rank's 2 / 1 (the dense,
+#: MoE, hybrid and VLM self-attention; the whisper encoder's 32 frames,
+#: its decoder and cross attention; mixtral's and llama4's reduced
+#: window of 64), and B5 at (BK, H, C, P, N) for the 8 and 4 SSD heads
+#: (2 chunks of 64 a row); held in f32 (``_fa_tp_paths``,
+#: ``_ssd_tp_paths``)
+LM_TP_PARITY_B, LM_TP_PARITY_S = 2, 128
+FA_TP_REDUCED = tuple(
+    (f"reduced {h}/{hk} heads", LM_TP_PARITY_B, sq, sk, h, hk, 64, causal,
+     window)
+    for h, hk in ((4, 2), (2, 1))
+    for sq, sk, causal, window in ((128, 128, True, 0), (128, 128, True, 64),
+                                   (32, 32, False, 0), (128, 32, False, 0)))
+SSD_TP_REDUCED = tuple((LM_TP_PARITY_B * 2, h, 64, 64, 16) for h in (8, 4))
 #: the name every kernel of B5's backward starts with
 SSD_BWD_KERNEL_PREFIX = "ssd_scan_bwd_"
 #: phase 7e: federated training of the ssm and hybrid families at full
@@ -453,6 +502,37 @@ LM_TRAIN_SSM_ROUNDS = 2
 #: without remat (zamba2: one group of 6 Mamba-2 blocks and the shared
 #: attention block)
 LM_TRAIN_SSM_REMAT_LAYERS = {"mamba2-2.7b": 2, "zamba2-2.7b": 6}
+#: phase 7f: tensor parallelism within a replica (``--model-parallel``),
+#: gloo ranks sharing the card: (what, arch, data, model, layers run
+#: (None for all), batch, tokens a row, remat). qwen2-0.5b whole at 7c
+#: (b)'s 2 x 1024 (4 ranks: 7c (a)'s 4 x 2048 would not leave memory for
+#: 4), beside dp 2 x mp 1 from the same seed; zamba2-2.7b whole with
+#: remat at 1 x 4096 (each rank moves every layer's activations through
+#: host memory twice a step); mixtral-8x7b at 3 of 32 layers, 1 x 8192,
+#: phase 7d's cut: 12 bytes a parameter at the update over (262,148,096
+#: + 3 x 1,451,270,144) / 2 params a rank is 27.7 GB a rank, and a round
+#: peaks at about 14 (a mixed bf16 tree more: 22.2 GB a rank at 2 layers
+#: on an H100 80GB HBM3 at 700 W), 32 GB a rank, 65 GB for both. At 2
+#: layers the held-out loss rose there (10.8930 -> 10.9040); at 3 it is
+#: phase 7d's model from the same seed
+LM_TP_RUNS = (
+    ("qwen2-0.5b dp 2 x mp 2", "qwen2-0.5b", 2, 2, None, 2, 1024, False),
+    ("qwen2-0.5b dp 2 x mp 1", "qwen2-0.5b", 2, 1, None, 2, 1024, False),
+    ("zamba2-2.7b dp 1 x mp 2", "zamba2-2.7b", 1, 2, None, 1, 4096, True),
+    ("mixtral-8x7b dp 1 x mp 2", "mixtral-8x7b", 1, 2, 3, 1, 8192, False),
+)
+LM_TP_ROUNDS = 2
+#: qwen2-0.5b at dp 2 x mp 2 against dp 2 x mp 1 from the same seed
+#: (bf16): round and held-out losses within this. The split layers sum
+#: bf16 partial products (each rounded to 2^-8 of its size) in another
+#: order, so the two runs drift apart; a round moves the loss by about
+#: 0.13, and the held-out losses differed by 4e-4 (final run, PR 25)
+LM_TP_BF16_TOL = 1e-2
+#: the reduced f32 round of every family at dp 2 x mp 2 against mp 1 on
+#: the card (B = LM_TP_PARITY_B, LM_TP_PARITY_S positions a row)
+LM_TP_PARITY = ("qwen2-0.5b", "mixtral-8x7b", "llama4-maverick-400b-a17b",
+                "mamba2-2.7b", "zamba2-2.7b", "whisper-medium",
+                "pixtral-12b")
 #: the reduced families' decode against prefill: tokens a row (past the
 #: reduced sliding window of 64)
 FAMILY_DECODE_SEQ = 128
@@ -2510,7 +2590,8 @@ def _fa_family_paths(dev: torch.device, gen: torch.Generator) -> float:
     from repro_torch.kernels import ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     worst = 0.0
-    for what, B, Sq, Sk, H, Hkv, D, causal, window in FA_FAMILY_PATHS:
+    for what, B, Sq, Sk, H, Hkv, D, causal, window in (FA_FAMILY_PATHS
+                                                       + FA_TP_PATHS):
         q = torch.randn((B, Sq, H, D), device=dev, generator=gen).to(
             torch.bfloat16)
         k, v = (torch.randn((B, Sk, Hkv, D), device=dev, generator=gen
@@ -2564,6 +2645,18 @@ def _ssd_inputs(gen, dev, BK, H, C, P, N, dt):
               for _ in range(2))
     d = torch.randn((BK, H, C), device=dev, generator=gen).abs() * 0.1
     return x, a, Bm, Cm, d
+
+
+def _ssd_fwd_bound(BK: int, H: int, C: int, P: int, N: int):
+    """B5's least time at a bf16 shape: x, a, dt, B, C read once; y and
+    the states written once (f32); the products over the lower
+    triangle, C Bᵀ once a chunk (shared by the heads), on the bf16
+    tensor cores. Returns (ms, by, bytes, flops)."""
+    tri = C * (C + 1) / 2
+    nbytes = (2 * BK * H * C * P + 2 * 4 * BK * H * C + 2 * 2 * BK * C * N
+              + 4 * BK * H * C * P + 4 * BK * H * N * P)
+    flops = 2 * BK * (N * tri + H * P * tri + H * C * N * P)
+    return (*_bound(nbytes, flops, BF16_FLOPS), nbytes, flops)
 
 
 def phase_ssd_scan(dev: torch.device) -> dict:
@@ -2624,14 +2717,7 @@ def phase_ssd_scan(dev: torch.device) -> dict:
     ms = time_ms(lambda: ss.ssd_intra_chunk(x, a, Bm, Cm, d))
     plain_ms = time_ms(lambda: ref.ssd_intra_chunk_ref(x, a, Bm, Cm, d),
                        reps=5)
-    # x, a, dt, B, C read once; y and the states written once (f32); the
-    # products over the lower triangle, C Bᵀ once a chunk (shared by the
-    # heads), on the bf16 tensor cores
-    tri = C * (C + 1) / 2
-    nbytes = (2 * BK * H * C * P + 2 * 4 * BK * H * C + 2 * 2 * BK * C * N
-              + 4 * BK * H * C * P + 4 * BK * H * N * P)
-    flops = 2 * BK * (N * tri + H * P * tri + H * C * N * P)
-    b_ms, b_by = _bound(nbytes, flops, BF16_FLOPS)
+    b_ms, b_by, nbytes, flops = _ssd_fwd_bound(BK, H, C, P, N)
     log(f"[kernels] ssd_intra_chunk prefill shape (BK={BK}, H={H}, C={C}, "
         f"P={P}, N={N}; x/B/C bf16, a/dt f32): max abs err {err:.3e} (tol "
         f"{SSD_PATH_TOL}, y, states and both strided adapters); {ms:.4f} ms "
@@ -3194,6 +3280,7 @@ def phase_flash_attention_bwd(dev: torch.device) -> dict:
     del q, k, v, do, qg, kg, vg
     torch.cuda.empty_cache()
     err = max(err, _fa_bwd_family_paths(dev, gen))
+    worst[torch.float32] = max(worst[torch.float32], _fa_tp_paths(dev, gen))
     log(f"[kernels] flash_attention_bwd phase: {time.perf_counter() - t0:.1f} "
         f"s")
     return {"name": "flash_attention_bwd", "route": "cuda",
@@ -3290,6 +3377,56 @@ def _fa_bwd_family_paths(dev: torch.device, gen: torch.Generator) -> float:
     return worst
 
 
+def _fa_tp_paths(dev: torch.device, gen: torch.Generator) -> float:
+    """B4 in f32 at the shapes phase 7f launches it at in f32 or bf16
+    (FA_TP_PATHS, whose bf16 forward and backward ``_fa_family_paths`` and
+    ``_fa_bwd_family_paths`` hold, and FA_TP_REDUCED): the forward's
+    output and logsumexp and the gradients through autograd against the
+    plain versions (``_bwd_check``, the plain version a kv group at a
+    time where its scores pass FA_BWD_CHECK_BYTES), f32 within
+    FA_BWD_TOL (atol = rtol). Returns the worst gradient error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    worst = out_worst = 0.0
+    f32 = torch.float32
+    for what, B, Sq, Sk, H, Hkv, D, causal, window in (FA_TP_PATHS
+                                                       + FA_TP_REDUCED):
+        q, do = (torch.randn((B, Sq, H, D), device=dev, generator=gen)
+                 for _ in range(2))
+        k, v = (torch.randn((B, Sk, Hkv, D), device=dev, generator=gen)
+                for _ in range(2))
+        mask = dict(causal=causal, window=window)
+        cut = B * H * Sq * Sk * 4 > FA_BWD_CHECK_BYTES / 4
+        o = fa.flash_attention_bshd(q, k, v, **mask)
+        G = H // Hkv
+        for b in range(B):
+            for g in range(Hkv if cut else 1):
+                hs = slice(g * G, (g + 1) * G) if cut else slice(None)
+                gs = slice(g, g + 1) if cut else slice(None)
+                exp, _ = ref.flash_attention_lse_ref(
+                    q[b:b + 1, :, hs], k[b:b + 1, :, gs], v[b:b + 1, :, gs],
+                    **mask)
+                out_worst = max(out_worst, max_err(
+                    o[b:b + 1, :, hs], exp, FA_TOL[f32],
+                    f"flash_attention f32 output at the {what} shape"))
+                del exp
+        del o
+        _, err = _bwd_check(fa, ref, q, k, v, do, mask, f32,
+                            f"flash_attention_bwd f32 at the {what} shape",
+                            sliced=cut)
+        worst = max(worst, err)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    log(f"[kernels] flash_attention f32 at phase 7f's shapes ("
+        f"{len(FA_TP_PATHS)} full-width rank shapes: qwen2-0.5b 7/1 and "
+        f"14/2 at 2 x 1024, zamba2-2.7b 16/16 of 80 at 1 x 4096, "
+        f"mixtral-8x7b 16/4 of 128 at 1 x 8192 window 4096; "
+        f"{len(FA_TP_REDUCED)} reduced): output max abs err "
+        f"{out_worst:.3e} (atol = rtol {FA_TOL[f32]}), gradients "
+        f"{worst:.3e} (atol = rtol {FA_BWD_TOL[f32]})")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 2d: B5's backward against its plain version
 # ---------------------------------------------------------------------------
@@ -3339,6 +3476,56 @@ def _ssd_bwd_bound(BK: int, H: int, C: int, P: int, N: int):
     flops = 2 * BK * (N * tri + H * (2 * P * tri + 2 * C * N * P)
                       + 2 * N * tri)
     return (*_bound(nbytes, flops, BF16_FLOPS), nbytes, flops)
+
+
+def _ssd_tp_paths(dev: torch.device, gen: torch.Generator) -> float:
+    """B5 forward (y and states) and backward at the shapes phase 7f
+    launches it at: zamba2-2.7b's 40-head rank shape in bf16 (forward
+    within SSD_PATH_TOL; its backward ``phase_ssd_scan_bwd`` holds with
+    the training shapes) and f32, and the reduced configs' (SSD_TP_REDUCED)
+    in f32 (forward within SSD_TOL, gradients within SSD_BWD_TOL).
+    Returns the worst gradient error over the largest entry."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ss
+    Bsz, K, C, H, P, N = SSD_BWD_TRAIN_PATHS["zamba2-2.7b mp 2"]
+    rows = [((Bsz * K, H, C, P, N), dt)
+            for dt in (torch.bfloat16, torch.float32)]
+    rows += [(shape, torch.float32) for shape in SSD_TP_REDUCED]
+    worst = fwd = 0.0
+    for shape, dt in rows:
+        x, a, Bm, Cm, d = _ssd_inputs(gen, dev, *shape, dt)
+        tol = SSD_PATH_TOL if dt == torch.bfloat16 else SSD_TOL[dt]
+        got, exp = ss.ssd_intra_chunk(x, a, Bm, Cm, d), \
+            ref.ssd_intra_chunk_ref(x, a, Bm, Cm, d)
+        fwd = max(fwd, *(max_err(o, e, tol, f"ssd_intra_chunk {shape} {dt} "
+                                 f"{what}")
+                         for o, e, what in zip(got, exp, ("y", "states"))))
+        if dt == torch.bfloat16:
+            ms = time_ms(lambda: ss.ssd_intra_chunk(x, a, Bm, Cm, d))
+            plain_ms = time_ms(lambda: ref.ssd_intra_chunk_ref(
+                x, a, Bm, Cm, d), reps=5)
+            b_ms, b_by, nbytes, flops = _ssd_fwd_bound(*shape)
+            log(f"[kernels] ssd_intra_chunk at zamba2-2.7b's rank shape "
+                f"{shape} (bf16): {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+                f"{b_ms:.4f} by {b_by}: {nbytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.1f} GFLOP; {b_ms / ms:.1%} of the bound)")
+        if dt == torch.float32:
+            BK, H_, C_, P_, N_ = shape
+            dy = torch.randn((BK, H_, C_, P_), device=dev, generator=gen)
+            dst = torch.randn((BK, H_, N_, P_), device=dev, generator=gen)
+            worst = max(worst, _ssd_bwd_close(
+                _ssd_grad(ss, x, a, Bm, Cm, d, dy, dst),
+                ref.ssd_intra_chunk_bwd_ref(x, a, Bm, Cm, d, dy, dst), dt,
+                f"ssd_scan_bwd {shape} f32"))
+        del x, a, Bm, Cm, d, got, exp
+        torch.cuda.empty_cache()
+    log(f"[kernels] ssd_intra_chunk and ssd_scan_bwd at phase 7f's shapes "
+        f"(zamba2-2.7b's rank of 40 heads, (BK, H, C, P, N) = "
+        f"{rows[0][0]}, bf16 and f32; reduced {SSD_TP_REDUCED} f32): "
+        f"forward max abs err {fwd:.3e} (bf16 {SSD_PATH_TOL}, f32 "
+        f"{SSD_TOL[torch.float32]}), f32 gradients {worst:.3e} of the "
+        f"largest (tol {SSD_BWD_TOL[torch.float32]})")
+    return worst
 
 
 def _ssd_adapter_check(ss, ref, dev, gen, Bsz, K, C, H, P, N, what):
@@ -3479,6 +3666,7 @@ def phase_ssd_scan_bwd(dev: torch.device) -> dict:
             out["max_abs_err"] = max(out["max_abs_err"], err)
         del x, a, Bm, Cm, d, dy, dst
         torch.cuda.empty_cache()
+    out["max_abs_err"] = max(out["max_abs_err"], _ssd_tp_paths(dev, gen))
     log(f"[kernels] ssd_scan_bwd phase: {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -4199,6 +4387,296 @@ def phase_lm_train_ssm(dev: torch.device) -> tuple:
             nh == (0, 0), (arch, nc, nh)
     return tuple(total)
 
+# ---------------------------------------------------------------------------
+# phase 7f: tensor parallelism within a replica
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _launch_shapes():
+    """Record the shapes of every B4 launch ((B, Sq, Sk, H, Hkv, D,
+    causal, window, q_offset), dtype) and B5 launch ((BK, H, C, P, N),
+    dtype) in the block, forward and backward alike (a backward runs at
+    its forward's shape)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    fa_shapes, ssd_shapes = set(), set()
+    orig_fa, orig_ss = fa.flash_attention_bshd, ss._intra_chunk
+
+    def fa_spy(q, k, v, causal=True, window=0, q_offset=0):
+        fa_shapes.add(((q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                        k.shape[2], q.shape[3], causal, window, q_offset),
+                       str(q.dtype)))
+        return orig_fa(q, k, v, causal=causal, window=window,
+                       q_offset=q_offset)
+
+    def ss_spy(x, a, Bc, Cc, dt):
+        ssd_shapes.add((tuple(x.shape) + (Bc.shape[-1],), str(x.dtype)))
+        return orig_ss(x, a, Bc, Cc, dt)
+    fa.flash_attention_bshd, ss._intra_chunk = fa_spy, ss_spy
+    try:
+        yield fa_shapes, ssd_shapes
+    finally:
+        fa.flash_attention_bshd, ss._intra_chunk = orig_fa, orig_ss
+
+
+def _tp_experiment(arch: str, dp: int, mp: int, extra=()):
+    from repro_torch.launch import train
+    return train.lm_experiment(train._parser().parse_args(
+        ["--arch", arch, "--data-parallel", str(dp), "--model-parallel",
+         str(mp), "--dist-backend", "gloo", *extra]))
+
+
+def _tp_train(run) -> dict:
+    """One rank of a LM_TP_RUNS row: the trainer on a (data, model) rank
+    mesh, LM_TP_ROUNDS rounds at full width: params (the rank's and the
+    replica's whole count), init seconds, per round seconds, loss, peak
+    device memory and the bytes of each collective by group; B4's and
+    B5's forward and backward launches; the held-out loss before and
+    after; the launch shapes."""
+    from repro_torch.core.sharded import ShardedCEFedAvg
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models import model as mdl
+    what, arch, dp, mp, layers, B, S, remat = run
+    exp = _tp_experiment(arch, dp, mp, ("--batch", str(B), "--seq", str(S)))
+    if layers is not None:
+        exp = dataclasses.replace(exp, model=dataclasses.replace(
+            exp.model, num_layers=layers))
+    exp = dataclasses.replace(exp, train=dataclasses.replace(
+        exp.train, remat=remat))
+    fl, cfg = exp.fl, exp.model
+    mesh = lm.make_replica_mesh(dp, model=mp)
+    dev = mesh.device
+    trn = ShardedCEFedAvg(exp, mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, opt = trn.init_fn()(0)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    held = {k: torch.as_tensor(v).to(dev) for k, v in
+            _train_family_batch(cfg, (B,), S, dev, seed=1000).items()}
+
+    def held_out() -> float:
+        with torch.no_grad():
+            return float(mdl.lm_loss(cfg, params, held, tp=trn.tp))
+    before = held_out()
+    batches = [_train_family_batch(cfg, (fl.q, fl.tau, dp, B), S, dev,
+                                   seed=r) for r in range(LM_TP_ROUNDS)]
+    round_fn = trn.make_global_round()
+    step, hist = 0, []
+    fa.launches = fa.bwd_launches = ss.launches = ss.bwd_launches = 0
+    with _launch_shapes() as (fa_shapes, ssd_shapes):
+        for batch in batches:
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize(dev)
+            mesh.reset_traffic()
+            t0 = time.perf_counter()
+            params, opt, metrics, step = round_fn(params, opt, batch, step)
+            torch.cuda.synchronize(dev)
+            hist.append({"seconds": time.perf_counter() - t0,
+                         "loss": metrics["loss"],
+                         "peak": torch.cuda.max_memory_allocated(dev),
+                         "traffic": mesh.traffic_by_group()})
+        launches = (fa.launches, fa.bwd_launches, ss.launches,
+                    ss.bwd_launches)
+        after = held_out()
+    return {"what": what, "rank": mesh.rank, "replica": mesh.replica,
+            "model_index": mesh.model_index,
+            "params": mdl.param_count(params),
+            "whole": mdl.param_count(trn.param_shapes), "init_s": init_s,
+            "init_peak": init_peak, "hist": hist, "launches": launches,
+            "steps": fl.q * fl.tau * LM_TP_ROUNDS, "before": before,
+            "after": after, "fa": fa_shapes, "ssd": ssd_shapes,
+            "cfg": cfg, "remat": remat}
+
+
+def _tp_parity(arch: str, dp: int, mp: int) -> dict:
+    """One rank of a reduced f32 round of ``arch`` at dp x mp from the
+    seed-0 init (every model rank draws its replica's whole tree, then
+    cuts its slice): the round's loss, the replica's whole params
+    (gathered; model rank 0 returns them) and the launch shapes."""
+    from repro_torch import tree as tr
+    from repro_torch.core.sharded import ShardedCEFedAvg
+    from repro_torch.launch import mesh as lm
+    exp = _tp_experiment(arch, dp, mp, ("--reduced",))
+    fl, cfg = exp.fl, exp.model
+    mesh = lm.make_replica_mesh(dp, model=mp)
+    trn = ShardedCEFedAvg(exp, mesh)
+    params, opt = trn.init_fn()(0)
+    extra = _extra_input(cfg)[1] if cfg.family == "vlm" else 0
+    batch = _train_family_batch(cfg, (fl.q, fl.tau, dp, LM_TP_PARITY_B),
+                                LM_TP_PARITY_S - extra, torch.device("cpu"),
+                                seed=7)
+    with _launch_shapes() as (fa_shapes, ssd_shapes):
+        params, opt, metrics, _ = trn.make_global_round()(params, opt,
+                                                          batch, 0)
+    whole = trn.gather(params)
+    return {"replica": mesh.replica, "loss": metrics["loss"],
+            "params": ([t.cpu().numpy() for t in tr.tree_leaves(whole)]
+                       if mesh.model_index == 0 else None),
+            "fa": fa_shapes, "ssd": ssd_shapes}
+
+
+def _tp_rank(jobs) -> list:
+    """One gloo rank of phase 7f: ``("train", LM_TP_RUNS row)`` and
+    ``("parity", arch, dp, mp)`` jobs in turn (TF32 off)."""
+    import gc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    for kind, *a in jobs:
+        out.append(_tp_train(*a) if kind == "train" else _tp_parity(*a))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_report(res: list, checked: set) -> tuple:
+    """Log one LM_TP_RUNS row's ranks and assert its checks; returns its
+    launches summed over the ranks."""
+    first = res[0]
+    what, cfg = first["what"], first["cfg"]
+    tag = f"lm_train_tp {what}"
+    steps = first["steps"]
+    n_attn = {"hybrid": cfg.num_layers // max(cfg.attn_every, 1),
+              "ssm": 0}.get(cfg.family, cfg.num_layers)
+    n_ssd = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    remat = 2 if first["remat"] else 1
+    want = (remat * n_attn * steps, n_attn * steps, remat * n_ssd * steps,
+            n_ssd * steps)
+    log(f"[{tag}] {len(res)} gloo ranks on this one card: params a rank "
+        f"{', '.join(f'{x['params']:,}' for x in res)} (the replica "
+        f"{first['whole']:,}; {cfg.num_layers} layers"
+        f"{', remat' if remat == 2 else ''}); init "
+        f"{max(x['init_s'] for x in res):.2f} s, its peak by rank "
+        + ", ".join(f"{x['init_peak'] / 1e9:.2f}" for x in res)
+        + " GB")
+    for r in range(LM_TP_ROUNDS):
+        secs = max(x["hist"][r]["seconds"] for x in res)
+        loss = first["hist"][r]["loss"]
+        assert all(x["hist"][r]["loss"] == loss for x in res), what
+        parts = []
+        for group in ("model", "data"):
+            ops = sorted({op for x in res
+                          for op in x["hist"][r]["traffic"][group]})
+            for op in ops:
+                got = [x["hist"][r]["traffic"][group].get(op, {})
+                       for x in res]
+                calls = max(c.get("calls", 0) for c in got)
+                sent = max(c.get("sent", 0) for c in got)
+                parts.append(f"{group} {op} x{calls} {sent / 1e6:.1f} MB")
+        log(f"[{tag}] round {r}: {secs:.3f} s (max over ranks), loss "
+            f"{loss:.4f}; a rank's bytes sent by group and collective: "
+            f"{'; '.join(parts) or 'none'}; peak device memory by rank "
+            + ", ".join(f"{x['hist'][r]['peak'] / 1e9:.2f}" for x in res)
+            + " GB")
+    launches = tuple(sum(x["launches"][i] for x in res) for i in range(4))
+    fa_shapes = set().union(*(x["fa"] for x in res))
+    ssd_shapes = set().union(*(x["ssd"] for x in res))
+    log(f"[{tag}] {steps} local steps a rank: launches a rank B4 forward "
+        f"{first['launches'][0]}, backward {first['launches'][1]}, B5 "
+        f"forward {first['launches'][2]}, backward {first['launches'][3]} "
+        f"(want {want}); held-out batch {first['before']:.4f} -> "
+        f"{first['after']:.4f}; launch shapes B4 {sorted(fa_shapes)}, B5 "
+        f"{sorted(ssd_shapes)}")
+    assert all(x["launches"] == want for x in res), want
+    assert all(math.isfinite(x["hist"][r]["loss"]) for x in res
+               for r in range(LM_TP_ROUNDS))
+    assert first["after"] < first["before"], (what, first["before"],
+                                              first["after"])
+    assert (fa_shapes | ssd_shapes) <= checked, sorted(
+        (fa_shapes | ssd_shapes) - checked)
+    return launches
+
+
+def phase_lm_train_tp(dev: torch.device) -> tuple:
+    """Tensor parallelism within a replica (``--model-parallel``): the
+    trainer over gloo ranks that share the card (so the rounds move
+    through host memory and say nothing of NCCL across cards). A world
+    of 4 ranks runs qwen2-0.5b whole at dp 2 x mp 2, then the reduced f32
+    round of every family (LM_TP_PARITY) at dp 2 x mp 2; a world of 2
+    runs qwen2-0.5b at dp 2 x mp 1 from the same seed, zamba2-2.7b
+    whole at mp 2 with remat, mixtral-8x7b at 3 of 32 layers at mp 2
+    (LM_TP_RUNS says why), then the reduced rounds at mp 1. Each
+    full-width run logs and asserts (``_tp_report``); qwen2's losses at
+    mp 2 within LM_TP_BF16_TOL of mp 1 (asserted); every B4 and B5
+    launch shape was held against its plain version in phases 2c and 2d
+    (asserted); the reduced rounds at mp 2 within LM_PARITY_TOL of mp 1
+    (TF32 off). Returns the full-width runs' launches (B4 forward and
+    backward, B5 forward and backward) over all ranks."""
+    from repro_torch.launch import mesh as lm
+    t0 = time.perf_counter()
+    bf, f32 = str(torch.bfloat16), str(torch.float32)
+    zb, zk, zc, zh, zp, zn = SSD_BWD_TRAIN_PATHS["zamba2-2.7b mp 2"]
+    checked = ({(row[1:] + (0,), bf) for row in FA_FAMILY_PATHS
+                + FA_BWD_TRAIN_PATHS}
+               | {(row[1:] + (0,), f32) for row in FA_TP_PATHS
+                  + FA_TP_REDUCED}
+               | {((B * K, H, C, P, N), bf)
+                  for B, K, C, H, P, N in SSD_BWD_TRAIN_PATHS.values()}
+               | {((zb * zk, zh, zc, zp, zn), f32)}
+               | {(shape, f32) for shape in SSD_TP_REDUCED})
+    log(f"[lm_train_tp] this process's peak RSS so far "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f} GB")
+    w4 = lm.run_local_ranks(
+        _tp_rank, 4, args=([("train", LM_TP_RUNS[0])]
+                           + [("parity", a, 2, 2) for a in LM_TP_PARITY],),
+        backend="gloo", device="cuda", timeout_s=900)
+    t4 = time.perf_counter() - t0
+    w2 = lm.run_local_ranks(
+        _tp_rank, 2, args=([("train", run) for run in LM_TP_RUNS[1:]]
+                           + [("parity", a, 2, 1) for a in LM_TP_PARITY],),
+        backend="gloo", device="cuda", timeout_s=900)
+    log(f"[lm_train_tp] a world of 4 gloo ranks on this card "
+        f"{t4:.1f} s from spawn to the last result, a world of 2 "
+        f"{time.perf_counter() - t0 - t4:.1f} s")
+    total = [0, 0, 0, 0]
+    runs = [[r[0] for r in w4]] + [[r[i] for r in w2]
+                                   for i in range(len(LM_TP_RUNS) - 1)]
+    for res in runs:
+        for i, n in enumerate(_tp_report(res, checked)):
+            total[i] += n
+    tp, dp = runs[0][0], runs[1][0]
+    log(f"[lm_train_tp] qwen2-0.5b dp 2 x mp 2 against dp 2 x mp 1 from the "
+        f"same seed (bf16): round loss "
+        f"{' -> '.join(f'{h['loss']:.4f}' for h in tp['hist'])} against "
+        f"{' -> '.join(f'{h['loss']:.4f}' for h in dp['hist'])}, held-out "
+        f"{tp['before']:.4f} -> {tp['after']:.4f} against "
+        f"{dp['before']:.4f} -> {dp['after']:.4f} (atol {LM_TP_BF16_TOL})")
+    gaps = [abs(a["loss"] - b["loss"]) for a, b in zip(tp["hist"],
+                                                      dp["hist"])]
+    gaps += [abs(tp[k] - dp[k]) for k in ("before", "after")]
+    assert max(gaps) <= LM_TP_BF16_TOL, gaps
+    # the reduced f32 rounds: mp 2 against mp 1, replica by replica
+    base = len(LM_TP_RUNS) - 1
+    worst = 0.0
+    for i, arch in enumerate(LM_TP_PARITY):
+        got = {r[1 + i]["replica"]: r[1 + i] for r in w4
+               if r[1 + i]["params"] is not None}
+        want = {r[base + i]["replica"]: r[base + i] for r in w2}
+        assert sorted(got) == sorted(want) == [0, 1], arch
+        err = max(float(np.abs(a - b).max()) for rep in (0, 1)
+                  for a, b in zip(got[rep]["params"], want[rep]["params"]))
+        dl = abs(got[0]["loss"] - want[0]["loss"])
+        shapes = set().union(*(r[1 + i]["fa"] | r[1 + i]["ssd"] for r in w4),
+                             *(r[base + i]["fa"] | r[base + i]["ssd"]
+                               for r in w2))
+        log(f"[lm_train_tp] parity: {arch} reduced (f32), one round of "
+            f"{LM_TP_PARITY_B} x {LM_TP_PARITY_S} positions a step, dp 2 x "
+            f"mp 2 against dp 2 x mp 1 on the card: params max abs diff "
+            f"{err:.3e}, loss {got[0]['loss']:.6f} vs {want[0]['loss']:.6f} "
+            f"(atol {LM_PARITY_TOL}, TF32 off); launch shapes checked: "
+            f"{shapes <= checked}")
+        assert err <= LM_PARITY_TOL and dl <= LM_PARITY_TOL, (arch, err, dl)
+        assert shapes <= checked, (arch, sorted(shapes - checked))
+        worst = max(worst, err)
+    log(f"[lm_train_tp] phase: {time.perf_counter() - t0:.1f} s")
+    return tuple(total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; this smoke run "
@@ -4249,6 +4727,8 @@ def main() -> int:
     phase_start(dev, "lm_train_ssm")
     ssm_attn, ssm_attn_bwd, ssm_ssd, ssd_bwd["launches"] = \
         phase_lm_train_ssm(dev)
+    phase_start(dev, "lm_train_tp")
+    tp_attn, tp_attn_bwd, tp_ssd, tp_ssd_bwd = phase_lm_train_tp(dev)
     log(f"[done] flash_attention launches: zamba2-2.7b prefill "
         f"{attn['launches']}, the four family prefills {family_attn}, "
         f"qwen2-0.5b training {train_attn}, the three families' training "
@@ -4258,10 +4738,13 @@ def main() -> int:
         f"families) + {ssm_attn_bwd} (zamba2-2.7b); ssd_intra_chunk "
         f"launches: zamba2-2.7b prefill {ssd['launches']}, mamba2-2.7b "
         f"and zamba2-2.7b training {ssm_ssd}; ssd_scan_bwd launches in "
-        f"training {ssd_bwd['launches']}")
-    attn["launches"] += family_attn + train_attn + fam_train_attn + ssm_attn
-    attn_bwd["launches"] += fam_train_bwd + ssm_attn_bwd
-    ssd["launches"] += ssm_ssd
+        f"training {ssd_bwd['launches']}; tensor-parallel training (all "
+        f"ranks) B4 {tp_attn} + {tp_attn_bwd}, B5 {tp_ssd} + {tp_ssd_bwd}")
+    attn["launches"] += (family_attn + train_attn + fam_train_attn + ssm_attn
+                         + tp_attn)
+    attn_bwd["launches"] += fam_train_bwd + ssm_attn_bwd + tp_attn_bwd
+    ssd["launches"] += ssm_ssd + tp_ssd
+    ssd_bwd["launches"] += tp_ssd_bwd
     phase_start(dev, "lm decode")
     phase_lm_decode(dev)
     phase_lm_decode_families(dev)

@@ -40,6 +40,25 @@ class HardwareProfile:
             return self.b_e2e
         return self.b_tiers[level - 2]
 
+    @staticmethod
+    def h100(gpus_per_replica: int = 1) -> "HardwareProfile":
+        """A replica that is a model-parallel group of NVIDIA H100 SXM5
+        cards (``--model-parallel``), priced from NVIDIA's data sheet for
+        "NVIDIA H100 80GB HBM3, 700 W" — datasheet figures, not
+        measurements: 989 TFLOP/s dense bf16 a card (the figure the port's
+        kernel bounds use), the "uplink" to the edge the cards' NVLink
+        (900 GB/s a card), the edge backhaul and the cloud link one
+        ConnectX-7 port a card (400 Gb/s). Parameters travel in bf16.
+        The reference's ``tpu_v5e`` prices TPU chips, which the port does
+        not run on."""
+        return HardwareProfile(
+            device_flops=989e12 * gpus_per_replica,
+            b_d2e=900e9 * 8,        # NVLink 4: 900 GB/s a card
+            b_e2e=400e9,            # ConnectX-7: 400 Gb/s a port
+            b_d2c=400e9,
+            bytes_per_param=2,
+        )
+
 
 @dataclass(frozen=True)
 class WorkloadProfile:

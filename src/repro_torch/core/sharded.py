@@ -14,15 +14,19 @@ reference: the boundaries are collectives, not the gossip-mix kernel.
 
 :class:`ShardedCEFedAvg` (the pytree half): the federated LM trainer.
 The reference stacks R replicas of the model on a leading axis sharded
-over the mesh's ``data`` (× ``pod``) axis, one replica a device; here
-each rank of a :class:`ReplicaMesh` holds its own replica's parameter
-tree and optimizer state, and the round's boundaries are collectives.
-JAX's sharding glue (``_build_specs``, ``_opt_specs``,
-``microbatch_specs``, ``batch_specs``, ``in_shardings``,
-``out_shardings``) has no counterpart: a round takes the reference's
-``(q, tau, R, B, ...)`` batch and the rank slices its own replica ``r``
-from axis 2. The model axis is 1: tensor parallelism within a replica
-waits for ROADMAP A19.
+over the mesh's ``data`` (× ``pod``) axis and places every parameter by
+its resolved spec, the ``model`` axis tensor-parallel within a replica.
+Here a replica is the model group of ``mesh.model`` ranks: each rank
+holds its slice of its replica's parameter tree and optimizer state, as
+the resolved specs say (``_build_specs``, ``repro_torch.sharding``),
+the split layers reduce over the model group (``models``, with
+``core.collectives.ModelParallel``), and the round's boundaries are
+collectives over the rank's data group (mixing is elementwise, so each
+shard mixes with the same shard of the other replicas). JAX's remaining
+sharding glue (``_opt_specs``, ``microbatch_specs``, ``batch_specs``,
+``in_shardings``, ``out_shardings``) has no counterpart: a round takes
+the reference's ``(q, tau, R, B, ...)`` batch and the rank slices its
+own replica ``r`` from axis 2.
 
 The sharded streamed bank (``ShardedStreamedBank``) waits for ROADMAP
 A14's streamed half.
@@ -35,6 +39,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import sharding as sh
 from repro_torch import tree as tr
 from repro_torch.config import ExperimentConfig, FLConfig
 from repro_torch.core import collectives as col
@@ -79,8 +84,8 @@ class ReplicaGeometry:
 
 def abstract_model(model_cfg):
     """One replica's parameter tree as ``meta`` tensors (shapes and
-    dtypes, no memory). The reference also returns logical sharding axes,
-    which have no counterpart here."""
+    dtypes, no memory); the logical axes are ``models.model.
+    logical_axes``."""
     return mdl.init_model(torch.Generator(), model_cfg, "meta")
 
 
@@ -89,6 +94,12 @@ def stacked_abstract(model_cfg, R: int):
     return tr.tree_map(
         lambda t: torch.empty((R,) + tuple(t.shape), dtype=t.dtype,
                               device="meta"), abstract_model(model_cfg))
+
+
+def stacked_logical(model_cfg):
+    """The logical axes of :func:`stacked_abstract`'s tree: each leaf's
+    with ``"replica"`` in front."""
+    return sh.prepend_axis(mdl.logical_axes(model_cfg), "replica")
 
 
 def replica_seed(seed: int, r: int) -> int:
@@ -118,6 +129,13 @@ class ShardedCEFedAvg:
     - ``ringweight``: the exact H^π in M−1 weighted cyclic rotations.
     ``fedavg`` has no intra-cluster boundary.
 
+    On a mesh with a model axis (``launch.mesh.make_replica_mesh``) a
+    replica spans ``mesh.model`` ranks: ``init_fn`` cuts each rank's
+    slice from the replica's whole tree, the loss runs with ``self.tp``
+    (``core.collectives.ModelParallel``), the boundaries above run over
+    the rank's data group on its slices, and :meth:`global_model`
+    gathers the slices back into the whole tree.
+
     Every rank must build the trainer, and call each boundary, in the
     same order (the collectives of ``core/collectives.py``)."""
 
@@ -132,9 +150,12 @@ class ShardedCEFedAvg:
             exp.fl, devices_per_cluster=self.geo.devices_per_cluster)
         self.sched = make_w_schedule(self.fl)
         self.model_cfg = exp.model
+        # the rank's model group; None without a model axis (the model
+        # functions' unsplit path)
+        self.tp = col.ModelParallel(mesh) if mesh.model > 1 else None
         self.loss_fn = loss_fn or (
             lambda p, b: mdl.lm_loss(self.model_cfg, p, b,
-                                     remat=exp.train.remat))
+                                     remat=exp.train.remat, tp=self.tp))
         self.opt_init, self.opt_update = make_optimizer(exp.train)
         self.lr_fn = make_lr_schedule(exp.train)
         impl = exp.fl.gossip_impl
@@ -147,24 +168,54 @@ class ShardedCEFedAvg:
             self.gossip_schedule = self.registry.gossip_schedule(
                 1, self.fl.pi,
                 mode="exact" if impl == "ringweight" else "rounds")
+        self._build_specs()
+
+    # -- specs ---------------------------------------------------------------
+    def _build_specs(self):
+        """The replica-stacked specs of the reference's trainer
+        (``param_specs``, over the mesh's replica and model axes) and one
+        replica's, without the replica axis (``replica_specs``: what a
+        rank cuts its slice by)."""
+        R = self.geo.num_replicas
         self.param_shapes = abstract_model(self.model_cfg)
+        self.param_specs = sh.resolve_specs(
+            stacked_abstract(self.model_cfg, R),
+            stacked_logical(self.model_cfg), self.mesh)
+        self.replica_specs = tr.tree_unflatten(
+            tr.tree_flatten(self.param_shapes)[1],
+            [spec[1:] for spec in sh.spec_leaves(self.param_specs)])
+
+    def shard(self, params):
+        """This rank's slice of a whole replica tree (``replica_specs``)."""
+        return sh.shard_tree(params, self.replica_specs, self.mesh)
+
+    def gather(self, params):
+        """The whole replica tree from its model ranks' slices, on every
+        rank of the model group."""
+        return col.gather_tree(params, self.replica_specs, self.mesh)
 
     # -- init ----------------------------------------------------------------
     def init_fn(self) -> Callable:
-        """``init(seed) -> (params, opt)``: this rank's replica, drawn on
-        its device from a generator seeded from (seed, replica), and its
-        optimizer state."""
+        """``init(seed) -> (params, opt)``: this rank's slice of its
+        replica, drawn whole on its device from a generator seeded from
+        (seed, replica) — so every rank of a model group draws the same
+        tree, the mp 1 tree of that seed — then cut to the rank's slice,
+        and its optimizer state."""
         def init(seed: int = 0):
             gen = torch.Generator(self.device).manual_seed(
                 replica_seed(seed, self.replica))
             params = mdl.init_model(gen, self.model_cfg, self.device)
+            if self.tp is not None:
+                params = self.shard(params)
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()  # the whole tree's blocks
             return params, self.opt_init(params)
         return init
 
     # -- mixing --------------------------------------------------------------
     def _mix(self, W, params):
-        """x_r <- sum_j W[r, j] x_j over the replica axis, summed in f32
-        and cast back (the reference's ``mix``)."""
+        """x_r <- sum_j W[r, j] x_j over the replica axis (the rank's data
+        group), summed in f32 and cast back (the reference's ``mix``)."""
         w = np.asarray(W, np.float32)[self.replica]
 
         def leaf(x):
@@ -259,13 +310,15 @@ class ShardedCEFedAvg:
 
     def global_model(self, params):
         """The replicas' average in f32 (the gossip consensus model the
-        reference checkpoints), on every rank: one ``all_reduce`` a
-        leaf."""
+        reference checkpoints), whole, on every rank: one ``all_reduce`` a
+        leaf over the data group, then the model ranks' slices
+        gathered."""
         R = self.geo.num_replicas
         with torch.no_grad():
-            return tr.tree_map(
+            avg = tr.tree_map(
                 lambda x: col.all_reduce(x.to(torch.float32), self.mesh) / R,
                 params)
+            return self.gather(avg) if self.tp is not None else avg
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +336,25 @@ def make_decode_fn(model_cfg):
     def decode(params, cache, tokens, pos):
         return mdl.decode_step(model_cfg, params, cache, tokens, pos)
     return decode
+
+
+def serve_specs(model_cfg, mesh, batch: int, seq: int):
+    """(param shapes, param specs, cache shapes, cache specs) of one model
+    served on ``mesh`` (an abstract one: ``launch.mesh.make_mesh``); the
+    decode cache's batch goes over ``data`` where it divides, else its
+    kv sequence does. Shapes are ``meta`` tensors."""
+    shapes = abstract_model(model_cfg)
+    pspecs = sh.resolve_specs(shapes, mdl.logical_axes(model_cfg), mesh)
+    cache_shapes = mdl.init_decode_cache(model_cfg, batch, seq,
+                                         device="meta")
+    rules = dict(sh.DEFAULT_RULES)
+    if batch % mesh.shape["data"] != 0:
+        rules["batch"] = None
+        rules["kv_seq"] = "data"
+    cspecs = sh.resolve_specs(cache_shapes,
+                              mdl.decode_cache_logical(model_cfg), mesh,
+                              rules)
+    return shapes, pspecs, cache_shapes, cspecs
 
 
 class ShardedBankCEFedAvg(FLSimulator):

@@ -24,8 +24,20 @@ Backends:
 host, joined through a file store, and returns what each one's function
 returned; :func:`single_rank_world` makes this process a world of one
 (a replica mesh of one rank, as the reference's 1 x 1 mesh).
-``make_production_mesh`` waits for tensor parallelism and the dry-run
-tools (ROADMAP A19).
+
+Tensor parallelism within a replica (the LM trainer): a world of
+``pods × data × model`` ranks (:func:`make_replica_mesh` with
+``model`` > 1), rank ``replica * model + model_index``, so the
+``model`` ranks of one replica are consecutive. The mesh holds two partitions of the world as process
+groups: the *model group* (the ranks of the rank's replica, over which
+the split layers reduce; ``core/collectives.py`` ``ModelParallel``) and
+the *data group* (the ranks holding the same model index, one a
+replica, over which the replica-axis collectives run: mixing is
+elementwise, so mixing each shard is mixing the whole tree).
+The bank engines keep the model axis at 1.
+:func:`make_mesh` and :func:`make_production_mesh` give abstract meshes
+(axis names and sizes, no processes), on which ``repro_torch.sharding``
+resolves specs.
 """
 from __future__ import annotations
 
@@ -46,26 +58,64 @@ import torch.distributed as dist
 BACKENDS = ("nccl", "gloo")
 
 
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Axis names and sizes, no processes: what ``repro_torch.sharding``
+    resolves specs on (the reference's ``Mesh`` reads no more)."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def make_mesh(shape, axes) -> AbstractMesh:
+    """An abstract mesh of ``shape`` over ``axes`` (the reference's
+    test-sized ``make_mesh``, without devices)."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} against axes {axes}")
+    return AbstractMesh(axes, shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The production mesh, abstract: (16, 16) over ("data", "model"), or
+    (2, 16, 16) over ("pod", "data", "model")."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_mesh((16, 16), ("data", "model"))
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class ReplicaMesh:
-    """This rank's place on the replica axes of an initialised world.
+    """This rank's place on the mesh axes of an initialised world.
 
-    ``pods`` × ``data`` ranks, one bank row each (the model axis is 1:
-    bank rows are not tensor-parallel). Compared and hashed by identity:
-    the mesh owns the process subgroups made for it (``groups``), the
+    ``pods`` × ``data`` replicas of ``model`` ranks each: a bank row a
+    rank (the bank engines, ``model`` 1) or a replica's tensor-parallel
+    slice a rank (the LM trainer). Compared and hashed by identity: the
+    mesh owns the process subgroups made for it (``groups``, and the
+    ``model_group`` / ``data_group`` partitions when ``model`` > 1), the
     staging buffers of a gloo world on a card (``staging``), the
     per-(FLConfig) group registries (``registries``) and the traffic
-    counters of every collective issued on it (``traffic``)."""
+    counters of every collective issued on it: ``traffic`` over the
+    replica axes (the data group), ``model_traffic`` over the model
+    group."""
     world_size: int
     rank: int
     pods: int
     data: int
     device: torch.device
     backend: str
+    model: int = 1
+    model_group: Any = dataclasses.field(default=None, repr=False)
+    data_group: Any = dataclasses.field(default=None, repr=False)
     groups: Dict = dataclasses.field(default_factory=dict, repr=False)
     staging: Dict = dataclasses.field(default_factory=dict, repr=False)
     registries: Dict = dataclasses.field(default_factory=dict, repr=False)
     traffic: Dict = dataclasses.field(default_factory=dict, repr=False)
+    model_traffic: Dict = dataclasses.field(default_factory=dict,
+                                            repr=False)
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -75,21 +125,33 @@ class ReplicaMesh:
     @property
     def shape(self) -> Dict[str, int]:
         if self.pods > 1:
-            return {"pod": self.pods, "data": self.data, "model": 1}
-        return {"data": self.data, "model": 1}
-
-    @property
-    def pod_index(self) -> int:
-        return self.rank // self.data
-
-    @property
-    def data_index(self) -> int:
-        return self.rank % self.data
+            return {"pod": self.pods, "data": self.data, "model": self.model}
+        return {"data": self.data, "model": self.model}
 
     @property
     def replica(self) -> int:
-        """Flat replica id ``pod_idx * data + data_idx`` (the rank)."""
-        return self.pod_index * self.data + self.data_index
+        """Flat replica id ``pod_idx * data + data_idx``."""
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        """This rank's place in its replica's model group."""
+        return self.rank % self.model
+
+    @property
+    def pod_index(self) -> int:
+        return self.replica // self.data
+
+    @property
+    def data_index(self) -> int:
+        return self.replica % self.data
+
+    def rank_of(self, replica: int, model_index: Optional[int] = None
+                ) -> int:
+        """The world rank of ``replica``'s slice ``model_index`` (this
+        rank's by default)."""
+        m = self.model_index if model_index is None else model_index
+        return int(replica) * self.model + m
 
     @property
     def staged(self) -> bool:
@@ -106,6 +168,13 @@ class ReplicaMesh:
 
     def reset_traffic(self) -> None:
         self.traffic.clear()
+        self.model_traffic.clear()
+
+    def traffic_by_group(self) -> Dict[str, Dict]:
+        """``{"data": ..., "model": ...}``: each group's ``{op: {calls,
+        sent, recv}}`` (copies)."""
+        return {"data": {k: dict(v) for k, v in self.traffic.items()},
+                "model": {k: dict(v) for k, v in self.model_traffic.items()}}
 
 
 def rank_device(backend: str,
@@ -140,31 +209,53 @@ def rank_device(backend: str,
     return torch.device("cuda", local % cards)
 
 
-def make_replica_mesh(num_replicas: int, *, pods: int = 1,
+def make_replica_mesh(num_replicas: int, *, model: int = 1, pods: int = 1,
                       device: Optional[Union[str, torch.device]] = None
                       ) -> ReplicaMesh:
-    """Mesh for the sharded ModelBank engine: one bank row per rank of
-    the initialised default process group, ``pods > 1`` adding a leading
-    ``pod`` axis so multi-pod edge crossings are exercised (replica id =
-    ``pod_idx * data + data_idx``). ``device`` as :func:`rank_device`."""
+    """Mesh of ``num_replicas`` replicas (``pods > 1`` adds a leading
+    ``pod`` axis so multi-pod edge crossings are exercised; replica id =
+    ``pod_idx * data + data_idx``) of ``model`` ranks each, over the
+    initialised default process group of ``num_replicas * model`` ranks.
+    The sharded ModelBank engines take ``model`` 1: one bank row a rank.
+    The LM trainer's ``model`` > 1 splits each replica over that many
+    tensor-parallel ranks, and every rank makes the model groups
+    (``num_replicas`` groups of ``model`` consecutive ranks) and the data
+    groups (``model`` groups of ``num_replicas`` ranks, one a replica) in
+    the same order. ``device`` as :func:`rank_device`."""
+    if model < 1:
+        raise ValueError(f"model axis of size {model}")
     if not dist.is_initialized():
         raise RuntimeError(
             "make_replica_mesh needs an initialised default process group: "
             "call initialize_multihost (torchrun) or run under "
             "run_local_ranks")
     world = dist.get_world_size()
-    if world != num_replicas:
+    if model == 1 and world != num_replicas:
         raise RuntimeError(
             f"need {num_replicas} devices for {num_replicas} bank rows, "
             f"have {world}; run under torchrun --nproc-per-node "
             f"{num_replicas} or run_local_ranks({num_replicas}, ...)")
+    if world != num_replicas * model:
+        raise RuntimeError(
+            f"need {num_replicas} x {model} = {num_replicas * model} ranks "
+            f"for {num_replicas} replicas of {model} model ranks, have "
+            f"{world}")
     if pods < 1 or num_replicas % pods:
         raise ValueError(f"{num_replicas} replicas do not split into {pods} "
                          "pods")
     backend = str(dist.get_backend())
+    groups = {}
+    if model > 1:
+        groups["model_group"], _ = dist.new_subgroups_by_enumeration(
+            [list(range(r * model, (r + 1) * model))
+             for r in range(num_replicas)], backend=backend)
+        groups["data_group"], _ = dist.new_subgroups_by_enumeration(
+            [list(range(m, world, model)) for m in range(model)],
+            backend=backend)
     return ReplicaMesh(world_size=world, rank=dist.get_rank(), pods=pods,
                        data=num_replicas // pods,
-                       device=rank_device(backend, device), backend=backend)
+                       device=rank_device(backend, device), backend=backend,
+                       model=model, **groups)
 
 
 def make_tier_mesh(hierarchy, *, pods: int = 1,

@@ -9,12 +9,17 @@ tau local SGD steps with momentum 0.9, q edge rounds and pi gossip steps
 a round on the reference's synthetic federated token stream
 (``data.lm.TokenStream``), the loss a round on rank 0; ``--ckpt`` saves
 the replicas' average on rank 0. ``--gossip`` picks the mixing backend
-(dense, sparse, ringweight). A world of one runs in this process;
-``--model-parallel > 1`` (tensor parallelism within a replica) raises:
-ROADMAP A19.
+(dense, sparse, ringweight). ``--model-parallel M`` splits each replica
+over M ranks (tensor parallelism: ``launch.mesh.make_replica_mesh``), so a
+world is ``--data-parallel`` x M ranks; ``--ckpt`` then saves the
+gathered replica average, the file of M = 1. A world of one runs in
+this process.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
       --reduced --rounds 2 --data-parallel 8 --dist-backend gloo \
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+      --reduced --data-parallel 2 --model-parallel 2 --dist-backend gloo \
       --device cpu
 
 ``--engine bank`` runs the device-parallel flat-bank engine
@@ -88,8 +93,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--data-parallel", type=int, default=1,
                     help="ranks: LM replicas (pytree) or bank rows (bank)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="tensor parallelism within a replica; only 1 is "
-                         "ported (ROADMAP A19)")
+                    help="ranks a replica (tensor parallelism, pytree "
+                         "engine); the bank and population engines keep 1")
     ap.add_argument("--clusters", type=int, default=0)
     ap.add_argument("--tau", type=int, default=2)
     ap.add_argument("--q", type=int, default=2)
@@ -187,19 +192,24 @@ def main(argv=None):
                  "--faults/--ckpt-dir/--resume require --engine bank")
     if args.resume and not args.ckpt_dir:
         ap.error("--resume needs --ckpt-dir")
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "tensor parallelism within a replica (--model-parallel > 1) is "
-            "not ported yet: ROADMAP A19")
+    if args.model_parallel < 1:
+        ap.error("--model-parallel must be 1 or more")
     if args.population:
+        if args.model_parallel != 1:
+            raise ValueError("slab rows are not tensor-parallel; use "
+                             "--model-parallel 1")
         if args.data_parallel > 1:
             raise NotImplementedError(
                 "the sharded streamed bank (--population with "
                 "--data-parallel > 1) is not ported yet: ROADMAP A14, "
                 "ShardedStreamedBank")
         return run_population_engine(args)
+    if args.engine == "bank" and args.model_parallel != 1:
+        raise ValueError("bank rows are not tensor-parallel; use "
+                         "--model-parallel 1")
     run = run_bank_engine if args.engine == "bank" else run_pytree_engine
-    n = _bank_ranks(args) if args.engine == "bank" else args.data_parallel
+    n = (_bank_ranks(args) if args.engine == "bank"
+         else args.data_parallel * args.model_parallel)
     if lm.under_torchrun():
         lm.initialize_multihost(backend=args.dist_backend,
                                 device=args.device)
@@ -258,17 +268,21 @@ def lm_round_batch(stream, cfg, q: int, tau: int, batch: int, seq: int
 
 def run_pytree_engine(args) -> dict:
     """One rank of ``--engine pytree``: ``ShardedCEFedAvg`` on the
-    initialised world, ``--rounds`` rounds on the synthetic federated
-    token stream, the loss a round logged on rank 0. Returns this rank's
-    history (round loss and seconds), its collectives' traffic and its
-    peak device memory (None on the CPU)."""
+    initialised world (``--data-parallel`` replicas of
+    ``--model-parallel`` ranks), ``--rounds`` rounds on the synthetic
+    federated token stream, the loss a round logged on rank 0. Returns
+    this rank's history (round loss and seconds), its collectives'
+    traffic (over the data group; ``model_traffic`` over the model
+    group) and its peak device memory (None on the CPU)."""
     from repro_torch.core.sharded import ShardedCEFedAvg
     from repro_torch.data.lm import TokenStream
     from repro_torch.models.model import param_count
 
     exp = lm_experiment(args)
     cfg = exp.model
-    mesh = lm.make_replica_mesh(args.data_parallel, device=args.device)
+    mesh = lm.make_replica_mesh(args.data_parallel,
+                                model=args.model_parallel,
+                                device=args.device)
     tr = ShardedCEFedAvg(exp, mesh)
     R = tr.geo.num_replicas
     log = print if mesh.rank == 0 else (lambda *a, **k: None)
@@ -279,7 +293,8 @@ def run_pytree_engine(args) -> dict:
     params, opt = tr.init_fn()(0)
     log(f"pytree engine: {args.arch}{' (reduced)' if args.reduced else ''}"
         f", {param_count(params) / 1e6:.1f}M "
-        f"params a replica, R={R} replicas in {exp.fl.num_clusters} "
+        f"params a rank, R={R} replicas of {mesh.model} rank(s) in "
+        f"{exp.fl.num_clusters} "
         f"clusters, gossip={args.gossip}, device={mesh.device} "
         f"({mesh.transport})", flush=True)
     round_fn = tr.make_global_round()
@@ -306,6 +321,8 @@ def run_pytree_engine(args) -> dict:
             log(f"saved global model to {args.ckpt}")
     return {"rank": mesh.rank, "hist": hist,
             "traffic": {k: dict(v) for k, v in mesh.traffic.items()},
+            "model_traffic": {k: dict(v)
+                              for k, v in mesh.model_traffic.items()},
             "peak_bytes": (torch.cuda.max_memory_allocated(mesh.device)
                            if cuda else None)}
 

@@ -4,8 +4,19 @@
 Parameters keep the reference's layout so that its weights carry across
 as leaf copies (:mod:`repro_torch.convert`): dense weights (fan_in,
 fan_out), attention ``wq``/``wk``/``wv`` (d, heads, head_dim) and ``wo``
-(heads, head_dim, d). The reference's logical sharding axes have no
-counterpart on one device and are left out.
+(heads, head_dim, d). The reference's logical sharding axes are the
+``*_logical`` functions (``repro_torch.sharding``).
+
+Tensor parallelism (``tp``, a ``core.collectives.ModelParallel``): a
+rank holds its slice of each parameter as the resolved spec says, and a
+layer reads from its parameters' shapes what is split. The MLP splits
+``ff`` (column-split in, row-split out, one model-group sum); attention
+splits the query heads and, where they divide, the kv heads, runs on the
+rank's heads and sums ``wo``'s partial products. Where the kv heads do
+not divide and the query heads do, the rank keeps every kv head and maps
+each of its query heads to its global kv group. Norms and rope stay
+replicated. With ``tp`` None, or nothing split, a layer is the unsplit
+one, op for op.
 
 On a CUDA tensor the full-sequence attention core runs the hand-written
 flash-attention kernel (:mod:`repro_torch.kernels.flash_attention`); on
@@ -68,6 +79,14 @@ def init_norm(cfg: ModelConfig, d: int, device: Device,
     return p
 
 
+def norm_logical(cfg: ModelConfig) -> Params:
+    """The logical axes of :func:`init_norm`'s parameters."""
+    lg: Params = {"scale": ("embed",)}
+    if cfg.norm == "layernorm":
+        lg["bias"] = ("embed",)
+    return lg
+
+
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """RMSNorm or LayerNorm computed in f32, cast back to x's dtype."""
     xf = x.to(torch.float32)
@@ -124,16 +143,35 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d: int, ff: int,
             "w_out": dense_init(gen, ff, lead + (ff, d), dt, device)}
 
 
-def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp_logical(cfg: ModelConfig) -> Params:
+    """The logical axes of :func:`init_mlp`'s parameters."""
     if cfg.mlp_act == "relu2":
-        h = torch.square(F.relu(x @ p["w_in"]))
-        return h @ p["w_out"]
+        return {"w_in": ("embed", "ff"), "w_out": ("ff", "embed")}
     if cfg.mlp_act == "gelu":
+        return {"w_in": ("embed", "ff"), "b_in": ("ff",),
+                "w_out": ("ff", "embed"), "b_out": ("embed",)}
+    return {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+            "w_out": ("ff", "embed")}
+
+
+def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              tp=None) -> torch.Tensor:
+    """The MLP; under ``tp`` with ``ff`` split, on the rank's columns,
+    summed over the model group (``b_out`` added after the sum)."""
+    split = tp is not None and p["w_out"].shape[-2] != cfg.d_ff
+    if split:
+        x = tp.copy(x)
+    if cfg.mlp_act == "relu2":
+        y = torch.square(F.relu(x @ p["w_in"])) @ p["w_out"]
+    elif cfg.mlp_act == "gelu":
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
-        return h @ p["w_out"] + p["b_out"]
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_out"]
+        y = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh") @ \
+            p["w_out"]
+    else:
+        y = (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_out"]
+    if split:
+        y = tp.reduce(y)
+    return y + p["b_out"] if cfg.mlp_act == "gelu" else y
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +200,18 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device: Device,
         p["bk"] = torch.zeros(lead + (hk, hd), dtype=dt, device=device)
         p["bv"] = torch.zeros(lead + (hk, hd), dtype=dt, device=device)
     return p
+
+
+def attention_logical(cfg: ModelConfig) -> Params:
+    """The logical axes of :func:`init_attention`'s parameters."""
+    lg: Params = {"wq": ("embed", "heads", "head_dim"),
+                  "wk": ("embed", "kv_heads", "head_dim"),
+                  "wv": ("embed", "kv_heads", "head_dim"),
+                  "wo": ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        lg.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                  bv=("kv_heads", "head_dim"))
+    return lg
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -274,17 +324,19 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[:, :Sq]
 
 
-def _mask_padded_heads(cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
+def _mask_padded_heads(cfg: ModelConfig, out: torch.Tensor,
+                       offset: int = 0) -> torch.Tensor:
     """Zero the outputs of padded heads, so padding is permanently inert.
     Padding is interleaved per GQA group (slot % rep_new >= rep_old
-    masked) so every real head keeps its original kv-head assignment."""
+    masked) so every real head keeps its original kv-head assignment.
+    ``out``'s heads are the global heads ``offset`` on (a rank's)."""
     hp = padded_heads(cfg)
     if hp == cfg.num_heads:
         return out
     rep_new = hp // cfg.num_kv_heads
     rep_old = cfg.num_heads // cfg.num_kv_heads
-    mask = ((torch.arange(hp, device=out.device) % rep_new) < rep_old
-            ).to(out.dtype)
+    heads = offset + torch.arange(out.shape[-2], device=out.device)
+    mask = ((heads % rep_new) < rep_old).to(out.dtype)
     return out * mask[:, None]
 
 
@@ -294,23 +346,61 @@ def _out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.flatten(-2) @ wo.reshape(h * k, d)
 
 
+def _rank_kv(k: torch.Tensor, offset: int, heads: int,
+             rep: int) -> torch.Tensor:
+    """The kv heads (B, S, Hkv, D -> B, S, h, D) that a rank's ``heads``
+    query heads, the global heads ``offset`` on, attend to, where every
+    rank holds all kv heads (``rep`` query heads a kv head): a slice of
+    whole kv groups, the one kv head they share, or one kv head each."""
+    if heads % rep == 0:
+        return k[:, :, offset // rep:(offset + heads) // rep]
+    if rep % heads == 0:
+        return k[:, :, offset // rep:offset // rep + 1]
+    idx = (offset + torch.arange(heads, device=k.device)) // rep
+    return k.index_select(2, idx)
+
+
 def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                     causal: bool = True,
                     kv_input: Optional[torch.Tensor] = None,
                     positions: Optional[torch.Tensor] = None,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Full-sequence (train / prefill) attention."""
-    q, k, v = qkv_project(cfg, p, x, kv_input)
+                    window: Optional[int] = None, tp=None) -> torch.Tensor:
+    """Full-sequence (train / prefill) attention; under ``tp`` with the
+    query heads split, on the rank's heads, ``wo``'s partial products
+    summed over the model group."""
+    H, Hk = padded_heads(cfg), cfg.num_kv_heads
+    h, hk = p["wq"].shape[-2], p["wk"].shape[-2]
+    split = tp is not None and h != H
+    if tp is not None and hk != Hk and not split:
+        raise ValueError(f"kv heads split ({hk} of {Hk}) but query heads "
+                         f"not ({h} of {H})")
+    offset = tp.index * h if split else 0
+    kv_split = split and hk != Hk
+    if split:
+        xs = tp.copy(x)
+        if kv_split:
+            kv_in = xs if kv_input is None else tp.copy(kv_input)
+        else:
+            kv_in = x if kv_input is None else kv_input
+        q, k, v = qkv_project(cfg, p, xs, kv_in)
+    else:
+        q, k, v = qkv_project(cfg, p, x, kv_input)
     if cfg.use_rope and kv_input is None:
         pos = positions if positions is not None else torch.arange(
             x.shape[1], device=x.device)
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
+    if split and not kv_split:
+        # every rank holds all kv heads: their gradients are partial
+        rep = H // Hk
+        k = _rank_kv(tp.copy(k), offset, h, rep)
+        v = _rank_kv(tp.copy(v), offset, h, rep)
     w = cfg.sliding_window if window is None else window
     out = attention_core(q, k, v, causal=causal and kv_input is None,
                          window=w if kv_input is None else 0)
-    out = _mask_padded_heads(cfg, out)
-    return _out_project(out, p["wo"])
+    out = _mask_padded_heads(cfg, out, offset)
+    out = _out_project(out, p["wo"])
+    return tp.reduce(out) if split else out
 
 
 def decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,

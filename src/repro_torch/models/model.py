@@ -19,6 +19,18 @@ encoder's) and the SSD kernel in every Mamba-2 block; decoding runs
 neither. The ``cnn`` family is the FL path's (``models/cnn.py``) and
 raises here, as in the reference.
 
+Tensor parallelism (``tp``, a ``core.collectives.ModelParallel``, in
+``forward`` and ``lm_loss``): each rank holds its slice of every
+parameter (:func:`logical_axes` resolved by ``repro_torch.sharding``, cut by
+``sharding.shard_tree``), and the layers split as ``models.layers``,
+``models.moe`` and ``models.ssm`` say. The embedding is a vocab-split
+lookup (the rank's ``padded_vocab / mp`` rows, masked, then summed over
+the model group), the logits the rank's ``padded_vocab / mp`` columns
+(a tied head uses its rows of ``tok_embed``), and the loss a vocab-split
+cross entropy: the max, the sum of exps and the target logit each
+reduced over the model group, so no rank holds the whole (tokens,
+vocab) logits.
+
 ``remat=True`` recomputes each layer's activations in the backward
 instead of keeping them (the reference's ``jax.checkpoint`` of its scan
 body): every layer body — a hybrid group with its shared block, an
@@ -40,6 +52,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.sharding import prepend_axis
 
 Params = Dict[str, Any]
 Device = Union[str, torch.device, None]
@@ -102,14 +115,19 @@ def _init_dense_block(gen, cfg: ModelConfig, device, lead=()) -> Params:
             "norm2": L.init_norm(cfg, cfg.d_model, device, lead)}
 
 
+def _dense_logical(cfg: ModelConfig) -> Params:
+    return {"attn": L.attention_logical(cfg), "mlp": L.mlp_logical(cfg),
+            "norm1": L.norm_logical(cfg), "norm2": L.norm_logical(cfg)}
+
+
 def _apply_dense_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                        window: Optional[int] = None,
-                       causal: bool = True) -> torch.Tensor:
+                       causal: bool = True, tp=None) -> torch.Tensor:
     h = L.apply_norm(cfg, lp["norm1"], x)
     x = x + L.apply_attention(cfg, lp["attn"], h, causal=causal,
-                              window=window)
+                              window=window, tp=tp)
     h = L.apply_norm(cfg, lp["norm2"], x)
-    return x + L.apply_mlp(cfg, lp["mlp"], h)
+    return x + L.apply_mlp(cfg, lp["mlp"], h, tp)
 
 
 def _init_moe_block(gen, cfg: ModelConfig, device, lead=()) -> Params:
@@ -119,21 +137,28 @@ def _init_moe_block(gen, cfg: ModelConfig, device, lead=()) -> Params:
             "norm2": L.init_norm(cfg, cfg.d_model, device, lead)}
 
 
+def _moe_block_logical(cfg: ModelConfig) -> Params:
+    return {"attn": L.attention_logical(cfg), "moe": M.moe_logical(cfg),
+            "norm1": L.norm_logical(cfg), "norm2": L.norm_logical(cfg)}
+
+
 def _apply_moe_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-                     window: Optional[int] = None, drops=None):
+                     window: Optional[int] = None, drops=None, tp=None):
     h = L.apply_norm(cfg, lp["norm1"], x)
-    x = x + L.apply_attention(cfg, lp["attn"], h, causal=True, window=window)
+    x = x + L.apply_attention(cfg, lp["attn"], h, causal=True, window=window,
+                              tp=tp)
     h = L.apply_norm(cfg, lp["norm2"], x)
-    y, aux = M.apply_moe(cfg, lp["moe"], h, drops)
+    y, aux = M.apply_moe(cfg, lp["moe"], h, drops, tp)
     return x + y, aux
 
 
 def _llama4_pair(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-                 drops=None):
+                 drops=None, tp=None):
     """A llama4 (dense with SWA at sliding_window, MoE with full
     attention) layer pair."""
-    x = _apply_dense_block(cfg, lp["dense"], x, window=cfg.sliding_window)
-    return _apply_moe_block(cfg, lp["moe"], x, window=0, drops=drops)
+    x = _apply_dense_block(cfg, lp["dense"], x, window=cfg.sliding_window,
+                           tp=tp)
+    return _apply_moe_block(cfg, lp["moe"], x, window=0, drops=drops, tp=tp)
 
 
 def _init_ssm_block(gen, cfg: ModelConfig, device, lead=()) -> Params:
@@ -142,9 +167,9 @@ def _init_ssm_block(gen, cfg: ModelConfig, device, lead=()) -> Params:
 
 
 def _apply_ssm_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-                     intra_fn=None) -> torch.Tensor:
+                     intra_fn=None, tp=None) -> torch.Tensor:
     h = L.apply_norm(cfg, lp["norm1"], x)
-    return x + S.apply_mamba(cfg, lp["mamba"], h, intra_fn=intra_fn)
+    return x + S.apply_mamba(cfg, lp["mamba"], h, intra_fn=intra_fn, tp=tp)
 
 
 def _init_encdec_dec_block(gen, cfg: ModelConfig, device, lead=()) -> Params:
@@ -212,6 +237,47 @@ def init_model(gen: torch.Generator, cfg: ModelConfig,
     return params
 
 
+def logical_axes(cfg: ModelConfig) -> Params:
+    """The logical axes of :func:`init_model`'s tree, the reference's
+    ``init_model``'s second result: a tuple of names a leaf, stacked
+    layer axes named ``"layers"``."""
+    _check_family(cfg)
+
+    def stacked(lg, times=1):
+        for _ in range(times):
+            lg = prepend_axis(lg, "layers")
+        return lg
+    lg: Params = {"tok_embed": ("vocab", "embed"),
+                  "final_norm": L.norm_logical(cfg)}
+    if not cfg.tie_embeddings:
+        lg["lm_head"] = ("embed", "vocab")
+    ssm = {"mamba": S.mamba_logical(), "norm1": L.norm_logical(cfg)}
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
+        lg["layers"] = stacked(_dense_logical(cfg))
+        if fam == "vlm":
+            lg["vision_proj"] = ("embed", "embed")
+    elif fam == "moe" and cfg.moe_shared_expert:
+        lg["layers"] = {"dense": stacked(_dense_logical(cfg)),
+                        "moe": stacked(_moe_block_logical(cfg))}
+    elif fam == "moe":
+        lg["layers"] = stacked(_moe_block_logical(cfg))
+    elif fam == "encdec":
+        lg["enc_layers"] = stacked(_dense_logical(cfg))
+        lg["dec_layers"] = stacked({
+            "self_attn": L.attention_logical(cfg),
+            "cross_attn": L.attention_logical(cfg),
+            "mlp": L.mlp_logical(cfg),
+            **{f"norm{i}": L.norm_logical(cfg) for i in (1, 2, 3)}})
+        lg["enc_final_norm"] = L.norm_logical(cfg)
+    elif fam == "ssm":
+        lg["layers"] = stacked(ssm)
+    else:  # hybrid: (groups, attn_every) blocks, as the reference names
+        lg["layers"] = stacked(ssm, 2)
+        lg["shared_block"] = _dense_logical(cfg)
+    return lg
+
+
 def param_count(params: Params) -> int:
     return sum(t.numel() for t in tr.tree_leaves(params))
 
@@ -220,22 +286,41 @@ def param_count(params: Params) -> int:
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
+def _vocab_split(cfg: ModelConfig, params: Params, tp) -> bool:
+    return tp is not None and \
+        params["tok_embed"].shape[0] != padded_vocab(cfg)
+
+
 def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-           pos: int = 0) -> torch.Tensor:
+           pos: int = 0, tp=None) -> torch.Tensor:
     """Token embeddings of (B, S) tokens at positions pos.., plus
-    sinusoidal positions when the model has no rope (whisper)."""
-    x = params["tok_embed"][tokens].to(L.torch_dtype(cfg.dtype))
+    sinusoidal positions when the model has no rope (whisper). With the
+    vocabulary split, the rank looks up the tokens in its rows and the
+    model group sums the masked lookups."""
+    emb = params["tok_embed"]
+    if _vocab_split(cfg, params, tp):
+        rows = emb.shape[0]
+        local = tokens - tp.index * rows
+        mine = (local >= 0) & (local < rows)
+        x = torch.where(mine[..., None], emb[local.clamp(0, rows - 1)],
+                        torch.zeros((), dtype=emb.dtype, device=emb.device))
+        x = tp.reduce(x.to(L.torch_dtype(cfg.dtype)))
+    else:
+        x = emb[tokens].to(L.torch_dtype(cfg.dtype))
     if not cfg.use_rope:
         at = torch.arange(pos, pos + tokens.shape[1], device=x.device)
         x = x + _sinusoidal(at, cfg.d_model)[None].to(x.dtype)
     return x
 
 
-def _logits(cfg: ModelConfig, params: Params,
-            x: torch.Tensor) -> torch.Tensor:
+def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor,
+            tp=None) -> torch.Tensor:
+    """The logits, or with the vocabulary split the rank's columns."""
     x = L.apply_norm(cfg, params["final_norm"], x)
     head = (params["tok_embed"].T if cfg.tie_embeddings
             else params["lm_head"])
+    if _vocab_split(cfg, params, tp):
+        x = tp.copy(x)
     return x @ head
 
 
@@ -244,7 +329,7 @@ def _tokens(batch, device: torch.device) -> torch.Tensor:
 
 
 def _encode(cfg: ModelConfig, params: Params, frames,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, tp=None) -> torch.Tensor:
     """The encoder of an encdec model: (B, encoder_seq, d) frame
     embeddings (the stub frontend's) -> normed (B, encoder_seq, d)."""
     dt = L.torch_dtype(cfg.dtype)
@@ -252,32 +337,33 @@ def _encode(cfg: ModelConfig, params: Params, frames,
     at = torch.arange(enc.shape[1], device=enc.device)
     enc = enc + _sinusoidal(at, cfg.d_model)[None].to(dt)
     for lp in _layers(params["enc_layers"]):
-        enc = _run(remat, _apply_dense_block, cfg, lp, enc, causal=False)
+        enc = _run(remat, _apply_dense_block, cfg, lp, enc, causal=False,
+                   tp=tp)
     return L.apply_norm(cfg, params["enc_final_norm"], enc)
 
 
 def _apply_dec_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-                     enc: torch.Tensor) -> torch.Tensor:
+                     enc: torch.Tensor, tp=None) -> torch.Tensor:
     h = L.apply_norm(cfg, lp["norm1"], x)
-    x = x + L.apply_attention(cfg, lp["self_attn"], h, causal=True)
+    x = x + L.apply_attention(cfg, lp["self_attn"], h, causal=True, tp=tp)
     h = L.apply_norm(cfg, lp["norm2"], x)
-    x = x + L.apply_attention(cfg, lp["cross_attn"], h, kv_input=enc)
+    x = x + L.apply_attention(cfg, lp["cross_attn"], h, kv_input=enc, tp=tp)
     h = L.apply_norm(cfg, lp["norm3"], x)
-    return x + L.apply_mlp(cfg, lp["mlp"], h)
+    return x + L.apply_mlp(cfg, lp["mlp"], h, tp)
 
 
 def _hybrid_group(cfg: ModelConfig, gp: Params, shared: Params,
-                  x: torch.Tensor, intra_fn=None) -> torch.Tensor:
+                  x: torch.Tensor, intra_fn=None, tp=None) -> torch.Tensor:
     """One hybrid group: its ``attn_every`` Mamba-2 blocks, then the
     shared attention block."""
     for lp in _layers(gp):
-        x = _apply_ssm_block(cfg, lp, x, intra_fn=intra_fn)
-    return _apply_dense_block(cfg, shared, x)
+        x = _apply_ssm_block(cfg, lp, x, intra_fn=intra_fn, tp=tp)
+    return _apply_dense_block(cfg, shared, x, tp=tp)
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             remat: bool = False, intra_fn=None,
-            drops: Optional[list] = None
+            drops: Optional[list] = None, tp=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, padded_vocab), aux_loss). ``batch["tokens"]``
     is (B, S) int (numpy or tensor); encdec also takes ``frames`` (B,
@@ -287,19 +373,20 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     layer's count of dropped assignments (``models.moe``); under
     ``remat`` the backward's recomputation appends them again.
     ``remat`` recomputes each layer body's activations in the
-    backward."""
+    backward. Under ``tp`` the params are the rank's slices and the
+    logits its vocabulary columns where the vocabulary is split."""
     _check_family(cfg)
     fam = cfg.family
     device = params["tok_embed"].device
     aux = torch.zeros((), dtype=torch.float32, device=device)
     if fam == "encdec":
-        enc = _encode(cfg, params, batch["frames"], remat)
-        x = _embed(cfg, params, _tokens(batch, device))
+        enc = _encode(cfg, params, batch["frames"], remat, tp)
+        x = _embed(cfg, params, _tokens(batch, device), tp=tp)
         for lp in _layers(params["dec_layers"]):
-            x = _run(remat, _apply_dec_block, cfg, lp, x, enc)
-        return _logits(cfg, params, x), aux
+            x = _run(remat, _apply_dec_block, cfg, lp, x, enc, tp=tp)
+        return _logits(cfg, params, x, tp), aux
 
-    x = _embed(cfg, params, _tokens(batch, device))
+    x = _embed(cfg, params, _tokens(batch, device), tp=tp)
     if fam == "vlm":
         dt = L.torch_dtype(cfg.dtype)
         patches = torch.as_tensor(batch["patch_embeds"], device=device
@@ -308,39 +395,53 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     layers = params["layers"]
     if fam in ("dense", "vlm"):
         for lp in _layers(layers):
-            x = _run(remat, _apply_dense_block, cfg, lp, x)
+            x = _run(remat, _apply_dense_block, cfg, lp, x, tp=tp)
     elif fam == "moe" and cfg.moe_shared_expert:
         # llama4: (dense with SWA at sliding_window, MoE with full
         # attention) pairs
         for lp in _layers(layers):
-            x, a = _run(remat, _llama4_pair, cfg, lp, x, drops)
+            x, a = _run(remat, _llama4_pair, cfg, lp, x, drops, tp=tp)
             aux = aux + a
     elif fam == "moe":
         for lp in _layers(layers):
-            x, a = _run(remat, _apply_moe_block, cfg, lp, x, drops=drops)
+            x, a = _run(remat, _apply_moe_block, cfg, lp, x, drops=drops,
+                        tp=tp)
             aux = aux + a
     elif fam == "ssm":
         for lp in _layers(layers):
-            x = _run(remat, _apply_ssm_block, cfg, lp, x, intra_fn=intra_fn)
+            x = _run(remat, _apply_ssm_block, cfg, lp, x, intra_fn=intra_fn,
+                     tp=tp)
     else:  # hybrid
         for gp in _layers(layers):
             x = _run(remat, _hybrid_group, cfg, gp, params["shared_block"],
-                     x, intra_fn=intra_fn)
-    return _logits(cfg, params, x), aux
+                     x, intra_fn=intra_fn, tp=tp)
+    return _logits(cfg, params, x, tp), aux
 
 
 def lm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            remat: bool = False, aux_weight: float = 0.01) -> torch.Tensor:
+            remat: bool = False, aux_weight: float = 0.01,
+            tp=None) -> torch.Tensor:
     """Mean next-token cross entropy (f32) plus ``aux_weight`` x aux; a
-    vlm model's loss is over the text positions only. ``remat`` as in
-    :func:`forward`."""
-    logits, aux = forward(cfg, params, batch, remat=remat)
+    vlm model's loss is over the text positions only. ``remat`` and
+    ``tp`` as in :func:`forward`: with the vocabulary split, the
+    logsumexp's max, its sum of exps and the target logit are each
+    reduced over the model group."""
+    logits, aux = forward(cfg, params, batch, remat=remat, tp=tp)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     if cfg.family == "vlm":
         logits = logits[:, -labels.shape[1]:]
     lf = logits.to(torch.float32)
-    lse = torch.logsumexp(lf, dim=-1)
-    picked = torch.gather(lf, -1, labels[..., None])[..., 0]
+    if not _vocab_split(cfg, params, tp):
+        lse = torch.logsumexp(lf, dim=-1)
+        picked = torch.gather(lf, -1, labels[..., None])[..., 0]
+        return (lse - picked).mean() + aux_weight * aux
+    cols = lf.shape[-1]
+    m = tp.max(lf.amax(dim=-1))
+    lse = m + torch.log(tp.reduce(torch.exp(lf - m[..., None]).sum(-1)))
+    local = labels - tp.index * cols
+    mine = (local >= 0) & (local < cols)
+    picked = torch.gather(lf, -1, local.clamp(0, cols - 1)[..., None])[..., 0]
+    picked = tp.reduce(torch.where(mine, picked, torch.zeros_like(picked)))
     return (lse - picked).mean() + aux_weight * aux
 
 
@@ -386,6 +487,30 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq: int,
     mc = {k: v.reshape((groups, cfg.attn_every) + v.shape[1:])
           for k, v in mc.items()}
     return {**mc, "k": kv(groups), "v": kv(groups)}
+
+
+def decode_cache_logical(cfg: ModelConfig) -> Params:
+    """The logical axes of :func:`init_decode_cache`'s tree, the
+    reference's ``init_decode_cache``'s second result."""
+    _check_family(cfg)
+    kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    fam = cfg.family
+    if fam in ("dense", "vlm") or (fam == "moe"
+                                   and not cfg.moe_shared_expert):
+        return {"k": kv, "v": kv}
+    if fam == "moe":
+        pair = ("layers", None, "batch", "kv_seq", "kv_heads", "head_dim")
+        return {"k": pair, "v": pair}
+    if fam == "encdec":
+        cross = ("layers", "batch", None, "heads", "head_dim")
+        return {"k": kv, "v": kv, "xk": cross, "xv": cross}
+    if fam == "ssm":
+        return {"ssm_state": ("layers", "batch", "ssm_heads", None, "state"),
+                "conv_state": ("layers", "batch", None, None)}
+    return {"ssm_state": ("layers", None, "batch", "ssm_heads", None,
+                          "state"),
+            "conv_state": ("layers", None, "batch", None, None),
+            "k": kv, "v": kv}
 
 
 def _decode_ssm_block(cfg, lp, x, cache, idx):

@@ -24,6 +24,17 @@ computes it outside any kernel.
 
 ``drops``: a list that, when given, receives each call's number of
 dropped assignments as a 0-d int64 tensor on x's device (no sync).
+
+Tensor parallelism (``tp``): where the experts divide the model group a
+rank holds ``E / mp`` of them (the router's columns and the expert
+FFNs, ``ff`` whole), else every expert with ``ff`` split. The router's
+logits are gathered to (tokens, E) in f32 before ``topk``, so every
+rank routes, drops and computes the aux loss as the unsplit layer does;
+a rank then fills and runs only its own experts' capacity buffers, and
+the partial outputs (with a split shared expert's) are summed over the
+model group. The gates' gradient is partial on each rank (only its
+experts' outputs meet them) and is summed before it reaches the
+routing.
 """
 from __future__ import annotations
 
@@ -60,6 +71,18 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, d: int, ff: int,
     return p
 
 
+def moe_logical(cfg: ModelConfig) -> Params:
+    """The logical axes of :func:`init_moe`'s parameters."""
+    lg: Params = {"router": ("embed", "experts"),
+                  "w_gate": ("experts", "embed", "ff"),
+                  "w_up": ("experts", "embed", "ff"),
+                  "w_out": ("experts", "ff", "embed")}
+    if cfg.moe_shared_expert:
+        lg["shared"] = {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+                        "w_out": ("ff", "embed")}
+    return lg
+
+
 def _capacity(tokens: int, cfg: ModelConfig) -> int:
     E, k = cfg.num_experts, cfg.experts_per_token
     cap = int(tokens * k * cfg.capacity_factor / E) + 1
@@ -67,35 +90,78 @@ def _capacity(tokens: int, cfg: ModelConfig) -> int:
 
 
 def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor,
-              drops: Optional[List[torch.Tensor]] = None
+              drops: Optional[List[torch.Tensor]] = None, tp=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,d) -> (y (B,S,d), aux_load_balance_loss ())."""
     B, S, d = x.shape
+    if tp is not None and (p["w_gate"].shape[-3] == cfg.num_experts
+                           and p["w_gate"].shape[-1] == cfg.d_ff):
+        tp = None  # nothing split: the unsplit layer
+    xs = x if tp is None else tp.copy(x)
     if cfg.moe_local_dispatch:
         # per-batch-row dispatch: each row has its own capacity
-        y, aux = _moe_tokens_batched(cfg, p, x, drops)
-        return y + _shared(cfg, p, x), aux.mean()
-    y, aux = _moe_tokens(cfg, p, x.reshape(B * S, d), drops)
-    return y.reshape(B, S, d) + _shared(cfg, p, x), aux
+        y, aux = _moe_tokens_batched(cfg, p, x, xs, drops, tp)
+        aux = aux.mean()
+    else:
+        y, aux = _moe_tokens(cfg, p, x.reshape(B * S, d),
+                             xs.reshape(B * S, d), drops, tp)
+        y = y.reshape(B, S, d)
+    shared = None
+    if cfg.moe_shared_expert:
+        sp = p["shared"]
+        if tp is not None and sp["w_out"].shape[-2] != cfg.d_ff:
+            # its ff split (so is the layer): one sum for both
+            y = y + _shared(sp, xs)
+        else:
+            shared = _shared(sp, x)
+    if tp is not None:
+        y = tp.reduce(y)
+    return (y if shared is None else y + shared), aux
 
 
-def _shared(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    if not cfg.moe_shared_expert:
-        return torch.zeros((), dtype=x.dtype, device=x.device)
-    sp = p["shared"]
+def _shared(sp: Params, x: torch.Tensor) -> torch.Tensor:
+    """The shared expert (llama4)."""
     hs = F.silu(x @ sp["w_gate"]) * (x @ sp["w_up"])
     return hs @ sp["w_out"]
 
 
-def _route(cfg: ModelConfig, p: Params, x: torch.Tensor):
+def _router_input(cfg: ModelConfig, p: Params, x, xs):
+    """What the router reads: the split branch's input ``xs`` where the
+    router's columns are split (their logits are gathered), else x."""
+    return xs if p["router"].shape[-1] != cfg.num_experts else x
+
+
+def _route(cfg: ModelConfig, p: Params, x: torch.Tensor, tp=None):
     """Router probabilities (f32), top-k gates renormalised and expert
-    ids, over the last axis of x (..., d)."""
+    ids, over the last axis of x (..., d). Under ``tp`` (the layer
+    split) a split router's logits are gathered, and the gates' partial
+    gradient is summed over the model group."""
     logits = x.to(torch.float32) @ p["router"]
+    if p["router"].shape[-1] != cfg.num_experts:
+        logits = tp.gather(logits, -1)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = torch.topk(probs, cfg.experts_per_token, dim=-1)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
+    if tp is not None:
+        gate_vals = tp.copy(gate_vals)
     return probs, gate_vals, expert_ids
+
+
+def _local_slots(p: Params, cfg: ModelConfig, e_sorted, pos_in_e, keep,
+                 cap: int, tp):
+    """(the rank's expert count El, the slot of each sorted assignment in
+    its El * cap buffers, the overflow slot El * cap for the others, and
+    which assignments it serves)."""
+    E = cfg.num_experts
+    El = p["w_gate"].shape[-3]
+    if El == E:
+        return El, torch.where(keep, e_sorted * cap + pos_in_e, E * cap), \
+            keep
+    e0 = tp.index * El
+    mine = keep & (e_sorted >= e0) & (e_sorted < e0 + El)
+    return El, torch.where(mine, (e_sorted - e0) * cap + pos_in_e,
+                           El * cap), mine
 
 
 def _experts(p: Params, xe: torch.Tensor) -> torch.Tensor:
@@ -112,12 +178,16 @@ def _recency_order(flat_e: torch.Tensor) -> torch.Tensor:
 
 
 def _moe_tokens_batched(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                        drops=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batch-local dispatch: x (B,S,d) -> (y (B,S,d), aux (B,))."""
+                        xs: torch.Tensor, drops=None, tp=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch-local dispatch: x (B,S,d) -> (y (B,S,d), aux (B,)); ``xs``
+    is x as the split branch's input, ``tp`` given when the layer is
+    split (y is then this rank's partial output)."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     dev = x.device
-    probs, gate_vals, expert_ids = _route(cfg, p, x)        # (B,S,k)
+    probs, gate_vals, expert_ids = _route(               # (B,S,k)
+        cfg, p, _router_input(cfg, p, x, xs), tp)
 
     me = probs.mean(dim=1)                                  # (B,E)
     ce = torch.zeros((B, E), dtype=torch.float32, device=dev).scatter_add_(
@@ -140,21 +210,23 @@ def _moe_tokens_batched(cfg: ModelConfig, p: Params, x: torch.Tensor,
         torch.gather(seg_start, 1, e_sorted)
     cap = _capacity(S, cfg)
     keep = pos_in_e < cap
-    dest = torch.where(keep, e_sorted * cap + pos_in_e, E * cap)
     if drops is not None:
         drops.append((~keep).sum())
+    El, dest, keep = _local_slots(p, cfg, e_sorted, pos_in_e, keep, cap,
+                                  tp)
 
     # scatter only the slot map (kept slots are distinct; the dropped
     # all land on the overflow slot, which is discarded), then move the
     # activations with gathers
-    slot_tok = torch.full((B, E * cap + 1), S, dtype=torch.long, device=dev)
+    slot_tok = torch.full((B, El * cap + 1), S, dtype=torch.long,
+                          device=dev)
     slot_tok.scatter_(1, dest, torch.where(keep, tok_sorted, S))
-    x_pad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)
+    x_pad = torch.cat([xs, xs.new_zeros((B, 1, d))], dim=1)
     xe = torch.gather(x_pad, 1, slot_tok[:, :-1, None].expand(-1, -1, d)
-                      ).reshape(B, E, cap, d)
+                      ).reshape(B, El, cap, d)
     ye = _experts(p, xe)
 
-    got = torch.cat([ye.reshape(B, E * cap, d), ye.new_zeros((B, 1, d))],
+    got = torch.cat([ye.reshape(B, El * cap, d), ye.new_zeros((B, 1, d))],
                     dim=1)
     per_assign = torch.gather(got, 1, dest[..., None].expand(-1, -1, d)) * \
         torch.gather(flat_g, 1, order)[..., None].to(x.dtype)
@@ -166,12 +238,15 @@ def _moe_tokens_batched(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 def _moe_tokens(cfg: ModelConfig, p: Params, xt: torch.Tensor,
-                drops=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Global dispatch: xt (T,d) -> (y (T,d), aux ())."""
+                xs: torch.Tensor, drops=None, tp=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Global dispatch: xt (T,d) -> (y (T,d), aux ()); ``xs`` and ``tp``
+    as :func:`_moe_tokens_batched`'s."""
     T, d = xt.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     dev = xt.device
-    probs, gate_vals, expert_ids = _route(cfg, p, xt)       # (T,k)
+    probs, gate_vals, expert_ids = _route(               # (T,k)
+        cfg, p, _router_input(cfg, p, xt, xs), tp)
 
     # load-balance aux loss (Switch-style)
     me = probs.mean(dim=0)                                  # (E,)
@@ -195,17 +270,18 @@ def _moe_tokens(cfg: ModelConfig, p: Params, xt: torch.Tensor,
     pos_in_e = torch.arange(A, device=dev) - seg_start[e_sorted]
     cap = _capacity(T, cfg)
     keep = pos_in_e < cap
-    dest = torch.where(keep, e_sorted * cap + pos_in_e, E * cap)
     if drops is not None:
         drops.append((~keep).sum())
+    El, dest, keep = _local_slots(p, cfg, e_sorted, pos_in_e, keep, cap,
+                                  tp)
 
     # the dropped rows all write the overflow slot, which is discarded
-    buf = xt.new_zeros((E * cap + 1, d))
-    buf[dest] = xt[tok_sorted] * keep[:, None].to(xt.dtype)
-    ye = _experts(p, buf[:-1].reshape(E, cap, d))           # (E,cap,d)
+    buf = xs.new_zeros((El * cap + 1, d))
+    buf[dest] = xs[tok_sorted] * keep[:, None].to(xs.dtype)
+    ye = _experts(p, buf[:-1].reshape(El, cap, d))          # (El,cap,d)
 
     # ---- combine: un-sort with the inverse permutation, sum over k ----
-    got = torch.cat([ye.reshape(E * cap, d), ye.new_zeros((1, d))])
+    got = torch.cat([ye.reshape(El * cap, d), ye.new_zeros((1, d))])
     per_assign = got[dest] * flat_g[order][:, None].to(xt.dtype)
     per_tok = per_assign[torch.argsort(order)]
     return per_tok.reshape(T, k, d).sum(dim=1), aux

@@ -15,6 +15,17 @@ its hand-written backward (``csrc/ssd_scan_bwd.cu``, through
 ``kernels.ssd_scan._SSDIntraChunk``), so the ssm and hybrid families
 train on the card; on the CPU autograd differentiates the einsum path.
 The recurrence stays plain torch on both.
+
+Tensor parallelism (``tp``): the reference's logical axes split ``wz``,
+``wx``, ``wdt``, ``dt_bias``, ``A_log``, ``D``, ``norm_scale`` and
+``wo`` by the inner dimension or its heads, and keep ``wB``, ``wC`` and
+the convolution replicated. A rank convolves its own x channels and all
+B/C channels, runs the SSD on its heads (B5 at H/mp heads on the card),
+takes the gated RMSNorm's mean square over the whole inner dimension (a
+model-group sum of its sums of squares) and sums ``wo``'s partial
+products. B and C, and the convolution's x weights, are replicated
+values that only split branches consume: their gradients are summed
+over the model group.
 """
 from __future__ import annotations
 
@@ -56,6 +67,16 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, device: Device,
         "norm_scale": torch.ones(lead + (inner,), dtype=dt, device=device),
         "wo": dense_init(gen, inner, lead + (inner, d), dt, device),
     }
+
+
+def mamba_logical() -> Params:
+    """The logical axes of :func:`init_mamba`'s parameters."""
+    return {"wz": ("embed", "ssm_inner"), "wx": ("embed", "ssm_inner"),
+            "wB": ("embed", "state"), "wC": ("embed", "state"),
+            "wdt": ("embed", "ssm_heads"), "dt_bias": ("ssm_heads",),
+            "A_log": ("ssm_heads",), "D": ("ssm_heads",),
+            "conv_w": ("conv", None), "conv_b": (None,),
+            "norm_scale": ("ssm_inner",), "wo": ("ssm_inner", "embed")}
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -174,30 +195,57 @@ def ssd_chunked(x: torch.Tensor, dtv: torch.Tensor, A: torch.Tensor,
 
 
 def apply_mamba(cfg: ModelConfig, p: Params, u: torch.Tensor,
-                intra_fn=None) -> torch.Tensor:
-    """Full-sequence Mamba-2 block. u: (B,S,d) -> (B,S,d)."""
+                intra_fn=None, tp=None) -> torch.Tensor:
+    """Full-sequence Mamba-2 block. u: (B,S,d) -> (B,S,d). Under ``tp``
+    with the inner dimension split, on this rank's slice of it (its
+    ``H / mp`` heads), the output summed over the model group."""
     B_, S, _ = u.shape
-    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    z = u @ p["wz"]
-    xBC = torch.cat([u @ p["wx"], u @ p["wB"], u @ p["wC"]], dim=-1)
-    xBC, _ = _causal_conv(xBC, p["conv_w"], p["conv_b"])
-    inner = cfg.ssm_inner
-    x, Bm, Cm = torch.split(xBC, [inner, N, N], dim=-1)
+    inner, P, N = cfg.ssm_inner, cfg.ssm_head_dim, cfg.ssm_state
+    local, H = p["wx"].shape[-1], p["wdt"].shape[-1]
+    if H * P != local:
+        raise ValueError(f"the inner dimension splits into {local} columns "
+                         f"but the SSD heads into {H} of {P}")
+    split = tp is not None and local != inner
+    us = tp.copy(u) if split else u
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    if split:
+        # the rank's x channels; the convolution's x weights are
+        # replicated and their gradient partial
+        lo = tp.index * local
+        conv_w = torch.cat([tp.copy(conv_w[:, :inner])[:, lo:lo + local],
+                            conv_w[:, inner:]], dim=-1)
+        conv_b = torch.cat([tp.copy(conv_b[:inner])[lo:lo + local],
+                            conv_b[inner:]])
+    z = us @ p["wz"]
+    xBC = torch.cat([us @ p["wx"], u @ p["wB"], u @ p["wC"]], dim=-1)
+    xBC, _ = _causal_conv(xBC, conv_w, conv_b)
+    x, BC = torch.split(xBC, [local, 2 * N], dim=-1)
+    # all B/C channels, replicated; only the split SSD consumes them
+    Bm, Cm = torch.split(tp.copy(BC) if split else BC, [N, N], dim=-1)
     x = x.reshape(B_, S, H, P)
-    dtv = _softplus((u @ p["wdt"]).to(torch.float32) + p["dt_bias"])
+    dtv = _softplus((us @ p["wdt"]).to(torch.float32) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     y, _ = ssd_chunked(x, dtv, A, Bm, Cm, cfg.ssm_chunk, intra_fn=intra_fn)
     y = y + (p["D"][:, None] * x.to(torch.float32)).to(y.dtype)
-    y = y.reshape(B_, S, inner)
-    return _gated_out(p, y, z, u.dtype)
+    y = y.reshape(B_, S, local)
+    if not split:
+        return _gated_out(p, y, z, u.dtype)
+    return tp.reduce(_gated_out(p, y, z, u.dtype, tp, inner))
 
 
 def _gated_out(p: Params, y: torch.Tensor, z: torch.Tensor,
-               dtype: torch.dtype) -> torch.Tensor:
+               dtype: torch.dtype, tp=None, inner: int = 0) -> torch.Tensor:
     """Gated RMSNorm (mamba2 style; the norm in f32, cast to u's dtype),
-    then the output projection."""
+    then the output projection. Under ``tp`` ``y`` holds the rank's
+    ``y.shape[-1]`` of the ``inner`` columns: the mean square is the
+    model group's sum of squares over ``inner``, and the projection a
+    partial product."""
     y = y * F.silu(z)
-    ms = y.to(torch.float32).square().mean(dim=-1, keepdim=True)
+    if tp is None:
+        ms = y.to(torch.float32).square().mean(dim=-1, keepdim=True)
+    else:
+        ms = tp.sum(y.to(torch.float32).square().sum(dim=-1, keepdim=True)
+                    ) / inner
     y = (y.to(torch.float32) * torch.rsqrt(ms + 1e-5)).to(dtype)
     y = y * p["norm_scale"]
     return y @ p["wo"]

@@ -20,6 +20,7 @@ import repro_torch
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PKG = os.path.join(REPO, "src", "repro_torch")
 STANDALONE = [os.path.join(REPO, "chip_smoke.py"),
+              os.path.join(REPO, "tp_depth_check.py"),
               os.path.join(REPO, "examples", "quickstart_torch.py"),
               os.path.join(REPO, "examples",
                            "compressed_federated_torch.py"),

@@ -102,8 +102,8 @@ def _drop_sets(rc, tc, host, batch, monkeypatch):
                            _routes(cfg, x, p["router"]), ordered=True)
         return r_apply(cfg, p, x)
 
-    def t_route_spy(cfg, p, x):
-        out = t_route(cfg, p, x)
+    def t_route_spy(cfg, p, x, tp=None):
+        out = t_route(cfg, p, x, tp)
         port_x.append((x, out[2]))
         return out
 

@@ -373,7 +373,7 @@ def test_launcher_spawns_local_ranks(capsys):
     assert len({r["hist"]["acc"][0] for r in out}) == 1
 
 
-def test_launcher_guards(monkeypatch):
+def test_launcher_guards(monkeypatch, tmp_path):
     bank = ["--engine", "bank", "--data-parallel", "8"]
     for argv in (["--schedule", "adaptive_tau"], ["--pipeline"],
                  ["--resume"] + bank,
@@ -384,8 +384,30 @@ def test_launcher_guards(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train.main(["--rounds", "1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-        train.main(["--rounds", "1", "--model-parallel", "2"])
+    # tensor parallelism within a replica: 2 ranks (gloo, CPU) train
+    # reduced qwen2 and checkpoint the gathered replica average, the
+    # file of --model-parallel 1
+    ckpt = str(tmp_path / "tp.npz")
+    out = train.main(["--reduced", "--rounds", "1", "--model-parallel", "2",
+                      "--dist-backend", "gloo", "--device", "cpu",
+                      "--ckpt", ckpt])
+    assert len(out) == 2 and out[0]["model_traffic"]["all_reduce"]["calls"]
+    assert out[0]["hist"]["loss"] == out[1]["hist"]["loss"]
+    from repro.checkpoint import load_checkpoint
+    from repro.configs import get_model_config
+    from repro.models import model as rm
+    shapes = jax.eval_shape(lambda k: rm.init_model(
+        k, get_model_config("qwen2-0.5b").reduced())[0],
+        jax.random.PRNGKey(0))
+    tree, meta = load_checkpoint(ckpt, like=shapes)
+    assert meta == {"arch": "qwen2-0.5b", "rounds": 1}
+    for a, s in zip(jax.tree.leaves(tree), jax.tree.leaves(shapes)):
+        assert a.shape == s.shape and np.isfinite(a).all()
+    # the bank and population engines keep one rank a row
+    for argv in (bank + ["--model-parallel", "2"],
+                 ["--population", "100", "--model-parallel", "2"]):
+        with pytest.raises(ValueError, match="not tensor-parallel"):
+            train.main(argv + ["--dist-backend", "gloo", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ShardedStreamedBank"):
         train.main(["--population", "100", "--data-parallel", "2",
                     "--device", "cpu"])
