@@ -21,10 +21,20 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  the cold codec (int8 and f16, encode and decode) at the
                  reference's codec rows and at the streamed slab's
                  (64, 6,603,710) FEMNIST-CNN shape, bit for bit, plus 8
-                 full-width rows against the host numpy codec; int8
+                 full-width rows against the host numpy codec; the f16
+                 casts also at the slab's row views from row 1 (8 bytes
+                 off 16 for f32, 12 for f16) and at lengths 1, 2 and 3
+                 mod 4 from every element offset 0-3, timed beside
+                 ``Tensor.to`` by CUDA events and device time; int8
                  rows with segments at the encode's one-block threshold,
                  one past it, and one too wide for the grid to hold on
-                 chip; the blocked int8 quantizer on the codec's kernel.
+                 chip; the blocked int8 quantizer (B3,
+                 ``csrc/quantize.cu``) at the CPU tests' (T, block)
+                 pairs (QUANT_CASES), a slab row and its 8-byte-aligned
+                 view and a block of 2048 (one CTA a block), bit for bit
+                 against its plain version and the host codec, an f64
+                 and a strided input as their f32 values, its device
+                 time and kernels a call from the profiler.
                  Then flash attention (B4) over the reference's sweep,
                  at D = 80 through the GQA adapter (strided views of one
                  fused projection, ragged Sq and Sk, a window, a
@@ -97,7 +107,12 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  the kernels' launch counts and finite stored scales;
                  then the serial driver (host codec) on the same
                  configuration, whose global model must agree within the
-                 int8 tolerance.
+                 int8 tolerance. Then the same with an f16 store over
+                 2,000 clients (the same cohort, so the same slab): two
+                 pipelined rounds (one f16 encode and one decode on the
+                 card a round, asserted) and two serial rounds (host
+                 casts, no launch), global models within the int8
+                 tolerance.
 5. scenario   — the same FEMNIST configuration under ``mobile_sampled``
                  with ``chaos`` faults (seeds 7 and 3, 3 rounds, whose
                  keyed fault trace holds a dark cluster, a dropped link
@@ -315,6 +330,17 @@ FEMNIST_T = 6_603_710
 CODEC_SEGMENTS = ((0, 100), (100, 37), (137, 263))
 #: the streamed slab of the population phase: 56 cohort + 8 representatives
 SLAB_ROWS = 64
+#: the blocked quantizer's (T, block) pairs of the CPU tests
+#: (tests/test_torch_cold_codec.py): T at 0, 1 and block - 1 mod block
+#: and below a block, blocks 256, 777 and 1024; (3072, 1024) with an
+#: all-zero block, (1024, 256) with a block of exact ties
+QUANT_CASES = ((4096, 1024), (5000, 1024), (777, 256), (1, 1024),
+               (3073, 1024), (2047, 1024), (500, 1024), (3072, 1024),
+               (1024, 256), (2561, 256), (1553, 777), (2332, 777),
+               (100, 777))
+#: the f16 population run: a smaller population, the int8 run's cohort
+F16_CLIENTS_PER_CLUSTER = 250
+F16_ROUNDS = 2
 #: flash attention against its plain version: the reference's own sweep
 #: and tolerances (tests/test_kernels.py, absolute)
 FA_SWEEP = ((4, 256, 256, 64), (2, 200, 200, 64), (2, 128, 384, 128),
@@ -584,12 +610,26 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+#: the phase that phase_start opened last, and its perf_counter start
+_open_phase: list = []
+
+
+def phase_end() -> None:
+    """Print the seconds of the phase that phase_start opened last."""
+    if _open_phase:
+        name, t0 = _open_phase.pop()
+        log(f"[{name}] end: {time.perf_counter() - t0:.1f} s since its start")
+
+
 def phase_start(dev: torch.device, name: str) -> None:
-    """Release what earlier phases left for the cyclic collector (a
-    simulator is a reference cycle: its lowered rounds and vmapped loss
-    hold it, so ``del sim`` alone frees no bank) and print what is still
-    allocated on the card as the phase starts."""
+    """Print the seconds of the phase before; release what earlier phases
+    left for the cyclic collector (a simulator is a reference cycle: its
+    lowered rounds and vmapped loss hold it, so ``del sim`` alone frees
+    no bank) and print what is still allocated on the card as the phase
+    starts."""
     import gc
+    phase_end()
+    _open_phase.append((name, time.perf_counter()))
     before = torch.cuda.memory_allocated(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -614,11 +654,13 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
-def device_ms(fn, reps: int = 10, warmup: int = 2) -> tuple:
+def device_ms(fn, reps: int = 10, warmup: int = 2,
+              counts: dict | None = None) -> tuple:
     """The card's time for one call of ``fn``: the profiler's device time
     of every kernel, copy and fill that ``reps`` calls launch, over
     ``reps`` (no host time, so a call whose host work outlasts its
-    kernels is not charged for it); and that time by kernel name."""
+    kernels is not charged for it); and that time by kernel name. A
+    ``counts`` dict gets the launches a call by name."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -630,6 +672,8 @@ def device_ms(fn, reps: int = 10, warmup: int = 2) -> tuple:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             by_kernel[e.name] += e.time_range.elapsed_us() / 1e3 / reps
+            if counts is not None:
+                counts[e.name] = counts.get(e.name, 0) + 1 / reps
     if not by_kernel:
         raise AssertionError("the profiler recorded no device time")
     return sum(by_kernel.values()), dict(by_kernel)
@@ -654,7 +698,7 @@ def max_err(out: torch.Tensor, exp: torch.Tensor, tol: float,
 # phase 1: build
 # ---------------------------------------------------------------------------
 
-KERNEL_SOURCES = ("gossip_mix", "cold_codec", "flash_attention",
+KERNEL_SOURCES = ("gossip_mix", "cold_codec", "quantize", "flash_attention",
                   "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
 
 
@@ -686,7 +730,7 @@ def phase_build() -> None:
 
 #: sources whose ptxas report is printed per kernel instantiation
 PTXAS_DETAIL = ("gossip_mix", "flash_attention", "flash_attention_bwd",
-                "ssd_scan", "ssd_scan_bwd", "cold_codec")
+                "ssd_scan", "ssd_scan_bwd", "cold_codec", "quantize")
 
 
 def _demangle(name: str) -> str:
@@ -898,25 +942,95 @@ def _check_codec(rows: torch.Tensor, codec: str, segments, what: str):
     return q, s, enc_err, dec_err
 
 
+def _host_same(q, s, rows, codec, segments, what: str) -> None:
+    """The card's (q, scale) against the host numpy codec on ``rows``."""
+    from repro_torch.core import compress
+    host = compress.encode_cold_rows(rows.cpu().numpy(), codec, segments)
+    assert np.array_equal(q.cpu().numpy().view(host["q"].dtype),
+                          host["q"]) and \
+        np.array_equal(s.cpu().numpy(), host["scale"]), \
+        f"{what} {codec}: the card differs from the host codec"
+
+
+def _f16_alignments(X: torch.Tensor, q: torch.Tensor) -> str:
+    """The f16 casts at the alignments the plan falls back at, bit for bit
+    against their plain versions and the host codec: the slab's row views
+    from row 1 (f32 rows 8 bytes off 16, f16 rows 12 off), and lengths
+    1, 2 and 3 mod 4 from every element offset 0-3 of both sides.
+    Returns the plans taken, for the log."""
+    from repro_torch.kernels import cold_codec as cc
+    from repro_torch.kernels import ref
+    T = X.shape[1]
+    segs = ((0, T),)
+    V, Q = X[1:], q[1:]
+    plans = {"f32 rows 1-63": cc.cast_plan(V.data_ptr(), 0, V.numel()),
+             "f16 rows 1-63": cc.cast_plan(0, Q.data_ptr(), Q.numel())}
+    qv, s, _, _ = _check_codec(V, "f16", segs, "slab rows 1-63")
+    _host_same(qv[:2], s[:2], V[:2], "f16", segs, "slab rows 1-2")
+    _same_bits(cc.decode_rows(Q, s, "f16", segs),
+               ref.cold_decode_ref(Q, s, "f16", segs),
+               "f16 decode of slab rows 1-63")
+    del qv
+    xf, qf = X.reshape(-1), q.reshape(-1)
+    for off in range(4):
+        for n in (100_001, 100_002, 100_003):
+            x = xf[off:off + n].view(1, n)
+            h = qf[off:off + n].view(1, n)
+            one = ((0, n),)
+            qx, sx, _, _ = _check_codec(x, "f16", one, f"offset {off} n {n}")
+            _host_same(qx, sx, x, "f16", one, f"offset {off} n {n}")
+            _same_bits(cc.decode_rows(h, sx, "f16", one),
+                       ref.cold_decode_ref(h, sx, "f16", one),
+                       f"f16 decode offset {off} n {n}")
+            plans[f"offset {off}"] = cc.cast_plan(x.data_ptr(),
+                                                  qx.data_ptr(), n)
+    return ", ".join(f"{k}: {v[0]} {'halves' if v[0] > 1 else 'half'}, "
+                     f"head {v[1]}" for k, v in plans.items())
+
+
+def _quant_input(T: int, block: int, gen) -> torch.Tensor:
+    x = torch.randn(T, device=gen.device, generator=gen) * 2
+    if T > 600:
+        x[512:600] = 0.0
+    if (T, block) == (3072, 1024):      # an all-zero block
+        x[block:2 * block] = 0.0
+    if (T, block) == (1024, 256):       # scale 1: exact half steps
+        x[:block] = torch.arange(block, device=x.device) % 9 - 4.5
+        x[7] = 127.0
+    return x
+
+
+def _check_quantize(x: torch.Tensor, block: int, what: str) -> tuple:
+    """B3 against its plain version and the host codec (the int8 encode of
+    the zero-padded (nb, block) rows), bit for bit."""
+    from repro_torch.kernels import quantize as qz
+    codes, scales = qz.quantize_int8_blocked(x, block=block)
+    pc, ps = qz.quantize_int8_ref(x, block=block)
+    err = max(_same_bits(codes, pc, f"{what} codes"),
+              _same_bits(scales, ps, f"{what} scales"))
+    T, nb = x.shape[0], scales.shape[0]
+    rows = torch.nn.functional.pad(x, (0, nb * block - T)).view(nb, block)
+    _host_same(torch.nn.functional.pad(codes, (0, nb * block - T)).view(
+        nb, block), scales.view(nb, 1), rows, "int8", ((0, block),), what)
+    return codes, scales, err
+
+
 def phase_codec(dev: torch.device):
     """The cold codec and the blocked quantizer against their plain
     versions, bit for bit, at the reference's codec rows and at the
     population phase's slab; times at the slab's shape. Returns the
-    JSON entries of the int8 encode and decode (the main path's)."""
-    from repro_torch.core import compress
+    JSON entries of the int8 encode and decode (the main path's), of
+    the f16 encode and decode, and of the blocked quantizer."""
     from repro_torch.kernels import cold_codec as cc
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import ref
     from repro_torch.kernels.gossip_mix import FlatLayout
     from repro_torch.models.cnn import init_femnist_cnn
+    t0 = time.perf_counter()
     rows = _codec_rows(dev)
     for codec in ("f16", "int8"):
         q, s, _, _ = _check_codec(rows, codec, CODEC_SEGMENTS, "codec rows")
-        host = compress.encode_cold_rows(rows.cpu().numpy(), codec,
-                                         CODEC_SEGMENTS)
-        assert np.array_equal(q.cpu().numpy(), host["q"]) and \
-            np.array_equal(s.cpu().numpy(), host["scale"]), \
-            f"codec rows {codec}: the card differs from the host codec"
+        _host_same(q, s, rows, codec, CODEC_SEGMENTS, "codec rows")
     log(f"[kernels] cold_codec 13x400 (3 irregular segments, zero row, "
         f"near-zero segment): f16 and int8 encode/decode bit-equal to "
         f"the plain version and the host codec")
@@ -936,10 +1050,7 @@ def phase_codec(dev: torch.device):
     for codec in ("f16", "int8"):
         q, s, enc_err, dec_err = _check_codec(X, codec, segs,
                                               f"slab {S}x{T}")
-        host = compress.encode_cold_rows(X[:8].cpu().numpy(), codec, segs)
-        assert np.array_equal(q[:8].cpu().numpy(), host["q"]) and \
-            np.array_equal(s[:8].cpu().numpy(), host["scale"]), \
-            f"slab {codec}: 8 rows differ from the host codec"
+        _host_same(q[:8], s[:8], X[:8], codec, segs, "slab 8 rows")
         nseg = s.shape[1]
         width = q.element_size()
         enc_bytes = 4 * S * T + width * S * T + 4 * S * nseg
@@ -949,33 +1060,54 @@ def phase_codec(dev: torch.device):
         enc_ops = (6 if codec == "int8" else 1) * S * T
         dec_ops = S * T
         times = {
-            "encode": (time_ms(lambda: cc.encode_rows(X, codec, segs)),
-                       time_ms(lambda: ref.cold_encode_ref(X, codec, segs),
-                               reps=5),
+            "encode": (lambda: cc.encode_rows(X, codec, segs),
+                       lambda: ref.cold_encode_ref(X, codec, segs),
+                       lambda: X.to(torch.float16),
                        enc_bytes, enc_ops, enc_err),
-            "decode": (time_ms(lambda: cc.decode_rows(q, s, codec, segs)),
-                       time_ms(lambda: ref.cold_decode_ref(q, s, codec,
-                                                           segs), reps=5),
+            "decode": (lambda: cc.decode_rows(q, s, codec, segs),
+                       lambda: ref.cold_decode_ref(q, s, codec, segs),
+                       lambda: q.to(torch.float32),
                        dec_bytes, dec_ops, dec_err)}
-        for direction, (ms, plain_ms, nbytes, ops, err) in times.items():
+        for direction, (run, plain, lib, nbytes, ops, err) in times.items():
+            ms = time_ms(run)
+            plain_ms = time_ms(plain, reps=5)
             tb = nbytes / HBM_BYTES_PER_S * 1e3
             tf = ops / FP32_FLOPS * 1e3
             b_ms, b_by = (tb, "bytes") if tb >= tf else (tf, "operations")
+            library_ms, library = None, "no single library call computes it"
+            if codec == "f16":
+                # the plain version is the library call: timed again beside
+                # the kernel, by CUDA events and by device time
+                library_ms = time_ms(lib)
+                dev_ms, _ = device_ms(run)
+                lib_dev_ms, _ = device_ms(lib)
+                library = (f"Tensor.to {library_ms:.4f}, device "
+                           f"{lib_dev_ms:.4f}; kernel device {dev_ms:.4f}, "
+                           f"{b_ms / ms:.1%} of the bound, "
+                           f"{library_ms / ms:.3f}x Tensor.to's speed")
             log(f"[kernels] cold_codec {codec} {direction} {S}x{T}: "
                 f"{ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.4f} by "
-                f"{b_by}: {nbytes / 1e9:.3f} GB; no single library call "
-                f"computes it); bit-equal to the plain version, 8 rows to "
-                f"the host codec")
+                f"{b_by}: {nbytes / 1e9:.3f} GB; {library}); bit-equal to "
+                f"the plain version, 8 rows to the host codec")
             out[(codec, direction)] = {
-                "name": f"cold_codec_{direction}",
+                "name": (f"cold_codec_{direction}" if codec == "int8" else
+                         f"cold_codec_f16_{direction}"),
                 "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/cold_codec.cu",
                 "replaces": ("src/repro/kernels/cold_codec.py:109" if
-                             direction == "encode" else
+                             (codec, direction) == ("int8", "encode") else
                              "src/repro/kernels/cold_codec.py:125"),
                 "launches": 0, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None}
+                "library_ms": library_ms}
+        if codec == "f16":
+            t_f16 = time.perf_counter()
+            plans = _f16_alignments(X, q)
+            t_f16 = time.perf_counter() - t_f16
+            log(f"[kernels] cold_codec f16 encode and decode at the slab's "
+                f"row views from row 1 and at lengths 1, 2, 3 mod 4 from "
+                f"offsets 0-3: bit-equal to the plain version and the host "
+                f"codec ({plans})")
         del q, s
 
     # int8 rows whose segments sit at the encode's one-block threshold
@@ -986,10 +1118,7 @@ def phase_codec(dev: torch.device):
     E = torch.randn((5, sum(n for _, n in edge)), device=dev, generator=gen)
     E[2, 7:7 + cc.SLICE] = 0.0
     q, s, _, _ = _check_codec(E, "int8", edge, "threshold rows")
-    host = compress.encode_cold_rows(E.cpu().numpy(), "int8", edge)
-    assert np.array_equal(q.cpu().numpy(), host["q"]) and \
-        np.array_equal(s.cpu().numpy(), host["scale"]), \
-        "threshold rows: the card differs from the host codec"
+    _host_same(q, s, E, "int8", edge, "threshold rows")
     wide = cc._library().cold_encode_int8_grid() * cc.SLICE + 1
     W = torch.randn((2, wide), device=dev, generator=gen)
     _check_codec(W, "int8", ((0, wide),), "rows of one wide segment")
@@ -999,22 +1128,76 @@ def phase_codec(dev: torch.device):
         f"and the host codec")
     del E, W, q, s
 
-    # B3: the blocked quantizer on the codec's kernel, over one slab row
+    # B3: its own kernel, at the CPU tests' pairs, over one slab row, its
+    # 8-byte-aligned view (the scalar path) and at a block of 2048 (a CTA
+    # a block)
+    t_quant = time.perf_counter()
+    err = 0.0
+    for Tq, block in QUANT_CASES:
+        err = max(err, _check_quantize(_quant_input(Tq, block, gen), block,
+                                       f"quantize T={Tq} block={block}")[2])
     x = X[0].clone()
-    codes, scales = qz.quantize_int8_blocked(x)
-    pc, ps = qz.quantize_int8_ref(x)
-    _same_bits(codes, pc, "quantize_int8_blocked codes")
-    _same_bits(scales, ps, "quantize_int8_blocked scales")
-    ms = time_ms(lambda: qz.quantize_int8_blocked(x))
+    view = X.reshape(-1)[T:2 * T]
+    for what, xq, block in (("a slab row", x, 1024),
+                            ("rows 1's view", view, 1024),
+                            ("a slab row, block 2048", x, 2048)):
+        err = max(err, _check_quantize(xq, block, f"quantize {what}")[2])
+    # a vector that is not contiguous f32 is converted on the card and
+    # quantized as its f32 values
+    for what, xq in (("f64", x[:99_999].double()), ("strided", view[::3])):
+        codes, scales = qz.quantize_int8_blocked(xq, block=777)
+        want_c, want_s, _ = _check_quantize(xq.float().contiguous(), 777,
+                                            f"quantize {what}")
+        _same_bits(codes, want_c, f"quantize {what} codes")
+        _same_bits(scales, want_s, f"quantize {what} scales")
+    paths = {what: qz.quantize_plan(xq.data_ptr(), 0, block)
+             for what, xq, block in (("slab row", x, 1024),
+                                     ("view", view, 1024),
+                                     ("block 2048", x, 2048))}
+    log(f"[kernels] quantize_int8_blocked at {len(QUANT_CASES)} (T, block) "
+        f"pairs, a slab row, row 1's view and block 2048: bit-equal to the "
+        f"plain version and the host codec, an f64 and a strided input "
+        f"as their f32 values (vector, per warp: {paths})")
+    def run():
+        return qz.quantize_int8_blocked(x)
+    ms = time_ms(run)
+    # the device time of a launch: the profiler's kernel time over the
+    # launches it recorded (it has been seen to miss one in ten), and
+    # every device event of a call (no fill, copy or second kernel)
+    counts, view_counts = {}, {}
+    _, by_kernel = device_ms(run, reps=50, counts=counts)
+    _, view_by = device_ms(lambda: qz.quantize_int8_blocked(view), reps=50,
+                           counts=view_counts)
+    assert len(counts) == len(view_counts) == 1, (counts, view_counts)
+    (name, n), (vname, vn) = *counts.items(), *view_counts.items()
+    assert _short_name(name) == _short_name(vname) == \
+        "quantize_warp_kernel" and max(n, vn) < 1 + 1e-6, (counts,
+                                                            view_counts)
+    dev_ms, view_dev_ms = by_kernel[name] / n, view_by[vname] / vn
     plain_ms = time_ms(lambda: qz.quantize_int8_ref(x))
-    nb = scales.shape[0]
+    nb = -(-T // 1024)
     b_ms = (4 * T + T + 4 * nb) / HBM_BYTES_PER_S * 1e3
-    log(f"[kernels] quantize_int8_blocked T={T} (block 1024): {ms:.4f} ms "
-        f"(plain {plain_ms:.4f}, bound {b_ms:.4f} by bytes); bit-equal to "
-        f"the plain version")
+    log(f"[kernels] quantize_int8_blocked T={T} (block 1024): device "
+        f"{dev_ms:.4f} ms ({b_ms / dev_ms:.1%} of the bound {b_ms:.4f} by "
+        f"bytes), a call with its host work {ms:.4f} (CUDA events), row "
+        f"1's view (scalar path) device {view_dev_ms:.4f}; plain "
+        f"{plain_ms:.4f}; device events a call: {_short_name(name)} "
+        f"{n:.2f} (the view's {_short_name(vname)} {vn:.2f}), nothing "
+        f"else")
+    quant = {"name": "quantize_int8_blocked", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/quantize.cu",
+             "replaces": "src/repro/kernels/quantize.py:28",
+             "launches": 0, "max_abs_err": err, "ms": dev_ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
+             "library_ms": None}
+    t_quant = time.perf_counter() - t_quant
     del X, x
     torch.cuda.empty_cache()
-    return out[("int8", "encode")], out[("int8", "decode")]
+    log(f"[kernels] cold_codec phase: {time.perf_counter() - t0:.1f} s (the "
+        f"f16 alignment checks {t_f16:.1f} s, the blocked quantizer "
+        f"{t_quant:.1f} s)")
+    return (out[("int8", "encode")], out[("int8", "decode")],
+            out[("f16", "encode")], out[("f16", "decode")], quant)
 
 
 # ---------------------------------------------------------------------------
@@ -1216,9 +1399,14 @@ def _global_row(sim) -> np.ndarray:
     return sim.layout.flatten_one(sim.global_model()).cpu().numpy()
 
 
-def phase_population(dev: torch.device, rounds: int = 3):
-    """Returns the launches of gossip_mix and of the codec's encode and
-    decode on the pipelined population path."""
+def _population_run(dev, codec: str, clients: int, rounds: int,
+                    profile_last: bool) -> tuple:
+    """The pipelined and then the serial driver over ``rounds`` rounds of
+    the streamed FEMNIST CNN with a ``codec`` cold store of ``clients``
+    a cluster (cohort 7 a cluster, slab 64 rows). Asserts the slab, the
+    launches (a card decode and encode a pipelined round, none serial)
+    and the two global models within INT8_ATOL; returns the pipelined
+    run's launches of gossip_mix, the codec's encode and its decode."""
     from repro_torch.config import PopulationConfig, ScenarioConfig
     from repro_torch.configs import femnist_cnn as cfg
     from repro_torch.core.cefedavg import FLSimulator
@@ -1230,13 +1418,13 @@ def phase_population(dev: torch.device, rounds: int = 3):
     fl = cfg.FL
     scenario = ScenarioConfig(
         sample_fraction=1.0, dropout_prob=0.0, move_prob=0.25, seed=7,
-        population=PopulationConfig(clients_per_cluster=1250,
-                                    cohort_per_cluster=7, codec="int8"))
+        population=PopulationConfig(clients_per_cluster=clients,
+                                    cohort_per_cluster=7, codec=codec))
     data = femnist_data(fl)
     rt = paper_runtime_model()
     results = {}
     for pipeline in (True, False):
-        name = "pipelined" if pipeline else "serial"
+        name = f"{codec} {'pipelined' if pipeline else 'serial'}"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         sim = FLSimulator(init_femnist_cnn, apply_femnist_cnn, fl, data,
@@ -1251,7 +1439,7 @@ def phase_population(dev: torch.device, rounds: int = 3):
         gm.launches = cc.encode_launches = cc.decode_launches = 0
         times, wall = [], 0.0
         for r in range(rounds):
-            last = pipeline and r == rounds - 1
+            last = profile_last and pipeline and r == rounds - 1
             prof = (profile(activities=[ProfilerActivity.CPU,
                                         ProfilerActivity.CUDA]) if last
                     else contextlib.nullcontext())
@@ -1290,23 +1478,38 @@ def phase_population(dev: torch.device, rounds: int = 3):
         # streamed evaluation reads the references: no projection launch
         assert launches[0] == rounds * fl.q, launches
         if pipeline:
-            # a decode in pre and an int8 encode (one launch) in post,
-            # every round
+            # a decode in pre and an encode (one launch) in post, every
+            # round
             assert launches[1:] == (rounds, rounds), launches
         else:
             assert launches[1:] == (0, 0), launches
-        results[name] = (_global_row(sim), times, launches)
+        results[pipeline] = (_global_row(sim), times, launches)
         del sim, snap
         torch.cuda.empty_cache()
-    diff = float(np.abs(results["pipelined"][0]
-                        - results["serial"][0]).max())
-    log(f"[population] serial (host codec) vs pipelined (card codec) global "
-        f"model after {rounds} rounds: max abs diff {diff:.3e} (atol "
-        f"{INT8_ATOL}); round times pipelined "
-        f"{', '.join(f'{t:.3f}' for t in results['pipelined'][1])} s, "
-        f"serial {', '.join(f'{t:.3f}' for t in results['serial'][1])} s")
-    assert diff <= INT8_ATOL, "serial and pipelined drivers disagree"
-    return results["pipelined"][2]
+    diff = float(np.abs(results[True][0] - results[False][0]).max())
+    log(f"[population] {codec}: serial (host codec) vs pipelined (card "
+        f"codec) global model after {rounds} rounds: max abs diff "
+        f"{diff:.3e} (atol {INT8_ATOL}); round times pipelined "
+        f"{', '.join(f'{t:.3f}' for t in results[True][1])} s, "
+        f"serial {', '.join(f'{t:.3f}' for t in results[False][1])} s")
+    assert diff <= INT8_ATOL, f"{codec}: serial and pipelined disagree"
+    return results[True][2]
+
+
+def phase_population(dev: torch.device, rounds: int = 3):
+    """The int8 store over 10,000 clients (``rounds`` rounds, the last
+    pipelined one profiled), then the f16 store over 2,000 (F16_ROUNDS
+    rounds). Returns the launches of gossip_mix and of the int8 encode
+    and decode, and of the f16 encode and decode, on the pipelined
+    runs."""
+    gossip, enc, dec = _population_run(dev, "int8", 1250, rounds, True)
+    t0 = time.perf_counter()
+    _, f16_enc, f16_dec = _population_run(dev, "f16",
+                                          F16_CLIENTS_PER_CLUSTER,
+                                          F16_ROUNDS, False)
+    log(f"[population] the f16 store's runs: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return gossip, (enc, dec), (f16_enc, f16_dec)
 
 
 # ---------------------------------------------------------------------------
@@ -4692,7 +4895,7 @@ def main() -> int:
     phase_build()
     phase_start(dev, "kernels")
     entry = phase_kernels(dev)
-    encode, decode = phase_codec(dev)
+    encode, decode, f16_encode, f16_decode, quant = phase_codec(dev)
     attn = phase_flash_attention(dev)
     attn_bwd = phase_flash_attention_bwd(dev)
     ssd = phase_ssd_scan(dev)
@@ -4700,7 +4903,8 @@ def main() -> int:
     phase_start(dev, "main")
     entry["launches"] = phase_main(dev)
     phase_start(dev, "population")
-    gossip_pop, encode["launches"], decode["launches"] = \
+    gossip_pop, (encode["launches"], decode["launches"]), \
+        (f16_encode["launches"], f16_decode["launches"]) = \
         phase_population(dev)
     phase_start(dev, "scenario")
     gossip_scn = phase_scenario(dev)
@@ -4713,7 +4917,10 @@ def main() -> int:
     log(f"[done] gossip_mix launches: main path {entry['launches']}, "
         f"population path {gossip_pop}, scenario path {gossip_scn}, "
         f"async path {gossip_async}, upload path {gossip_upload}; "
-        f"cold_codec encode/decode on the resume path {resume_codec}")
+        f"cold_codec encode/decode on the resume path {resume_codec}; "
+        f"f16 encode/decode on the population path "
+        f"{f16_encode['launches']}/{f16_decode['launches']}; "
+        f"quantize_int8_blocked 0 (no runtime path calls it)")
     phase_start(dev, "sharded")
     phase_sharded(dev)
     phase_start(dev, "lm")
@@ -4750,9 +4957,11 @@ def main() -> int:
     phase_lm_decode_families(dev)
     phase_start(dev, "parity")
     phase_parity(dev)
+    phase_end()
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [entry, encode, decode, attn, attn_bwd,
-                                  ssd, ssd_bwd]}))
+    print(json.dumps({"kernels": [entry, encode, decode, f16_encode,
+                                  f16_decode, quant, attn, attn_bwd, ssd,
+                                  ssd_bwd]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """What each part of the port's gossip-mix (B1), flash-attention (B4),
-SSD intra-chunk (B5, and its backward) and int8 cold-encode (B2)
-kernels costs, on one NVIDIA GPU.
+SSD intra-chunk (B5, and its backward), int8 cold-encode and f16 cast
+(B2) kernels costs, on one NVIDIA GPU.
 
-  python3 kernel_ablations.py
+  python3 kernel_ablations.py [KIND ...]
+
+(KIND: a key of the JSON line, such as "f16 casts"; all of them by
+default.)
 
 Builds variants of ``src/repro_torch/kernels/csrc/gossip_mix.cu``,
 ``flash_attention.cu``, ``flash_attention_bwd.cu``, ``ssd_scan.cu``,
@@ -36,7 +39,13 @@ path's shapes beside the committed kernel, CUDA events, median of 20:
   compute alone); with twice the head groups (half the heads a block,
   twice D's partials); and with the grid's other order (the column tiles
   of a (chunk, head group) side by side, for dy's reuse in L2, in place
-  of the longest column tiles first).
+  of the longest column tiles first);
+- B2's f16 casts at the streamed slab (64, 6,603,710), both ways: with
+  a grid of 8 blocks an SM striding the array in place of a block for
+  every 256 groups, and with streaming cache hints (``__ldcs`` /
+  ``__stcs``) on the aligned path; the committed kernel also with its
+  f16 side one half an access (the width its plan falls back to at row
+  views, here on aligned pointers); beside ``Tensor.to`` both ways.
 
 A variant computes wrong results by design and is only timed; the
 committed kernel is checked against its plain version first. A
@@ -177,6 +186,27 @@ ENCODE_CUTS = {
         "words"), (
         "  if ((d[2] >> 32) != kCodesOnly) {\n",
         "  if ((d[2] >> 32) != kCodesOnly && ntasks < 0) {\n")],
+}
+
+#: the f16 casts: the grid of a block for every 256 groups against one of
+#: 8 blocks an SM that strides the array (the H100's 132 SMs); plain
+#: loads and stores against streaming cache hints (the aligned path)
+CAST_CUTS = {
+    "a grid of 8 blocks an SM, striding the array": [(
+        "  blocks = blocks < 1 ? 1 : blocks > 0x7fffffffLL ? 0x7fffffffLL : "
+        "blocks;\n",
+        "  blocks = blocks < 1 ? 1 : blocks > 132 * 8 ? 132 * 8 : blocks;\n")],
+    "streaming cache hints": [
+        ("      const float4 v = x4[g];\n",
+         "      const float4 v = __ldcs(x4 + g);\n"),
+        ("        *reinterpret_cast<uint2*>(h) = make_uint2(lo, hi);\n",
+         "        __stcs(reinterpret_cast<uint2*>(h), make_uint2(lo, hi));\n"),
+        ("        const uint2 v = *reinterpret_cast<const uint2*>(h);\n",
+         "        const uint2 v = __ldcs(reinterpret_cast<const uint2*>(h));\n"),
+        ("      x4[g] = make_float4(",
+         "      __stcs(x4 + g, make_float4("),
+        ("                          half_at(hi, 1));\n",
+         "                          half_at(hi, 1)));\n")],
 }
 
 
@@ -438,6 +468,44 @@ def encode(libs, dev) -> dict:
     return out
 
 
+def casts(libs, dev) -> dict:
+    """The f16 casts at the slab, both ways; the committed kernel also at
+    the one-half f16 access its plan falls back to (on aligned pointers,
+    so only the access width differs); beside Tensor.to."""
+    S, T = cs.SLAB_ROWS, cs.FEMNIST_T
+    X = torch.randn((S, T), device=dev,
+                    generator=torch.Generator(dev).manual_seed(1))
+    q = X.to(torch.float16)
+    H, F = torch.empty_like(q), torch.empty_like(X)
+    stream = torch.cuda.current_stream().cuda_stream
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    out = {}
+    for name, lib in libs.items():
+        fn = lib.cold_cast_launch
+        fn.argtypes = [p, p, ll, i, i, ll, p]
+        fn.restype = ctypes.c_int
+        for halves in (4, 1) if name == "kernel" else (4,):
+            def run(src, dst, to_half, fn=fn, halves=halves):
+                rc = fn(src.data_ptr(), dst.data_ptr(), src.numel(),
+                        to_half, halves, 0, stream)
+                if rc:
+                    raise RuntimeError(f"f16 cast {name}: CUDA error {rc}")
+            run(X, H, 1)
+            run(q, F, 0)
+            cs._same_bits(H, q, f"f16 encode {name} {halves}")
+            cs._same_bits(F, q.to(torch.float32),
+                          f"f16 decode {name} {halves}")
+            label = name if halves == 4 else (
+                f"{name}, one half an f16 access")
+            out[f"encode, {label}"] = cs.time_ms(lambda: run(X, H, 1))
+            out[f"decode, {label}"] = cs.time_ms(lambda: run(q, F, 0))
+    out["Tensor.to(torch.float16)"] = cs.time_ms(
+        lambda: X.to(torch.float16))
+    out["Tensor.to(torch.float32)"] = cs.time_ms(
+        lambda: q.to(torch.float32))
+    return out
+
+
 #: (kind, source, cuts, timing function) of each kernel
 KERNELS = (("gossip_mix", "gossip_mix.cu", GOSSIP_CUTS, gossip),
            ("flash_attention", "flash_attention.cu", ATTENTION_CUTS,
@@ -446,7 +514,8 @@ KERNELS = (("gossip_mix", "gossip_mix.cu", GOSSIP_CUTS, gossip),
             ATTENTION_BWD_CUTS, attention_bwd),
            ("ssd_intra_chunk", "ssd_scan.cu", SSD_CUTS, ssd),
            ("ssd_scan_bwd", "ssd_scan_bwd.cu", SSD_BWD_CUTS, ssd_bwd),
-           ("int8 encode", "cold_codec.cu", ENCODE_CUTS, encode))
+           ("int8 encode", "cold_codec.cu", ENCODE_CUTS, encode),
+           ("f16 casts", "cold_codec.cu", CAST_CUTS, casts))
 
 
 def main() -> int:
@@ -456,18 +525,25 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    kinds = sys.argv[1:] or [kind for kind, _, _, _ in KERNELS]
+    unknown = set(kinds) - {kind for kind, _, _, _ in KERNELS}
+    if unknown:
+        print(f"kernel_ablations: no kernel kind {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
+    kernels = [k for k in KERNELS if k[0] in kinds]
     jobs = [(kind, name, source, cuts_)
-            for kind, source, cuts, _ in KERNELS
+            for kind, source, cuts, _ in kernels
             for name, cuts_ in [("kernel", [])] + list(cuts.items())]
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = list(pool.map(
             lambda j: build(re.sub(r"[^A-Za-z0-9]+", "_",
                                    f"{j[0]}_{j[1]}"), j[2], j[3]), jobs))
-    libs = {kind: {} for kind, _, _, _ in KERNELS}
+    libs = {kind: {} for kind, _, _, _ in kernels}
     for (kind, name, _, _), lib in zip(jobs, built):
         libs[kind][name] = lib
     result = {}
-    for kind, _, _, timing in KERNELS:
+    for kind, _, _, timing in kernels:
         result[kind] = timing(libs[kind], dev)
         torch.cuda.empty_cache()
         for name, t in result[kind].items():

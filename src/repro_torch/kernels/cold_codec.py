@@ -17,9 +17,13 @@ One hand-written Hopper kernel source, ``csrc/cold_codec.cu`` (built for
 each direction is one launch over all segments. The int8 encode reads
 each element once: it runs the tasks of :func:`encode_plan` (runs of
 whole segments, or slices of a larger segment held on chip by as many
-blocks at once) and needs 16-byte aligned rows. Decode and the f16
-casts are driven by a table of column tiles that never cross a segment
-boundary (:func:`tile_table`).
+blocks at once) and needs 16-byte aligned rows. The int8 decode is
+driven by a table of column tiles that never cross a segment boundary
+(:func:`tile_table`). The f16 casts are one streaming pass over the
+array each way, a float4 on the f32 side and 4 halves (or, where the
+pointers do not line up, one) on the f16 side an access, with a scalar
+head and tail that :func:`cast_plan` sizes for the two pointers'
+alignments.
 
 On a CPU tensor each wrapper takes its plain version
 (:mod:`repro_torch.kernels.ref`). On a CUDA tensor it launches the
@@ -73,7 +77,7 @@ def _library() -> ctypes.CDLL:
     lib.cold_encode_int8_grid.argtypes = []
     lib.cold_encode_int8_launch.argtypes = [p, p, ll, p, p, i, i, p, p, p]
     lib.cold_decode_int8_launch.argtypes = [p, p, ll, ll, p, ll, i, p, p]
-    lib.cold_cast_launch.argtypes = [p, p, ll, i, p]
+    lib.cold_cast_launch.argtypes = [p, p, ll, i, i, ll, p]
     for fn in (lib.cold_encode_int8_grid, lib.cold_encode_int8_launch,
                lib.cold_decode_int8_launch, lib.cold_cast_launch):
         fn.restype = ctypes.c_int
@@ -158,6 +162,22 @@ def encode_plan(segments: Sequence[Tuple[int, int]], rows: int,
                              axis=1), ngroups, largest)
 
 
+def cast_plan(f32_addr: int, f16_addr: int, n: int) -> Tuple[int, int]:
+    """The f16 casts' access plan for n elements between an f32 array at
+    byte address ``f32_addr`` and an f16 array at ``f16_addr``: returns
+    ``(halves, head)``. Elements ``[0, head)`` go one at a time; from
+    ``head`` on, groups of 4 elements move the f32 side a float4 (16
+    bytes, aligned) and the f16 side ``halves`` halves (``2 * halves``
+    bytes, aligned) an access; the elements after the last whole group
+    go one at a time. ``halves`` is 4 where the two element residues mod
+    4 agree, else 1, as ``cold_cast_launch`` takes it."""
+    if f32_addr % 4 or f16_addr % 2:
+        raise ValueError(f"cold_codec cast: f32 at {f32_addr} or f16 at "
+                         f"{f16_addr} is not element-aligned")
+    r32, r16 = f32_addr // 4 % 4, f16_addr // 2 % 4
+    return 4 if r32 == r16 else 1, min(-r32 % 4, n)
+
+
 @functools.lru_cache(maxsize=64)
 def _device_plan(segments: Tuple[Tuple[int, int], ...], rows: int,
                  device: torch.device):
@@ -196,6 +216,15 @@ def _run(fn, *args, what: str) -> None:
                            f"{rc}")
 
 
+def _cast(x: torch.Tensor, out: torch.Tensor, to_half: bool) -> None:
+    """One launch of the f16 cast from ``x`` into ``out`` (f32 to f16
+    when ``to_half``, else back)."""
+    f32, f16 = (x, out) if to_half else (out, x)
+    halves, head = cast_plan(f32.data_ptr(), f16.data_ptr(), x.numel())
+    _run(_library().cold_cast_launch, x, out, x.numel(), int(to_half),
+         halves, head, what=f"f16 {'encode' if to_half else 'decode'}")
+
+
 def _segments(segments, total: int) -> Tuple[Tuple[int, int], ...]:
     segs = tuple((int(o), int(s)) for o, s in segments)
     if sum(s for _, s in segs) != total:
@@ -219,10 +248,9 @@ def encode_rows(rows: torch.Tensor, codec: str, segments
     segs = _segments(segments, rows.shape[-1])
     _check(rows, "rows", torch.float32)
     S, T = rows.shape
-    lib = _library()
     q = torch.empty((S, T), dtype=_CODEC_DTYPE[codec], device=rows.device)
     if codec == "f16":
-        _run(lib.cold_cast_launch, rows, q, S * T, 1, what="f16 encode")
+        _cast(rows, q, to_half=True)
         encode_launches += 1
         return q, torch.zeros((S, 0), dtype=torch.float32,
                               device=rows.device)
@@ -234,8 +262,8 @@ def encode_rows(rows: torch.Tensor, codec: str, segments
                           device=rows.device)
     scale = torch.empty((S, len(segs)), dtype=torch.float32,
                         device=rows.device)
-    _run(lib.cold_encode_int8_launch, rows, tasks, tasks.shape[0], units,
-         scratch, ngroups, largest, q, scale, what="int8 encode")
+    _run(_library().cold_encode_int8_launch, rows, tasks, tasks.shape[0],
+         units, scratch, ngroups, largest, q, scale, what="int8 encode")
     encode_launches += 1
     return q, scale
 
@@ -254,17 +282,16 @@ def decode_rows(q: torch.Tensor, scale: torch.Tensor, codec: str,
     segs = _segments(segments, q.shape[-1])
     _check(q, "q", _CODEC_DTYPE[codec])
     S, T = q.shape
-    lib = _library()
     out = torch.empty((S, T), dtype=torch.float32, device=q.device)
     if codec == "f16":
-        _run(lib.cold_cast_launch, q, out, S * T, 0, what="f16 decode")
+        _cast(q, out, to_half=False)
     else:
         _check(scale, "scale", torch.float32)
         if tuple(scale.shape) != (S, len(segs)):
             raise ValueError(f"scale {tuple(scale.shape)} does not match "
                              f"{S} rows of {len(segs)} segments")
         tiles = _device_tiles(segs, q.device)
-        _run(lib.cold_decode_int8_launch, q, scale, S, T, tiles,
+        _run(_library().cold_decode_int8_launch, q, scale, S, T, tiles,
              tiles.shape[0], len(segs), out, what="int8 decode")
     decode_launches += 1
     return out

@@ -22,8 +22,8 @@
 // The int8 encode (encode_int8_kernel), one launch:
 // - The wrapper plans tasks (cold_codec.encode_plan) of at most kSlice =
 //   57,344 columns, one block's shared memory (224 KiB): runs of whole
-//   small segments (one segment or many, like the blocked quantizer's
-//   rows), or one slice of a larger segment. One block of 1024 threads
+//   small segments (one segment or many), or one slice of a larger
+//   segment. One block of 1024 threads
 //   on each SM takes tasks in order from a ticket counter.
 // - A task's elements go to shared memory as they are read (16-byte
 //   loads of the 4-aligned words, streaming), with the running max of
@@ -64,12 +64,40 @@
 // - The scratch (group maxima and counts, the ticket) is zeroed by one
 //   memset before the launch.
 //
-// Decode and the f16 casts: every pass is ONE launch over all segments,
-// driven by a table of column tiles that never cross a segment boundary
-// (start column, length, segment); block b handles tile b % ntiles of
-// row b / ntiles. Threads stride a tile with scalar loads and stores, so
-// a warp moves 32 consecutive elements: coalesced with no vector
-// alignment needed. Decode is __fmul_rn.
+// The int8 decode: ONE launch over all segments, driven by a table of
+// column tiles that never cross a segment boundary (start column,
+// length, segment); block b handles tile b % ntiles of row b / ntiles.
+// Threads stride a tile with scalar loads and stores, so a warp moves 32
+// consecutive elements: coalesced with no vector alignment needed.
+// Decode is __fmul_rn.
+//
+// The f16 casts (cast_kernel), one streaming launch each way over the
+// (S, T) array as one flat run, bounded by bytes (6 of them an element:
+// 2.54 GB at the slab, 0.757 ms):
+// - A thread casts one group of 4 elements: one float4 (16 bytes) on the
+//   f32 side, 4 halves (8 bytes) on the f16 side where the two pointers
+//   line up, which at the slab's fresh allocations they do; a warp moves
+//   512 contiguous bytes of f32 and 256 of f16 an instruction. The grid
+//   is a block of 256 threads for every 256 groups, left to the block
+//   scheduler. On the H100 that measured faster than a grid of 8 blocks
+//   an SM striding the array, and plain loads and stores faster than
+//   streaming cache hints (__ldcs / __stcs; both in
+//   kernel_ablations.py). Several groups in flight a thread, 16-byte
+//   f16 accesses (two float4 a thread) and a bulk store of a block's
+//   output from shared memory were tried and were no faster.
+// - Both sides are aligned at one element only where their element
+//   residues (the f32 pointer's mod 4, the f16 pointer's mod 4) agree. A
+//   row view of a slab with T = 2 mod 4 starts 8 bytes past a 16-byte
+//   boundary while the output is fresh: there the f16 side falls back to
+//   one half an access, while the f32 side keeps its float4 (on the H100
+//   the fallback measured as fast as the packed stores at the slab:
+//   kernel_ablations.py). The wrapper plans that (cold_codec.cast_plan):
+//   a scalar head of fewer than 4 elements that brings the f32 side onto
+//   a 16-byte boundary, whole groups, then a scalar tail. The launcher
+//   refuses a plan whose alignment does not hold.
+// - The arithmetic is __float2half_rn (round to nearest even, no flush
+//   of subnormals, overflow to +-inf) and __half2float, bit for bit the
+//   results of Tensor.to and of the host codec's numpy cast.
 //
 // Offsets are 64-bit: S * T passes 2^31 for a 256-row slab of the wider
 // models.
@@ -400,22 +428,73 @@ __global__ void __launch_bounds__(kThreads)
     o[i] = __fmul_rn((float)p[i], s);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    to_half_kernel(const float* __restrict__ x, __half* __restrict__ out,
-                   int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride)
-    out[i] = __float2half_rn(x[i]);
+// ---- the f16 casts: one streaming pass each way ----
+
+constexpr int kCastThreads = 256;
+
+// two f16 bits in a word, `a` in the low half (round to nearest even)
+__device__ __forceinline__ uint32_t half2_bits(float a, float b) {
+  return (uint32_t)__half_as_ushort(__float2half_rn(a)) |
+         (uint32_t)__half_as_ushort(__float2half_rn(b)) << 16;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    from_half_kernel(const __half* __restrict__ x, float* __restrict__ out,
-                     int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride)
-    out[i] = __half2float(x[i]);
+__device__ __forceinline__ float half_at(uint32_t w, int hi) {
+  return __half2float(__ushort_as_half((unsigned short)(w >> (16 * hi))));
+}
+
+template <bool kToHalf>
+__device__ __forceinline__ void cast_one(float* f32, unsigned short* f16,
+                                         int64_t e) {
+  if constexpr (kToHalf)
+    f16[e] = __half_as_ushort(__float2half_rn(f32[e]));
+  else
+    f32[e] = __half2float(__ushort_as_half(f16[e]));
+}
+
+// One cast of n elements, f32 -> f16 (kToHalf) or back. Elements [0,
+// head) and those after the last whole group go one a thread; between
+// them groups of 4 elements, one a thread: the f32 side one float4, the
+// f16 side one 8-byte access (kWide) or 4 of one half, every access
+// aligned (the plan, cold_codec.cast_plan, chose head and kWide for the
+// two pointers).
+template <bool kToHalf, bool kWide>
+__global__ void __launch_bounds__(kCastThreads)
+    cast_kernel(float* __restrict__ f32, unsigned short* __restrict__ f16,
+                int64_t n, int64_t head) {
+  const int64_t tid = (int64_t)blockIdx.x * kCastThreads + threadIdx.x;
+  const int64_t ng = (n - head) / 4;
+  const int64_t end = head + 4 * ng;
+  // the scalar ends, fewer than 4 elements each
+  if (tid < head) cast_one<kToHalf>(f32, f16, tid);
+  if (tid < n - end) cast_one<kToHalf>(f32, f16, end + tid);
+  float4* x4 = reinterpret_cast<float4*>(f32 + head);
+  unsigned short* h0 = f16 + head;
+  for (int64_t g = tid; g < ng; g += (int64_t)gridDim.x * kCastThreads) {
+    unsigned short* h = h0 + 4 * g;
+    if constexpr (kToHalf) {
+      const float4 v = x4[g];
+      const uint32_t lo = half2_bits(v.x, v.y), hi = half2_bits(v.z, v.w);
+      if constexpr (kWide) {
+        *reinterpret_cast<uint2*>(h) = make_uint2(lo, hi);
+      } else {
+        h[0] = (unsigned short)(lo & 0xffff);
+        h[1] = (unsigned short)(lo >> 16);
+        h[2] = (unsigned short)(hi & 0xffff);
+        h[3] = (unsigned short)(hi >> 16);
+      }
+    } else {
+      uint32_t lo, hi;
+      if constexpr (kWide) {
+        const uint2 v = *reinterpret_cast<const uint2*>(h);
+        lo = v.x, hi = v.y;
+      } else {
+        lo = (uint32_t)h[0] | (uint32_t)h[1] << 16;
+        hi = (uint32_t)h[2] | (uint32_t)h[3] << 16;
+      }
+      x4[g] = make_float4(half_at(lo, 0), half_at(lo, 1), half_at(hi, 0),
+                          half_at(hi, 1));
+    }
+  }
 }
 
 // blocks of a tiled pass, or 0 when the grid would not fit
@@ -423,14 +502,6 @@ int64_t tiled_blocks(int64_t rows, int64_t ntiles) {
   if (rows < 1 || ntiles < 1) return 0;
   const int64_t blocks = rows * ntiles;
   return blocks > 0x7fffffffLL ? 0 : blocks;
-}
-
-// blocks of a grid-stride cast: 8 waves of 132 SMs x 8 blocks, fewer for
-// small inputs
-unsigned cast_blocks(int64_t n) {
-  const int64_t want = (n + kThreads - 1) / kThreads;
-  const int64_t cap = 132 * 8 * 8;
-  return (unsigned)(want < cap ? want : cap);
 }
 
 constexpr size_t kEncSmem = (kSlice + 4 + 2 * kMaxUnits) * sizeof(float) +
@@ -451,6 +522,21 @@ cudaError_t encode_grid(int* blocks) {
         &per_sm, encode_int8_kernel, kEncThreads, kEncSmem);
   *blocks = sms * per_sm;
   return err;
+}
+
+template <bool kToHalf, bool kWide>
+cudaError_t launch_cast(const void* x, void* out, int64_t n, int64_t head,
+                        cudaStream_t s) {
+  float* f32 = static_cast<float*>(const_cast<void*>(kToHalf ? x : out));
+  unsigned short* f16 =
+      static_cast<unsigned short*>(const_cast<void*>(kToHalf ? out : x));
+  // a group a thread; at least one block for the scalar ends
+  const int64_t groups = (n - head) / 4;
+  int64_t blocks = (groups + kCastThreads - 1) / kCastThreads;
+  blocks = blocks < 1 ? 1 : blocks > 0x7fffffffLL ? 0x7fffffffLL : blocks;
+  cast_kernel<kToHalf, kWide><<<(unsigned)blocks, kCastThreads, 0, s>>>(
+      f32, f16, n, head);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -519,18 +605,26 @@ int cold_decode_int8_launch(const void* q, const void* scale, long long rows,
 }
 
 // n elements; to_half 1 casts f32 -> f16 (x f32, out f16), 0 the reverse.
+// halves (4 or 1) and head (< 4) are cold_codec.cast_plan's for the two
+// pointers: from element `head` on, the f32 side is 16-byte aligned and
+// the f16 side 2 * halves-byte aligned wherever a whole group follows
+// (cudaErrorMisalignedAddress otherwise). One launch.
 int cold_cast_launch(const void* x, void* out, long long n, int to_half,
-                     void* stream) {
-  if (n < 0) return (int)cudaErrorInvalidValue;
+                     int halves, long long head, void* stream) {
+  if (n < 0 || head < 0 || head > 3 || (n > 0 && head > n) ||
+      (halves != 4 && halves != 1))
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
+  const uintptr_t p32 = (uintptr_t)(to_half ? x : out) + 4 * head;
+  const uintptr_t p16 = (uintptr_t)(to_half ? out : x) + 2 * head;
+  if (n - head >= 4 && (p32 % 16 || p16 % (2 * halves)))
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (to_half)
-    to_half_kernel<<<cast_blocks(n), kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<__half*>(out), n);
-  else
-    from_half_kernel<<<cast_blocks(n), kThreads, 0, s>>>(
-        static_cast<const __half*>(x), static_cast<float*>(out), n);
-  return (int)cudaGetLastError();
+  if (halves == 4)
+    return (int)(to_half ? launch_cast<true, true>(x, out, n, head, s)
+                         : launch_cast<false, true>(x, out, n, head, s));
+  return (int)(to_half ? launch_cast<true, false>(x, out, n, head, s)
+                       : launch_cast<false, false>(x, out, n, head, s));
 }
 
 }  // extern "C"

@@ -131,7 +131,8 @@ def test_cpu_calls_launch_nothing():
     for codec in CODECS:
         q, s = tcc.encode_rows(rows, codec, SEGMENTS)
         tcc.decode_rows(q, s, codec, SEGMENTS)
-    tq.quantize_int8_blocked(rows.reshape(-1))
+    for block in (1024, 777, 2 * tq.WARP_BLOCK):
+        tq.quantize_int8_blocked(rows.reshape(-1), block=block)
     assert tcc.encode_launches == tcc.decode_launches == tq.launches == 0
 
 
@@ -146,6 +147,10 @@ def test_other_devices_raise_instead_of_falling_back(codec):
     with pytest.raises(ValueError, match="no kernel for device meta"):
         tcc.decode_rows(torch.zeros((2, 400), dtype=dt, device="meta"),
                         torch.zeros((2, 3), device="meta"), codec, SEGMENTS)
+    # nor does the blocked quantizer, at either of its kernel's routes
+    for block in (1024, 2 * tq.WARP_BLOCK):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            tq.quantize_int8_blocked(rows.reshape(-1), block=block)
 
 
 @pytest.mark.parametrize("segments", [SEGMENTS, FEMNIST_SEGMENTS,
@@ -316,25 +321,66 @@ def test_cold_codec_helpers_match_reference():
                         ((0, 4),))
 
 
-# -- B3: the blocked quantizer on the cold codec -----------------------------
+# -- B3: the blocked quantizer ------------------------------------------------
 
-@pytest.mark.parametrize("T,block", [(4096, 1024), (5000, 1024),
-                                     (777, 256), (1, 1024)])
+#: (T, block) cases with inputs of their own: an all-zero block, and a
+#: block whose absmax is 127 (scale exactly 1) holding exact half steps
+QUANT_SPECIAL = {(3072, 1024): "zero block", (1024, 256): "tie"}
+#: cases where the reference's kernel in interpret mode gives a scale one
+#: ulp off the IEEE quotient max(absmax, 1e-12) / 127 (ROADMAP C7: it
+#: multiplies by the rounded 1/127), by the number of such blocks; the
+#: port computes the quotient, as the host codec and the reference's own
+#: oracle ``quantize_int8_ref`` do
+QUANT_RECIPROCAL = {(2332, 777): 1}
+
+
+@pytest.mark.parametrize("T,block", [
+    (4096, 1024), (5000, 1024), (777, 256), (1, 1024),
+    (3073, 1024), (2047, 1024), (500, 1024), (3072, 1024),   # 1, -1 mod
+    (1024, 256), (2561, 256), (1553, 777), (2332, 777), (100, 777)])
 def test_quantize_int8_blocked_matches_reference(T, block):
+    """The port's blocked quantizer against the reference's Pallas kernel
+    (interpret mode) and its oracle, bit for bit (the kernel's scales
+    but for QUANT_RECIPROCAL's): T at 0, 1 and block - 1 mod block and
+    below one block; blocks 256, 777 and 1024; an all-zero block (the
+    1e-12 scale floor) and a block of exact ties (round half to even)."""
     rng = np.random.default_rng(T)
     x = (rng.standard_normal(T) * 2).astype(np.float32)
     if T > 600:
         x[512:600] = 0.0
+    special = QUANT_SPECIAL.get((T, block))
+    if special == "zero block":
+        x[block:2 * block] = 0.0
+    if special == "tie":
+        x[:block] = np.arange(block, dtype=np.float32) % 9 - 4.5
+        x[7] = 127.0
     codes, scales = tq.quantize_int8_blocked(torch.from_numpy(x),
                                              block=block)
     rc, rs = rq.quantize_int8_blocked(jnp.asarray(x), block=block,
                                       interpret=True)
     assert codes.dtype == torch.int8 and codes.shape == (T,)
     np.testing.assert_array_equal(codes.numpy(), np.asarray(rc))
-    np.testing.assert_array_equal(scales.numpy(), np.asarray(rs))
+    oc, os_ = rq.quantize_int8_ref(jnp.asarray(x), block=block)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(oc))
+    np.testing.assert_array_equal(scales.numpy(), np.asarray(os_))
+    nb = len(scales)
+    amax = np.abs(np.pad(x, (0, nb * block - T)).reshape(nb, block)).max(1)
+    recip = np.maximum(amax, np.float32(1e-12)) * (np.float32(1) /
+                                                   np.float32(127))
+    np.testing.assert_array_equal(np.asarray(rs), recip)
+    off = scales.numpy() != np.asarray(rs)
+    assert off.sum() == QUANT_RECIPROCAL.get((T, block), 0)
+    np.testing.assert_array_max_ulp(scales.numpy(), np.asarray(rs), 1)
     pc, ps = tq.quantize_int8_ref(torch.from_numpy(x), block=block)
     np.testing.assert_array_equal(pc.numpy(), codes.numpy())
     np.testing.assert_array_equal(ps.numpy(), scales.numpy())
+    if special == "zero block":
+        assert scales[1] == np.float32(1e-12) / np.float32(127)
+        assert not codes[block:2 * block].any()
+    if special == "tie":
+        assert scales[0] == 1.0
+        np.testing.assert_array_equal(codes[:9].numpy(),
+                                      [-4, -4, -2, -2, 0, 0, 2, 127, 4])
     deq = tq.dequantize_int8_blocked(codes, scales, block=block)
     rdeq = rq.dequantize_int8_blocked(rc, rs, block=block)
     np.testing.assert_allclose(deq.numpy(), np.asarray(rdeq), atol=1e-6,
@@ -344,8 +390,9 @@ def test_quantize_int8_blocked_matches_reference(T, block):
 
 
 def test_quantize_equals_cold_encode_of_blocked_rows():
-    """The identity the port builds B3 on: per-block quantization of a
-    flat vector is the int8 cold encode of its (T/block, block) rows."""
+    """The identity the plain version is built on: per-block quantization
+    of a flat vector is the int8 cold encode of its (T/block, block)
+    rows."""
     T, block = 4096, 1024
     x = (np.random.default_rng(11).standard_normal(T) * 2).astype(
         np.float32)
@@ -356,3 +403,165 @@ def test_quantize_equals_cold_encode_of_blocked_rows():
     np.testing.assert_array_equal(codes.numpy().reshape(-1, block),
                                   host["q"])
     np.testing.assert_array_equal(scales.numpy(), host["scale"][:, 0])
+
+
+@pytest.mark.parametrize("form", ["float64", "float16", "strided"])
+def test_quantize_converts_other_dtypes_and_strided_views(form):
+    """A vector that is not contiguous f32 is quantized as its f32 values
+    (the reference's ``_kernel`` casts to f32 too), on the CPU as on the
+    card, where the wrapper converts before the launch."""
+    T, block = 2561, 256
+    x = (np.random.default_rng(3).standard_normal(2 * T) * 2).astype(
+        np.float32)
+    if form == "strided":
+        xt = torch.from_numpy(x)[::2]
+        assert not xt.is_contiguous()
+    else:
+        xt = torch.from_numpy(x[:T]).to(getattr(torch, form))
+    x32 = xt.to(torch.float32).contiguous()
+    codes, scales = tq.quantize_int8_blocked(xt, block=block)
+    want_c, want_s = tq.quantize_int8_blocked(x32, block=block)
+    np.testing.assert_array_equal(codes.numpy(), want_c.numpy())
+    np.testing.assert_array_equal(scales.numpy(), want_s.numpy())
+    rc, _ = rq.quantize_int8_blocked(jnp.asarray(x32.numpy()), block=block,
+                                     interpret=True)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(rc))
+
+
+def _quantize_walk(x_addr, q_addr, T, block):
+    """``csrc/quantize.cu`` over (T,) in plain Python, on the path
+    :func:`quantize_plan` picks: how often each element is read and its
+    code written, asserting every vector access aligned."""
+    vector, per_warp = tq.quantize_plan(x_addr, q_addr, block)
+    seen = np.zeros(T, np.int64)
+    nb = -(-T // block)
+    threads = 32 if per_warp else 1024
+    for b in range(nb):
+        e0 = b * block
+        n = min(block, T - e0)
+        if vector:
+            nw = n // 4
+            # a warp: lane + 32 k for k < 8; a CTA: tid + 1024 k
+            words = [w for t in range(threads) for w in range(t, nw, threads)]
+            if per_warp:
+                assert nw < 32 * 8 or (nw == 32 * 8 and n == 4 * nw)
+            for w in words:
+                assert (x_addr + 4 * (e0 + 4 * w)) % 16 == 0
+                assert (q_addr + e0 + 4 * w) % 4 == 0
+                seen[e0 + 4 * w:e0 + 4 * w + 4] += 1
+            seen[e0 + 4 * nw:e0 + n] += 1        # the cut word, by element
+        else:
+            if per_warp:
+                assert n <= 32 * 32
+            seen[e0:e0 + n] += 1
+    return vector, seen
+
+
+@pytest.mark.parametrize("T,block", [(6_603_710 // 1000, 1024),
+                                     (2561, 256), (1553, 777), (5000, 3000),
+                                     (100, 777), (4096, 1024)])
+def test_quantize_plan_walk_covers_every_element_once(T, block):
+    """At every byte residue 0-15 of x's base (f32: multiples of 4) and
+    of the codes' base, the kernel's walk reads and codes every element
+    exactly once with every vector access aligned; the vector path is
+    taken exactly where x is 16-byte and q 4-byte aligned and block is a
+    multiple of 4."""
+    for xr in range(0, 16, 4):
+        for qr in range(16):
+            vector, seen = _quantize_walk(4096 + xr, 8192 + qr, T, block)
+            assert (seen == 1).all(), (xr, qr)
+            assert vector == (xr == 0 and qr % 4 == 0 and block % 4 == 0)
+
+
+# -- B2's f16 casts -----------------------------------------------------------
+
+def _f16_edges() -> np.ndarray:
+    """f32 values at the f16 cast's edges: exact midpoints between
+    neighbouring f16 values (ties to even, both ways), points just off
+    them, subnormals and their ties (2^-25 rounds to 0), the largest
+    finite f16 (65504) and what overflows to +-inf (65520 is a tie)."""
+    rng = np.random.default_rng(5)
+    h = rng.integers(0, 0x7BFF, 1800).astype(np.uint16)
+    lo = h.view(np.float16).astype(np.float32)
+    hi = (h + 1).view(np.float16).astype(np.float32)
+    mid = ((lo.astype(np.float64) + hi) / 2).astype(np.float32)
+    sub = np.arange(0, 1024, 7, dtype=np.uint16).view(np.float16).astype(
+        np.float32)
+    vals = np.concatenate([
+        mid, np.nextafter(mid, np.float32(np.inf)),
+        np.nextafter(mid, np.float32(-np.inf)), sub, sub * 1.5,
+        np.float32([2.0 ** -25, 3 * 2.0 ** -25, 2.0 ** -26, 2.0 ** -24,
+                    6.1e-5, 65504.0, 65519.99, 65520.0, 70000.0, 3e38,
+                    np.inf, 0.0, -0.0])])
+    vals = np.concatenate([vals, -vals])
+    out = np.zeros((3, 4096), np.float32)
+    out.reshape(-1)[:vals.size] = vals
+    return out
+
+
+def test_f16_casts_match_host_codec_at_the_edges():
+    """The f16 encode's plain version against the host codec bit for bit
+    at ties, subnormals and overflow; its decode against the host codec
+    over every non-NaN f16 bit pattern (NaNs stay NaN)."""
+    rows = _f16_edges()
+    segs = ((0, 4096),)
+    q, _ = tcc.encode_rows(torch.from_numpy(rows), "f16", segs)
+    host = rcomp.encode_cold_rows(rows, "f16", segs)
+    np.testing.assert_array_equal(q.numpy().view(np.uint16),
+                                  host["q"].view(np.uint16))
+    assert np.isinf(host["q"]).sum() > 0 and (host["q"] == 0).sum() > 0
+    allh = np.arange(65536, dtype=np.uint32).astype(np.uint16).view(
+        np.float16).reshape(16, 4096)
+    dec = tcc.decode_rows(torch.from_numpy(allh), None, "f16", segs).numpy()
+    ref = rcomp.decode_cold_rows({"q": allh, "scale": None}, "f16", segs)
+    nan = np.isnan(ref)
+    assert (np.isnan(dec) == nan).all()
+    np.testing.assert_array_equal(dec[~nan].view(np.uint32),
+                                  ref[~nan].view(np.uint32))
+
+
+def _cast_walk(f32_addr, f16_addr, n):
+    """The f16 cast kernel over n elements in plain Python, on
+    :func:`cold_codec.cast_plan`'s plan: the scalar head, whole groups
+    (the f32 side a float4 an access, the f16 side ``halves`` halves),
+    the scalar tail; asserts every vector access aligned and returns how
+    often each element is cast."""
+    halves, head = tcc.cast_plan(f32_addr, f16_addr, n)
+    seen = np.zeros(n, np.int64)
+    seen[:head] += 1
+    ng = (n - head) // 4
+    for g in range(ng):
+        e = head + 4 * g
+        assert (f32_addr + 4 * e) % 16 == 0
+        for k in range(0, 4, halves):
+            assert (f16_addr + 2 * (e + k)) % (2 * halves) == 0
+        seen[e:e + 4] += 1
+    seen[head + 4 * ng:] += 1
+    return halves, head, seen
+
+
+def test_cast_plan_walk_covers_every_element_once():
+    """At every byte residue 0-15 of both bases and at lengths around the
+    group sizes, the cast's walk casts every element exactly once with
+    every vector access aligned, the head stays under 4 elements, and
+    the wide f16 access is taken wherever the two residues allow it;
+    misaligned bases are refused."""
+    for r32 in range(16):
+        for r16 in range(16):
+            base32, base16 = 1 << 20 | r32, 1 << 21 | r16
+            if r32 % 4 or r16 % 2:
+                with pytest.raises(ValueError, match="element-aligned"):
+                    tcc.cast_plan(base32, base16, 8)
+                continue
+            e32, e16 = r32 // 4, r16 // 2
+            for n in (*range(20), 63, 1001, 6_603_710 % 4096 + 4096):
+                halves, head, seen = _cast_walk(base32, base16, n)
+                assert (seen == 1).all(), (r32, r16, n)
+                assert head < 4
+                assert halves == (4 if e32 == e16 % 4 else 1)
+    # the slab's row views: f32 rows of T = 2 mod 4 from a fresh f16
+    # output, and f16 rows (12 bytes past 16) into a fresh f32 output
+    T = 6_603_710
+    assert tcc.cast_plan(4 * T, 0, T) == (1, 2)
+    assert tcc.cast_plan(0, 2 * T, T) == (1, 0)
+    assert tcc.cast_plan(0, 0, 64 * T) == (4, 0)
