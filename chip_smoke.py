@@ -216,6 +216,16 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  round of every family at dp 2 x mp 2 against dp 2 x mp
                  1 on the card within 1e-4 (TF32 off). The round times
                  are gloo's through host memory, not NCCL's.
+7g. dryrun    — on the host, no kernel: ``repro_torch.launch.dryrun``
+                 runs 7c's round and 7f's full-width mp 2 rounds as
+                 rank 0 on meta tensors in a fake world (in a child
+                 process if a world is up here); its predicted peaks
+                 (7c's qwen2-0.5b round, 7f's zamba2-2.7b and mixtral)
+                 within 20% of the measured ones, its predicted traffic
+                 of 7f's qwen2 dp 2 x mp 2 round equal to the measured
+                 one by group and kind in bytes and calls, a local
+                 step's counted FLOPs over 7c's warm step as a share of
+                 989 TFLOP/s; at most 30 s (all asserted).
 8. lm decode  — the same model in f32: the kernel forward's logits over
                  2 x 512 tokens against 512 decode steps (no kernel),
                  within the reference's atol = rtol = 0.05; then the
@@ -2751,8 +2761,7 @@ def phase_flash_attention(dev: torch.device) -> dict:
                                                       is_causal=True))
     # q, k, v read once and o written once; the causal band's two
     # products (S(S+1)/2 score entries a head) on the bf16 tensor cores
-    nbytes = 4 * B * S * H * D * 2
-    flops = 2 * 2 * B * H * D * S * (S + 1) / 2
+    nbytes, flops = fa.fwd_counts(B, S, S, H, H, D, True)
     b_ms, b_by = _bound(nbytes, flops, BF16_FLOPS)
     log(f"[kernels] flash_attention prefill shape (B={B}, S={S}, H={H}, "
         f"D={D}, bf16, causal): max abs err {err:.3e} (atol "
@@ -2770,16 +2779,6 @@ def phase_flash_attention(dev: torch.device) -> dict:
             "max_abs_err": max(err, *worst.values()), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms}
-
-
-def _attended_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
-    """The (query, key) pairs a mask lets through (q_offset 0): what the
-    attention's two products must compute."""
-    i = np.arange(Sq)
-    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
-    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(Sq)
-    assert causal or not window, "a window without the causal band"
-    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 def _fa_family_paths(dev: torch.device, gen: torch.Generator) -> float:
@@ -2822,9 +2821,8 @@ def _fa_family_paths(dev: torch.device, gen: torch.Generator) -> float:
         else:
             lib = lambda: sdpa(qh, kh, vh, is_causal=causal)  # noqa: E731
         library_ms = time_ms(lib)
-        pairs = _attended_pairs(Sq, Sk, causal, window)
-        nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D)
-        flops = 2 * 2 * B * H * D * pairs
+        pairs = fa.attended_pairs(Sq, Sk, causal, window)
+        nbytes, flops = fa.fwd_counts(B, Sq, Sk, H, Hkv, D, causal, window)
         b_ms, b_by = _bound(nbytes, flops, BF16_FLOPS)
         log(f"[kernels] flash_attention {what} (B={B}, Sq={Sq}, Sk={Sk}, "
             f"H/Hkv={H}/{Hkv}, D={D}, causal={causal}, window={window}, "
@@ -2851,14 +2849,10 @@ def _ssd_inputs(gen, dev, BK, H, C, P, N, dt):
 
 
 def _ssd_fwd_bound(BK: int, H: int, C: int, P: int, N: int):
-    """B5's least time at a bf16 shape: x, a, dt, B, C read once; y and
-    the states written once (f32); the products over the lower
-    triangle, C Bᵀ once a chunk (shared by the heads), on the bf16
-    tensor cores. Returns (ms, by, bytes, flops)."""
-    tri = C * (C + 1) / 2
-    nbytes = (2 * BK * H * C * P + 2 * 4 * BK * H * C + 2 * 2 * BK * C * N
-              + 4 * BK * H * C * P + 4 * BK * H * N * P)
-    flops = 2 * BK * (N * tri + H * P * tri + H * C * N * P)
+    """B5's least time at a bf16 shape, on the bf16 tensor cores
+    (``ssd_scan.fwd_counts``). Returns (ms, by, bytes, flops)."""
+    from repro_torch.kernels import ssd_scan as ss
+    nbytes, flops = ss.fwd_counts(BK, H, C, P, N)
     return (*_bound(nbytes, flops, BF16_FLOPS), nbytes, flops)
 
 
@@ -3463,9 +3457,7 @@ def phase_flash_attention_bwd(dev: torch.device) -> dict:
     # q, k, v, o, dO and lse read once, dq, dk, dv written once (q, o,
     # dO and dq of H heads, k, v, dk and dv of Hkv); the five
     # products of the causal band (S(S+1)/2 scores a head) in bf16
-    nbytes = (4 * B * S * cfg_h * D + 4 * B * S * cfg_hkv * D) * 2 + \
-        B * cfg_h * S * 4
-    flops = 5 * 2 * B * cfg_h * D * S * (S + 1) / 2
+    nbytes, flops = fa.bwd_counts(B, S, S, cfg_h, cfg_hkv, D, True)
     b_ms, b_by = _bound(nbytes, flops, BF16_FLOPS)
     log(f"[kernels] flash_attention_bwd training shape (B={B}, S={S}, "
         f"H={cfg_h}/{cfg_hkv}, D={D}, bf16, causal): forward logsumexp max "
@@ -3559,10 +3551,8 @@ def _fa_bwd_family_paths(dev: torch.device, gen: torch.Generator) -> float:
         sdpa_bwd = _sdpa_bwd(q, k, v, do, mask)
         library_ms, _ = device_ms(sdpa_bwd)
         del sdpa_bwd
-        pairs = _attended_pairs(Sq, Sk, causal, window)
-        nbytes = (4 * B * Sq * H * D + 4 * B * Sk * Hkv * D) * 2 + \
-            B * H * Sq * 4
-        flops = 5 * 2 * B * H * D * pairs
+        pairs = fa.attended_pairs(Sq, Sk, causal, window)
+        nbytes, flops = fa.bwd_counts(B, Sq, Sk, H, Hkv, D, causal, window)
         b_ms, b_by = _bound(nbytes, flops, BF16_FLOPS)
         log(f"[kernels] flash_attention_bwd {what} (B={B}, Sq={Sq}, "
             f"Sk={Sk}, H/Hkv={H}/{Hkv}, D={D}, causal={causal}, "
@@ -3668,16 +3658,10 @@ def _ssd_bwd_close(got, exp, dt, what) -> float:
 
 
 def _ssd_bwd_bound(BK: int, H: int, C: int, P: int, N: int):
-    """B5's backward's least time at a bf16 shape: x, dy, dst, a, dt, B
-    and C read once, dx, da, ddt, dB and dC written once; C Bᵀ over the
-    lower triangle once a chunk, dy xᵀ and Mᵀ dy over it a head, B dst
-    and x dstᵀ a head, D B and Dᵀ C once a chunk, on the bf16 tensor
-    cores. Returns (ms, by, bytes, flops)."""
-    tri = C * (C + 1) / 2
-    nbytes = (BK * H * C * P * (2 + 4 + 2) + BK * H * N * P * 4
-              + 4 * 4 * BK * H * C + 4 * 2 * BK * C * N)
-    flops = 2 * BK * (N * tri + H * (2 * P * tri + 2 * C * N * P)
-                      + 2 * N * tri)
+    """B5's backward's least time at a bf16 shape, on the bf16 tensor
+    cores (``ssd_scan.bwd_counts``). Returns (ms, by, bytes, flops)."""
+    from repro_torch.kernels import ssd_scan as ss
+    nbytes, flops = ss.bwd_counts(BK, H, C, P, N)
     return (*_bound(nbytes, flops, BF16_FLOPS), nbytes, flops)
 
 
@@ -3954,7 +3938,9 @@ def _train_parity(dev: torch.device, exp, batch):
 
 
 def phase_lm_train(dev: torch.device):
-    """Returns B4's forward and backward launches in (a)."""
+    """Returns B4's forward and backward launches in (a), and what
+    ``[dryrun]`` holds its predictions to: (a)'s peak device memory a
+    round and its warm local step's seconds."""
     from repro_torch.core.sharded import ShardedCEFedAvg
     from repro_torch.data.lm import learnable_lm_batch
     from repro_torch.kernels import flash_attention as fa
@@ -3994,7 +3980,7 @@ def phase_lm_train(dev: torch.device):
         assert n == LM_TRAIN_PARAMS, n
         before = held_out(params)
         round_fn = trn.make_global_round()
-        step, losses = 0, []
+        step, losses, round_peaks = 0, [], []
         fa.launches = fa.bwd_launches = 0
         for r in range(LM_TRAIN_ROUNDS):
             batch = learnable_lm_batch((fl.q, fl.tau, 1, LM_TRAIN_BATCH,
@@ -4007,6 +3993,7 @@ def phase_lm_train(dev: torch.device):
             torch.cuda.synchronize()
             sec = time.perf_counter() - t0
             losses.append(metrics["loss"])
+            round_peaks.append(torch.cuda.max_memory_allocated(dev))
             log(f"[lm_train] round {r}: {sec:.3f} s, {tokens / sec:,.0f} "
                 f"local-step tokens/s, loss {metrics['loss']:.4f}, peak "
                 f"device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
@@ -4023,10 +4010,13 @@ def phase_lm_train(dev: torch.device):
         assert all(math.isfinite(x) for x in losses), losses
         assert after < before, (before, after)
 
-        # one local step under the profiler
+        # one local step under the profiler, after a warm one (timed)
         local = trn.make_local_step()
-        params, opt, _, step = local(params, opt, held, step)  # warm
+        t0 = time.perf_counter()
+        params, opt, _, step = local(params, opt, held, step)
         torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        log(f"[lm_train] one warm local step: {step_s:.3f} s")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -4092,7 +4082,7 @@ def phase_lm_train(dev: torch.device):
     steps = fl.q * fl.tau
     assert nc == (LM_TRAIN_PARITY_LAYERS * steps,) * 2 and nh == (0, 0), \
         (nc, nh)
-    return launches
+    return launches, {"peaks": round_peaks, "step_s": step_s}
 
 
 # ---------------------------------------------------------------------------
@@ -4629,6 +4619,17 @@ def _tp_experiment(arch: str, dp: int, mp: int, extra=()):
          str(mp), "--dist-backend", "gloo", *extra]))
 
 
+def _tp_run_experiment(run):
+    """The experiment of a LM_TP_RUNS row."""
+    what, arch, dp, mp, layers, B, S, remat = run
+    exp = _tp_experiment(arch, dp, mp, ("--batch", str(B), "--seq", str(S)))
+    if layers is not None:
+        exp = dataclasses.replace(exp, model=dataclasses.replace(
+            exp.model, num_layers=layers))
+    return dataclasses.replace(exp, train=dataclasses.replace(
+        exp.train, remat=remat))
+
+
 def _tp_train(run) -> dict:
     """One rank of a LM_TP_RUNS row: the trainer on a (data, model) rank
     mesh, LM_TP_ROUNDS rounds at full width: params (the rank's and the
@@ -4642,12 +4643,7 @@ def _tp_train(run) -> dict:
     from repro_torch.launch import mesh as lm
     from repro_torch.models import model as mdl
     what, arch, dp, mp, layers, B, S, remat = run
-    exp = _tp_experiment(arch, dp, mp, ("--batch", str(B), "--seq", str(S)))
-    if layers is not None:
-        exp = dataclasses.replace(exp, model=dataclasses.replace(
-            exp.model, num_layers=layers))
-    exp = dataclasses.replace(exp, train=dataclasses.replace(
-        exp.train, remat=remat))
+    exp = _tp_run_experiment(run)
     fl, cfg = exp.fl, exp.model
     mesh = lm.make_replica_mesh(dp, model=mp)
     dev = mesh.device
@@ -4809,7 +4805,10 @@ def phase_lm_train_tp(dev: torch.device) -> tuple:
     launch shape was held against its plain version in phases 2c and 2d
     (asserted); the reduced rounds at mp 2 within LM_PARITY_TOL of mp 1
     (TF32 off). Returns the full-width runs' launches (B4 forward and
-    backward, B5 forward and backward) over all ranks."""
+    backward, B5 forward and backward) over all ranks, and what
+    ``[dryrun]`` holds its predictions to: each full-width run's rank 0,
+    its traffic by group in round 0 and its peak device memory over the
+    rounds."""
     from repro_torch.launch import mesh as lm
     t0 = time.perf_counter()
     bf, f32 = str(torch.bfloat16), str(torch.float32)
@@ -4877,7 +4876,126 @@ def phase_lm_train_tp(dev: torch.device) -> tuple:
         assert shapes <= checked, (arch, sorted(shapes - checked))
         worst = max(worst, err)
     log(f"[lm_train_tp] phase: {time.perf_counter() - t0:.1f} s")
-    return tuple(total)
+    measured = {}
+    for res in runs:
+        zero = next(x for x in res if x["rank"] == 0)
+        measured[zero["what"]] = {
+            "traffic": zero["hist"][0]["traffic"],
+            "peak": max(h["peak"] for h in zero["hist"])}
+    return tuple(total), measured
+
+
+# ---------------------------------------------------------------------------
+# phase 7g: the dry-run's predictions against 7c and 7f
+# ---------------------------------------------------------------------------
+
+#: a predicted peak against the measured one (relative)
+DRYRUN_PEAK_TOL = 0.2
+#: the phase's host seconds, at most
+DRYRUN_MAX_S = 30.0
+#: the 7f runs whose peaks the dry-run predicts; 7f's first run (qwen2
+#: at dp 2 x mp 2) also has its traffic predicted
+DRYRUN_TP_PEAKS = ("zamba2-2.7b dp 1 x mp 2", "mixtral-8x7b dp 1 x mp 2")
+
+
+def _dryrun_predictions() -> dict:
+    """The port's dry-run (``launch.dryrun.count_train``: rank 0 of each
+    world on ``meta`` tensors in a fake world, on the host) of 7c's round
+    (with a local step's counted FLOPs) and of 7f's full-width runs
+    (rounds only): peak bytes and traffic by group. Leaves no world."""
+    import torch.distributed as dist
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    exp = train.lm_experiment(_lm_train_args(
+        ["--batch", str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ)]))
+    fig = dr.count_train(exp, lm.make_mesh((1, 1), ("data", "model")),
+                         ShapeConfig("7c", LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                                     "train"), production_flops=False)
+    out = {"7c": {"peak": fig["memory"]["peak_bytes_per_device"],
+                  "step_flops": fig["components"]["local_step"]["flops"],
+                  "step_twin_flops":
+                      fig["components"]["local_step"]["twin_flops"],
+                  "meta_s": fig["meta_s"]}}
+    for run in LM_TP_RUNS:
+        what, _, dp, mp, _, B, S, _ = run
+        if mp == 1:
+            continue
+        fig = dr.count_train(_tp_run_experiment(run),
+                             lm.make_mesh((dp, mp), ("data", "model")),
+                             ShapeConfig(what, S, B * dp, "train"),
+                             analysis=False, production_flops=False)
+        out[what] = {"peak": fig["memory"]["peak_bytes_per_device"],
+                     "traffic": fig["production"]["coll"]["by_group"],
+                     "meta_s": fig["meta_s"]}
+    out["seconds"] = time.perf_counter() - t0
+    assert not dist.is_initialized()
+    return out
+
+
+def _traffic_rows(traffic: dict) -> dict:
+    """{group: {kind: (calls, bytes sent)}} of ``traffic_by_group()`` (or
+    of a dry-run's ``by_group``)."""
+    return {g: {k: (v["calls"], v.get("sent", v.get("bytes")))
+                for k, v in ops.items()} for g, ops in traffic.items()
+            if ops}
+
+
+def phase_dryrun(train_measured: dict, tp_measured: dict) -> None:
+    """``repro_torch.launch.dryrun`` on the host (in a child process if a
+    world is up in this one), held to what 7c and 7f measured: 7c's
+    round peak and 7f's zamba2 and mixtral peaks within DRYRUN_PEAK_TOL,
+    7f's qwen2 dp 2 x mp 2 traffic equal by group and kind in bytes and
+    calls; a local step's counted FLOPs over 7c's measured warm step.
+    At most DRYRUN_MAX_S seconds. Launches no kernel."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    if dist.is_initialized():
+        ctx = torch.multiprocessing.get_context("spawn")
+        with ctx.Pool(1) as pool:
+            pred = pool.apply(_dryrun_predictions)
+    else:
+        pred = _dryrun_predictions()
+    secs = time.perf_counter() - t0
+    log(f"[dryrun] the dry-run on meta tensors in fake worlds: "
+        f"{pred['seconds']:.2f} host s ({secs:.2f} s with its process); "
+        + ", ".join(f"{k} {v['meta_s']:.2f} s" for k, v in pred.items()
+                    if k != "seconds"))
+
+    def peak_check(what, got, want):
+        rel = (got - want) / want
+        log(f"[dryrun] {what}: predicted peak {got / 1e9:.3f} GB "
+            f"({got:,} bytes), measured {want / 1e9:.3f} GB ({want:,} "
+            f"bytes): {rel:+.1%} (tol {DRYRUN_PEAK_TOL:.0%})")
+        return abs(rel) <= DRYRUN_PEAK_TOL
+
+    ok = [peak_check(f"7c {LM_TRAIN_ARCH} (1, 1) {LM_TRAIN_BATCH} x "
+                     f"{LM_TRAIN_SEQ} round", pred["7c"]["peak"],
+                     max(train_measured["peaks"]))]
+    flops, step_s = pred["7c"]["step_flops"], train_measured["step_s"]
+    log(f"[dryrun] 7c local step: counted {flops / 1e12:.3f} TFLOP "
+        f"({pred['7c']['step_twin_flops'] / 1e12:.3f} of them B4's) over "
+        f"7c's measured warm step {step_s:.4f} s = "
+        f"{flops / step_s / 1e12:.1f} TFLOP/s, "
+        f"{flops / step_s / BF16_FLOPS:.1%} of {BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s ({card_line()})")
+    for what in DRYRUN_TP_PEAKS:
+        ok.append(peak_check(f"7f {what} round", pred[what]["peak"],
+                             tp_measured[what]["peak"]))
+    what = LM_TP_RUNS[0][0]
+    got = _traffic_rows(pred[what]["traffic"])
+    want = _traffic_rows(tp_measured[what]["traffic"])
+    same = got == want
+    log(f"[dryrun] 7f {what} round traffic of rank 0 (calls, bytes sent) "
+        f"by group and kind: predicted {got}, measured {want}: "
+        f"{'equal' if same else 'DIFFERENT'}")
+    log(f"[dryrun] {secs:.2f} s of at most {DRYRUN_MAX_S:.0f}")
+    assert same, (got, want)
+    assert all(ok), ok
+    assert secs <= DRYRUN_MAX_S, secs
+    assert not dist.is_initialized()
 
 
 def main() -> int:
@@ -4928,14 +5046,17 @@ def main() -> int:
     phase_start(dev, "lm_families")
     family_attn = phase_lm_families(dev)
     phase_start(dev, "lm_train")
-    train_attn, attn_bwd["launches"] = phase_lm_train(dev)
+    (train_attn, attn_bwd["launches"]), train_measured = phase_lm_train(dev)
     phase_start(dev, "lm_train_families")
     fam_train_attn, fam_train_bwd = phase_lm_train_families(dev)
     phase_start(dev, "lm_train_ssm")
     ssm_attn, ssm_attn_bwd, ssm_ssd, ssd_bwd["launches"] = \
         phase_lm_train_ssm(dev)
     phase_start(dev, "lm_train_tp")
-    tp_attn, tp_attn_bwd, tp_ssd, tp_ssd_bwd = phase_lm_train_tp(dev)
+    (tp_attn, tp_attn_bwd, tp_ssd, tp_ssd_bwd), tp_measured = \
+        phase_lm_train_tp(dev)
+    phase_start(dev, "dryrun")
+    phase_dryrun(train_measured, tp_measured)
     log(f"[done] flash_attention launches: zamba2-2.7b prefill "
         f"{attn['launches']}, the four family prefills {family_attn}, "
         f"qwen2-0.5b training {train_attn}, the three families' training "

@@ -142,7 +142,12 @@ def ppermute(x: torch.Tensor, mesh: ReplicaMesh,
     if srcs:
         recv = _recv_buffer(mesh, x, "recv")
         ops.append(dist.P2POp(dist.irecv, recv, mesh.rank_of(srcs[0])))
-    if ops:
+    if ops and x.device.type == "meta":
+        # the dry-run's fake world: its backend has no coalesced
+        # point-to-point ops for meta tensors, so each goes alone
+        for op in ops:
+            op.op(op.tensor, op.peer).wait()
+    elif ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
     _count(mesh, "ppermute", nbytes if dsts else 0, nbytes if srcs else 0)
@@ -172,14 +177,16 @@ def subgroup(mesh: ReplicaMesh, groups: Sequence[Sequence[int]]):
 
 
 def psum_groups(x: torch.Tensor, mesh: ReplicaMesh,
-                groups: Sequence[Sequence[int]]) -> torch.Tensor:
-    """Grouped sum over the flat replica axis (flat replica ids): every
-    rank gets the sum of ``x`` over its own group."""
+                groups: Sequence[Sequence[int]],
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Grouped sum (or another ``op``) over the flat replica axis (flat
+    replica ids): every rank gets the reduction of ``x`` over its own
+    group."""
     pg = subgroup(mesh, groups)
     buf = _stage(mesh, x.contiguous(), "psum")
     if not mesh.staged:
         buf = buf.clone()
-    dist.all_reduce(buf, group=pg)
+    dist.all_reduce(buf, op=op, group=pg)
     nbytes = buf.numel() * buf.element_size()
     _count(mesh, "all_reduce", nbytes, nbytes)
     return _unstage(mesh, buf)
@@ -385,6 +392,28 @@ class ModelParallel:
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         return model_all_reduce(x.detach(), self.mesh, dist.ReduceOp.MAX)
+
+
+class SequenceSplit:
+    """A decode cache's positions split over the mesh's ``data`` axis
+    (``core.sharded.serve_specs`` where the batch does not divide it),
+    as ``models.layers.decode_attention`` takes it (``sp``): this rank's
+    part ``index`` of ``size``, and the sum and the max over the ranks
+    holding the other parts (same pod and model index; counted in the
+    data group's traffic)."""
+
+    def __init__(self, mesh: ReplicaMesh):
+        self.mesh = mesh
+        self.size = mesh.data
+        self.index = mesh.data_index
+        self.groups = tuple(tuple(p * mesh.data + d for d in range(mesh.data))
+                            for p in range(mesh.pods))
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return psum_groups(x, self.mesh, self.groups)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return psum_groups(x, self.mesh, self.groups, dist.ReduceOp.MAX)
 
 
 def gather_tree(params, specs, mesh: ReplicaMesh):

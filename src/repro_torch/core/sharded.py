@@ -34,6 +34,7 @@ A14's streamed half.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -287,7 +288,7 @@ class ShardedCEFedAvg:
         step)``. ``batch``: dict of arrays with leading ``(q, tau, R,
         ...)`` dims (this rank takes replica r). ``metrics["loss"]`` is
         the mean over replicas and local steps (one ``all_reduce``), a
-        float on every rank."""
+        float on every rank (NaN on ``meta`` tensors)."""
         fl = self.fl
         local_step = self.make_local_step()
 
@@ -304,8 +305,10 @@ class ShardedCEFedAvg:
             params = self._inter(params)
             mean = torch.stack(losses).to(torch.float32).mean()
             total = col.all_reduce(mean.reshape(1), self.mesh)
-            return params, opt, {"loss": float(total[0]) /
-                                 self.geo.num_replicas}, step
+            # a round on meta tensors (the dry-run's) has no values
+            loss = (math.nan if total.is_meta
+                    else float(total[0]) / self.geo.num_replicas)
+            return params, opt, {"loss": loss}, step
         return global_round
 
     def global_model(self, params):
@@ -325,16 +328,23 @@ class ShardedCEFedAvg:
 # serving (non-FL: global/edge model)
 # ---------------------------------------------------------------------------
 
-def make_prefill_fn(model_cfg):
+def make_prefill_fn(model_cfg, tp=None):
+    """``prefill(params, batch) -> logits``; under ``tp`` (a rank's
+    ``ModelParallel``) on the rank's slices of the params."""
     def prefill(params, batch):
-        logits, _ = mdl.forward(model_cfg, params, batch)
+        logits, _ = mdl.forward(model_cfg, params, batch, tp=tp)
         return logits
     return prefill
 
 
-def make_decode_fn(model_cfg):
+def make_decode_fn(model_cfg, tp=None, sp=None):
+    """``decode(params, cache, tokens, pos) -> (logits, cache)``; under
+    ``tp`` on the rank's slices of the params and its part of the cache
+    (:func:`serve_specs`), ``sp`` splitting the cache's positions over
+    the data axis (``models.model.decode_step``)."""
     def decode(params, cache, tokens, pos):
-        return mdl.decode_step(model_cfg, params, cache, tokens, pos)
+        return mdl.decode_step(model_cfg, params, cache, tokens, pos, tp=tp,
+                               sp=sp)
     return decode
 
 

@@ -47,14 +47,26 @@ CUDA tensor it launches the kernel or raises; nothing falls back.
 launches (one a backward call, which is two kernels: dQ with the row
 sums D_i, then dK and dV; a third sums bf16 GQA head groups), never
 plain-version calls.
+
+:func:`fwd_counts` and :func:`bwd_counts` give the bytes a call must
+move and the operations it must do, from its shapes: what
+``chip_smoke.py`` prices the kernels' bounds with, and what the
+shape-only twin :func:`attend_shape` adds to ``kernels.twin_counts``.
+The twin runs on ``meta`` tensors under ``flags.analysis`` only
+(``models.layers.attention_core`` routes there; the wrappers here still
+refuse ``meta``): it returns empty outputs of the kernel's shapes and
+saves what the kernel's Function saves, so that the dry-run
+(``launch.dryrun``) sees the program's memory and work without a card.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
+from repro_torch import kernels as _kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
@@ -313,3 +325,99 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch(q, k, v, out, causal, window, q_offset, lse)
     return out, lse
 
+
+
+# ---------------------------------------------------------------------------
+# counts, and the shape-only twin of the dry-run
+# ---------------------------------------------------------------------------
+
+def attended_pairs(Sq: int, Sk: int, causal: bool, window: int,
+                   q_offset: int = 0) -> int:
+    """The (query, key) pairs a mask lets through, query i at position
+    ``q_offset + i``: what the attention's two products must compute."""
+    pos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(pos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(Sq)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def fwd_counts(B: int, Sq: int, Sk: int, H: int, Hkv: int, D: int,
+               causal: bool, window: int = 0, q_offset: int = 0,
+               itemsize: int = 2):
+    """(bytes, operations) of a forward call: q and o (H heads) and k, v
+    (Hkv heads) moved once at ``itemsize`` bytes; the two products over
+    the attended pairs of every head."""
+    nbytes = itemsize * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D)
+    flops = 2 * 2 * B * H * D * attended_pairs(Sq, Sk, causal, window,
+                                               q_offset)
+    return nbytes, flops
+
+
+def bwd_counts(B: int, Sq: int, Sk: int, H: int, Hkv: int, D: int,
+               causal: bool, window: int = 0, q_offset: int = 0,
+               itemsize: int = 2):
+    """(bytes, operations) of a backward call: q, o, dO and dq (H heads),
+    k, v, dk and dv (Hkv heads) moved once at ``itemsize`` bytes and the
+    f32 logsumexp read once; the five products over the attended
+    pairs."""
+    nbytes = itemsize * (4 * B * Sq * H * D + 4 * B * Sk * Hkv * D) + \
+        B * H * Sq * 4
+    flops = 5 * 2 * B * H * D * attended_pairs(Sq, Sk, causal, window,
+                                               q_offset)
+    return nbytes, flops
+
+
+def _mask_counts(fn, q, k, mask):
+    B, Sq, H, D = q.shape
+    return fn(B, Sq, k.shape[1], H, k.shape[2], D, *mask,
+              itemsize=q.element_size())
+
+
+class _FlashAttentionShape(torch.autograd.Function):
+    """B4 on ``meta`` tensors: the outputs' shapes and dtypes, the saved
+    tensors of ``_FlashAttention`` (q, k, v, o and the f32 logsumexp),
+    the backward's outputs and its bf16 GQA partials, and the kernels'
+    counts; no values."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        mask = (causal, window, q_offset)
+        _kernels.count_twin(*_mask_counts(fwd_counts, q, k, mask))
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        B, Sq, H, _ = q.shape
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = mask
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, _, _ = ctx.saved_tensors
+        _kernels.count_twin(*_mask_counts(bwd_counts, q, k, ctx.mask))
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+        dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+        if q.dtype == torch.bfloat16 and q.shape[2] != k.shape[2]:
+            # the f32 dK and dV partials of the head groups, freed on
+            # return (``_launch_bwd``)
+            torch.empty((2, q.shape[0], k.shape[1], q.shape[2], q.shape[3]),
+                        dtype=torch.float32, device=q.device)
+        return dq, dk, dv, None, None, None
+
+
+def attend_shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool = True, window: int = 0,
+                 q_offset: int = 0) -> torch.Tensor:
+    """B4's shape-only twin, for ``meta`` (B, S, H, D) tensors under
+    ``flags.analysis``: as :func:`flash_attention_bshd` on the card (the
+    autograd Function when an input requires grad, else one forward),
+    with empty outputs and the kernels' counts added to
+    ``kernels.twin_counts``."""
+    if q.device.type != "meta":
+        raise ValueError(f"attend_shape: meta tensors only, got {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttentionShape.apply(q, k, v, causal, window, q_offset)
+    _kernels.count_twin(*_mask_counts(fwd_counts, q, k,
+                                      (causal, window, q_offset)))
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)

@@ -47,6 +47,17 @@ gradient of None (``make_intra_fn`` drops the states) taken as none.
 launches (one a backward call, which is three kernels: the gradients of
 a (chunk, 64-wide column tile, head group), with D = Σ_h dS summed over
 the group's heads on chip; dB and dC from the groups' partials; da).
+
+:func:`fwd_counts` and :func:`bwd_counts` give the bytes a call must
+move and the operations it must do, from its shapes: what
+``chip_smoke.py`` prices the kernels' bounds with, and what the
+shape-only twin :func:`intra_states_shape` adds to
+``kernels.twin_counts``. The twin runs on ``meta`` tensors under
+``flags.analysis`` only (``models.ssm.ssd_chunked`` routes there; the
+wrappers here still refuse ``meta``): it returns empty outputs of the
+kernel's shapes, laid out as the adapter's, and saves what
+``_SSDIntraChunk`` saves, so that the dry-run (``launch.dryrun``) sees
+the program's memory and work without a card.
 """
 from __future__ import annotations
 
@@ -55,6 +66,7 @@ import functools
 
 import torch
 
+from repro_torch import kernels as _kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
@@ -306,3 +318,83 @@ def make_intra_fn():
             raise ValueError(f"ssd_intra_chunk: no kernel for {xc.device}")
         return _intra_kernel(xc, a_t, Bc, Cc, dtc)[0]
     return intra
+
+
+# ---------------------------------------------------------------------------
+# counts, and the shape-only twin of the dry-run
+# ---------------------------------------------------------------------------
+
+def fwd_counts(BK: int, H: int, C: int, P: int, N: int, itemsize: int = 2):
+    """(bytes, operations) of a forward call: x, B and C (``itemsize``
+    bytes) and a, dt (f32) read once; y and the states written once
+    (f32); the products over the lower triangle, C Bᵀ once a chunk
+    (shared by the heads)."""
+    tri = C * (C + 1) // 2
+    nbytes = (itemsize * BK * H * C * P + 2 * 4 * BK * H * C
+              + 2 * itemsize * BK * C * N + 4 * BK * H * C * P
+              + 4 * BK * H * N * P)
+    flops = 2 * BK * (N * tri + H * P * tri + H * C * N * P)
+    return nbytes, flops
+
+
+def bwd_counts(BK: int, H: int, C: int, P: int, N: int, itemsize: int = 2):
+    """(bytes, operations) of a backward call: x, dx (``itemsize``), dy
+    (f32) and dst (f32) moved once, a, dt, da and ddt (f32), B, C, dB
+    and dC (``itemsize``) once; C Bᵀ over the lower triangle once a
+    chunk, dy xᵀ and Mᵀ dy over it a head, B dst and x dstᵀ a head, D B
+    and Dᵀ C once a chunk."""
+    tri = C * (C + 1) // 2
+    nbytes = (BK * H * C * P * (2 * itemsize + 4) + BK * H * N * P * 4
+              + 4 * 4 * BK * H * C + 4 * itemsize * BK * C * N)
+    flops = 2 * BK * (N * tri + H * (2 * P * tri + 2 * C * N * P)
+                      + 2 * N * tri)
+    return nbytes, flops
+
+
+def _shape_counts(fn, xc, Bc):
+    B, K, C, H, P = xc.shape
+    return fn(B * K, H, C, P, Bc.shape[-1], itemsize=xc.element_size())
+
+
+class _SSDIntraChunkShape(torch.autograd.Function):
+    """B5 on ``meta`` tensors in the adapter's layout: empty y_intra (B,
+    K, C, H, P) and states (B, K, H, N, P) in f32, the inputs saved as
+    ``_SSDIntraChunk`` saves them, the backward's outputs, and the
+    kernels' counts; no values."""
+
+    @staticmethod
+    def forward(ctx, xc, a_t, Bc, Cc, dtc):
+        _kernels.count_twin(*_shape_counts(fwd_counts, xc, Bc))
+        ctx.save_for_backward(xc, a_t, Bc, Cc, dtc)
+        ctx.set_materialize_grads(False)
+        return _shape_outputs(xc, Bc)
+
+    @staticmethod
+    def backward(ctx, dy, dst):
+        xc, a_t, Bc, Cc, dtc = ctx.saved_tensors
+        _kernels.count_twin(*_shape_counts(bwd_counts, xc, Bc))
+        return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                     for t in (xc, a_t, Bc, Cc, dtc))
+
+
+def _shape_outputs(xc, Bc):
+    B, K, C, H, P = xc.shape
+    y = torch.empty((B, K, C, H, P), dtype=torch.float32, device=xc.device)
+    st = torch.empty((B, K, H, Bc.shape[-1], P), dtype=torch.float32,
+                     device=xc.device)
+    return y, st
+
+
+def intra_states_shape(xc, a_t, Bc, Cc, dtc):
+    """B5's shape-only twin in ``make_intra_states_fn``'s form, for
+    ``meta`` tensors under ``flags.analysis``: the autograd Function
+    when an input requires grad, else one forward; empty outputs, and
+    the kernels' counts added to ``kernels.twin_counts``."""
+    if xc.device.type != "meta":
+        raise ValueError(f"intra_states_shape: meta tensors only, got "
+                         f"{xc.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (xc, a_t, Bc, Cc, dtc)):
+        return _SSDIntraChunkShape.apply(xc, a_t, Bc, Cc, dtc)
+    _kernels.count_twin(*_shape_counts(fwd_counts, xc, Bc))
+    return _shape_outputs(xc, Bc)

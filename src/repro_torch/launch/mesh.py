@@ -37,7 +37,8 @@ elementwise, so mixing each shard is mixing the whole tree).
 The bank engines keep the model axis at 1.
 :func:`make_mesh` and :func:`make_production_mesh` give abstract meshes
 (axis names and sizes, no processes), on which ``repro_torch.sharding``
-resolves specs.
+resolves specs; :func:`fake_world` gives the rank mesh of such a mesh's
+world in one process, on ``meta`` tensors (the dry-run's).
 """
 from __future__ import annotations
 
@@ -244,18 +245,63 @@ def make_replica_mesh(num_replicas: int, *, model: int = 1, pods: int = 1,
         raise ValueError(f"{num_replicas} replicas do not split into {pods} "
                          "pods")
     backend = str(dist.get_backend())
-    groups = {}
-    if model > 1:
-        groups["model_group"], _ = dist.new_subgroups_by_enumeration(
-            [list(range(r * model, (r + 1) * model))
-             for r in range(num_replicas)], backend=backend)
-        groups["data_group"], _ = dist.new_subgroups_by_enumeration(
-            [list(range(m, world, model)) for m in range(model)],
-            backend=backend)
     return ReplicaMesh(world_size=world, rank=dist.get_rank(), pods=pods,
                        data=num_replicas // pods,
                        device=rank_device(backend, device), backend=backend,
-                       model=model, **groups)
+                       model=model, **_model_groups(num_replicas, model,
+                                                    backend))
+
+
+def _model_groups(num_replicas: int, model: int, backend: str) -> dict:
+    """The model groups (``num_replicas`` groups of ``model`` consecutive
+    ranks) and the data groups (``model`` groups of ``num_replicas``
+    ranks, one a replica) of the initialised world, this rank's of each;
+    none without a model axis."""
+    if model == 1:
+        return {}
+    world = num_replicas * model
+    model_group, _ = dist.new_subgroups_by_enumeration(
+        [list(range(r * model, (r + 1) * model))
+         for r in range(num_replicas)], backend=backend)
+    data_group, _ = dist.new_subgroups_by_enumeration(
+        [list(range(m, world, model)) for m in range(model)],
+        backend=backend)
+    return {"model_group": model_group, "data_group": data_group}
+
+
+@contextlib.contextmanager
+def fake_world(mesh, rank: int = 0):
+    """This process as rank ``rank`` of a world of ``mesh``'s size over
+    the ``"fake"`` backend, for the block: yields the
+    :class:`ReplicaMesh` that :func:`make_replica_mesh` would give that
+    rank of a ``pod`` x ``data`` x ``model`` world (the sizes of an
+    abstract mesh, :func:`make_production_mesh` or :func:`make_mesh`),
+    on the ``meta`` device. One process, no store and no peer: the
+    backend's collectives return at once and move nothing, and ``meta``
+    tensors allocate nothing, so the port's code runs a rank's program
+    of a world of any size (``launch.dryrun``) while its collectives
+    count their traffic on the mesh as usual. Refuses to start inside
+    another world; always leaves the fake one."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: this process is already in a world")
+    # a private module of torch's (the fake backend registers itself on
+    # import), imported here only
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape = dict(mesh.shape)
+    pods, data, model = shape.get("pod", 1), shape["data"], \
+        shape.get("model", 1)
+    world = pods * data * model
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} of a world of {world}")
+    dist.init_process_group("fake", rank=rank, world_size=world,
+                            store=FakeStore())
+    try:
+        yield ReplicaMesh(world_size=world, rank=rank, pods=pods, data=data,
+                          device=torch.device("meta"), backend="fake",
+                          model=model,
+                          **_model_groups(pods * data, model, "fake"))
+    finally:
+        dist.destroy_process_group()
 
 
 def make_tier_mesh(hierarchy, *, pods: int = 1,

@@ -14,9 +14,12 @@ layer reads from its parameters' shapes what is split. The MLP splits
 splits the query heads and, where they divide, the kv heads, runs on the
 rank's heads and sums ``wo``'s partial products. Where the kv heads do
 not divide and the query heads do, the rank keeps every kv head and maps
-each of its query heads to its global kv group. Norms and rope stay
-replicated. With ``tp`` None, or nothing split, a layer is the unsplit
-one, op for op.
+each of its query heads to its global kv group. Where the query heads do
+not divide either, ``cfg.attn_seq_shard`` gives each rank its share of
+the query rows instead (the reference's context-parallel core). Norms
+and rope stay replicated. With ``tp`` None, or nothing split, a layer
+is the unsplit one, op for op. :func:`decode_attention` splits the same
+way, and its cache's positions may also be split over the data axis.
 
 On a CUDA tensor the full-sequence attention core runs the hand-written
 flash-attention kernel (:mod:`repro_torch.kernels.flash_attention`); on
@@ -30,6 +33,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch import flags
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import flash_attention as _fa
 
@@ -270,7 +274,12 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On a CUDA tensor: the flash-attention kernel, through its (B,S,H,D)
     adapter. On a CPU tensor: the reference's two branches — the dense
     softmax for Sq, Sk <= 2048 (probabilities cast to q's dtype before
-    the PV product), else the online-softmax block scan."""
+    the PV product), else the online-softmax block scan. On a ``meta``
+    tensor under ``flags.analysis``: the kernel's shape-only twin (the
+    dry-run's); elsewhere ``meta`` raises in the kernel's wrapper."""
+    if q.device.type == "meta" and flags.analysis_mode():
+        return _fa.attend_shape(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset)
     if q.device.type != "cpu":
         return _fa.flash_attention_bshd(q, k, v, causal=causal,
                                         window=window, q_offset=q_offset)
@@ -396,8 +405,21 @@ def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         k = _rank_kv(tp.copy(k), offset, h, rep)
         v = _rank_kv(tp.copy(v), offset, h, rep)
     w = cfg.sliding_window if window is None else window
-    out = attention_core(q, k, v, causal=causal and kv_input is None,
-                         window=w if kv_input is None else 0)
+    mask = dict(causal=causal and kv_input is None,
+                window=w if kv_input is None else 0)
+    Sq = q.shape[1]
+    if tp is not None and not split and cfg.attn_seq_shard and Sq > 1 \
+            and Sq % tp.size == 0:
+        # context-parallel core (the reference's q rows over the model
+        # axis): this rank's rows against the whole K and V, joined by a
+        # gather; every rank's q, k and v gradients are partial
+        rows = Sq // tp.size
+        lo = tp.index * rows
+        q, k, v = tp.copy(q), tp.copy(k), tp.copy(v)
+        out = tp.gather(attention_core(q[:, lo:lo + rows], k, v,
+                                       q_offset=lo, **mask), 1)
+    else:
+        out = attention_core(q, k, v, **mask)
     out = _mask_padded_heads(cfg, out, offset)
     out = _out_project(out, p["wo"])
     return tp.reduce(out) if split else out
@@ -406,37 +428,63 @@ def apply_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
 def decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
                      pos: int, *, window: Optional[int] = None,
-                     update_cache: bool = True):
+                     update_cache: bool = True, tp=None, sp=None):
     """Single-token decode. x: (B,1,d). caches: (B,S,Hkv,D). pos: int.
 
     Returns (out (B,1,d), k_cache, v_cache). The new key and value are
     written into the caches in place at ``pos`` (the reference's
     ``dynamic_update_slice`` returns new arrays); the returned caches are
     the same tensors. Plain torch on every device: one query row against
-    the cache, as the reference computes it outside any kernel."""
+    the cache, as the reference computes it outside any kernel.
+
+    Under ``tp`` with the query heads split, on the rank's heads, as
+    :func:`apply_attention`: the caches hold the rank's kv heads where
+    they divide, else every kv head (the rank writes them all and reads
+    its heads' groups), and ``wo``'s partial products are summed over
+    the model group. ``sp`` (``core.collectives.SequenceSplit``) splits
+    the caches' positions over the data axis (``serve_specs`` where the
+    batch does not divide it): the rank holds positions ``sp.index *
+    S`` on, the owner of ``pos`` writes it, and the softmax's max, its
+    sum and the output are reduced over the ranks holding the other
+    positions."""
+    H, Hk = padded_heads(cfg), cfg.num_kv_heads
+    h = p["wq"].shape[-2]
+    split = tp is not None and h != H
+    offset = tp.index * h if split else 0
     q, k, v = qkv_project(cfg, p, x)
     if cfg.use_rope:
         pq = torch.full((x.shape[1],), pos, device=x.device)
         q = rope(q, pq, cfg.rope_theta)
         k = rope(k, pq, cfg.rope_theta)
-    if update_cache:
-        k_cache[:, pos:pos + k.shape[1]] = k.to(k_cache.dtype)
-        v_cache[:, pos:pos + v.shape[1]] = v.to(v_cache.dtype)
     S = k_cache.shape[1]
-    H = q.shape[2]
-    kx = _expand_kv(k_cache, H)
-    vx = _expand_kv(v_cache, H)
+    first = sp.index * S if sp is not None else 0
+    at = pos - first
+    if update_cache and 0 <= at < S:
+        k_cache[:, at:at + k.shape[1]] = k.to(k_cache.dtype)
+        v_cache[:, at:at + v.shape[1]] = v.to(v_cache.dtype)
+    kc, vc = k_cache, v_cache
+    if split and p["wk"].shape[-2] == Hk and kc.shape[-2] == Hk:
+        # every rank holds all kv heads: its query heads' groups
+        kc, vc = (_rank_kv(c, offset, h, H // Hk) for c in (kc, vc))
+    kx = _expand_kv(kc, h)
+    vx = _expand_kv(vc, h)
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", *_promote(q, kx)
                      ).to(torch.float32) * scale
-    kpos = torch.arange(S, device=x.device)
+    kpos = first + torch.arange(S, device=x.device)
     ok = kpos <= pos
     w = cfg.sliding_window if window is None else window
     if w and w > 0:
         ok &= kpos > pos - w
     s = torch.where(ok[None, None, None, :], s,
                     torch.full((), NEG_INF, device=x.device))
-    pr = torch.softmax(s, dim=-1).to(q.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", *_promote(pr, vx))
-    out = _mask_padded_heads(cfg, out)
-    return _out_project(*_promote(out, p["wo"])), k_cache, v_cache
+    if sp is None:
+        pr = torch.softmax(s, dim=-1).to(q.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", *_promote(pr, vx))
+    else:
+        e = torch.exp(s - sp.max(s.amax(dim=-1, keepdim=True)))
+        pr = (e / sp.sum(e.sum(dim=-1, keepdim=True))).to(q.dtype)
+        out = sp.sum(torch.einsum("bhqk,bkhd->bqhd", *_promote(pr, vx)))
+    out = _mask_padded_heads(cfg, out, offset)
+    out = _out_project(*_promote(out, p["wo"]))
+    return (tp.reduce(out) if split else out), k_cache, v_cache

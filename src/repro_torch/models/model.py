@@ -6,7 +6,7 @@ One interface for every family:
   forward(cfg, params, batch, remat=)      -> (logits, aux)
   lm_loss(cfg, params, batch, remat=)      -> scalar
   init_decode_cache(cfg, batch, seq)       -> cache dict
-  decode_step(cfg, params, cache, tok, pos) -> (logits, cache)
+  decode_step(cfg, params, cache, tok, pos, tp=) -> (logits, cache)
 
 Layers are stacked on a leading axis, as in the reference's tree
 (``(layers, ...)``; ``(groups, attn_every, ...)`` for the hybrid stack;
@@ -20,8 +20,9 @@ neither. The ``cnn`` family is the FL path's (``models/cnn.py``) and
 raises here, as in the reference.
 
 Tensor parallelism (``tp``, a ``core.collectives.ModelParallel``, in
-``forward`` and ``lm_loss``): each rank holds its slice of every
-parameter (:func:`logical_axes` resolved by ``repro_torch.sharding``, cut by
+``forward``, ``lm_loss`` and ``decode_step``): each rank holds its slice
+of every parameter (:func:`logical_axes` resolved by
+``repro_torch.sharding``, cut by
 ``sharding.shard_tree``), and the layers split as ``models.layers``,
 ``models.moe`` and ``models.ssm`` say. The embedding is a vocab-split
 lookup (the rank's ``padded_vocab / mp`` rows, masked, then summed over
@@ -513,97 +514,113 @@ def decode_cache_logical(cfg: ModelConfig) -> Params:
             "k": kv, "v": kv}
 
 
-def _decode_ssm_block(cfg, lp, x, cache, idx):
+def _decode_ssm_block(cfg, lp, x, cache, idx, tp=None):
     """One Mamba-2 block of a decode step; its cache slots are updated in
     place."""
     h = L.apply_norm(cfg, lp["norm1"], x)
     y, st, cs = S.decode_mamba(cfg, lp["mamba"], h, cache["ssm_state"][idx],
-                               cache["conv_state"][idx])
+                               cache["conv_state"][idx], tp)
     cache["ssm_state"][idx] = st
     cache["conv_state"][idx] = cs
     return x + y
 
 
-def _decode_attn(cfg, lp, x, cache, idx, pos, window=None):
+def _decode_attn(cfg, lp, x, cache, idx, pos, window=None, tp=None,
+                 sp=None):
     """Pre-norm self-attention of a decode step (residual added); writes
     its KV slot at pos."""
     h = L.apply_norm(cfg, lp["norm1"], x)
     a, _, _ = L.decode_attention(cfg, lp["attn"], h, cache["k"][idx],
-                                 cache["v"][idx], pos, window=window)
+                                 cache["v"][idx], pos, window=window, tp=tp,
+                                 sp=sp)
     return x + a
 
 
-def _decode_dense_block(cfg, lp, x, cache, idx, pos, window=None):
+def _decode_dense_block(cfg, lp, x, cache, idx, pos, window=None, tp=None,
+                        sp=None):
     """One attention block of a decode step; writes its KV slot at pos."""
-    x = _decode_attn(cfg, lp, x, cache, idx, pos, window)
+    x = _decode_attn(cfg, lp, x, cache, idx, pos, window, tp, sp)
     h = L.apply_norm(cfg, lp["norm2"], x)
-    return x + L.apply_mlp(cfg, lp["mlp"], h)
+    return x + L.apply_mlp(cfg, lp["mlp"], h, tp)
 
 
-def _decode_moe_block(cfg, lp, x, cache, idx, pos, window=None):
-    x = _decode_attn(cfg, lp, x, cache, idx, pos, window)
+def _decode_moe_block(cfg, lp, x, cache, idx, pos, window=None, tp=None,
+                      sp=None):
+    x = _decode_attn(cfg, lp, x, cache, idx, pos, window, tp, sp)
     h = L.apply_norm(cfg, lp["norm2"], x)
-    return x + M.apply_moe(cfg, lp["moe"], h)[0]
+    return x + M.apply_moe(cfg, lp["moe"], h, tp=tp)[0]
 
 
-def _decode_dec_block(cfg, lp, x, cache, i, pos):
+def _decode_dec_block(cfg, lp, x, cache, i, pos, tp=None, sp=None):
     """One decoder block of an encdec decode step: self-attention on the
     KV cache, cross-attention on ``xk``/``xv`` at their last position,
     no cache write."""
     h = L.apply_norm(cfg, lp["norm1"], x)
     a, _, _ = L.decode_attention(cfg, lp["self_attn"], h, cache["k"][i],
-                                 cache["v"][i], pos)
+                                 cache["v"][i], pos, tp=tp, sp=sp)
     x = x + a
     h = L.apply_norm(cfg, lp["norm2"], x)
     xk, xv = cache["xk"][i], cache["xv"][i]
     a, _, _ = L.decode_attention(cfg, lp["cross_attn"], h, xk, xv,
-                                 xk.shape[1] - 1, update_cache=False)
+                                 xk.shape[1] - 1, update_cache=False, tp=tp)
     x = x + a
     h = L.apply_norm(cfg, lp["norm3"], x)
-    return x + L.apply_mlp(cfg, lp["mlp"], h)
+    return x + L.apply_mlp(cfg, lp["mlp"], h, tp)
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
-                tokens, pos: int) -> Tuple[torch.Tensor, Params]:
+                tokens, pos: int, *, tp=None,
+                sp=None) -> Tuple[torch.Tensor, Params]:
     """One decode step. tokens: (B, 1) int, pos: int (current length).
 
     Returns (logits (B, 1, V), cache). The cache is updated in place
-    (the reference returns a new one); the returned dict is the same."""
+    (the reference returns a new one); the returned dict is the same.
+
+    Under ``tp`` the params are the rank's slices (as in
+    :func:`forward`) and the cache is the rank's part of the one
+    ``core.sharded.serve_specs`` places: kv heads where they divide
+    the model group (else every kv head), Mamba states by head, the
+    convolution states whole; the logits are the rank's vocabulary
+    columns where the vocabulary is split. ``sp``
+    (``core.collectives.SequenceSplit``) splits the KV caches'
+    positions over the data axis (``models.layers.decode_attention``)."""
     _check_family(cfg)
     device = params["tok_embed"].device
     pos = int(pos)
     x = _embed(cfg, params, torch.as_tensor(tokens, device=device).long(),
-               pos)
+               pos, tp)
     fam = cfg.family
     if fam == "encdec":
         for i in range(cfg.num_layers):
             x = _decode_dec_block(cfg, _layer(params["dec_layers"], i), x,
-                                  cache, i, pos)
-        return _logits(cfg, params, x), cache
+                                  cache, i, pos, tp, sp)
+        return _logits(cfg, params, x, tp), cache
     layers = params["layers"]
     if fam in ("dense", "vlm"):
         for i in range(cfg.num_layers):
             x = _decode_dense_block(cfg, _layer(layers, i), x, cache, (i,),
-                                    pos)
+                                    pos, tp=tp, sp=sp)
     elif fam == "moe" and cfg.moe_shared_expert:
         for i in range(cfg.num_layers // 2):
             x = _decode_dense_block(cfg, _layer(layers["dense"], i), x,
                                     cache, (i, 0), pos,
-                                    window=cfg.sliding_window)
+                                    window=cfg.sliding_window, tp=tp, sp=sp)
             x = _decode_moe_block(cfg, _layer(layers["moe"], i), x, cache,
-                                  (i, 1), pos, window=0)
+                                  (i, 1), pos, window=0, tp=tp, sp=sp)
     elif fam == "moe":
         for i in range(cfg.num_layers):
             x = _decode_moe_block(cfg, _layer(layers, i), x, cache, (i,),
-                                  pos)
+                                  pos, tp=tp, sp=sp)
     elif fam == "ssm":
         for i in range(cfg.num_layers):
-            x = _decode_ssm_block(cfg, _layer(layers, i), x, cache, (i,))
+            x = _decode_ssm_block(cfg, _layer(layers, i), x, cache, (i,),
+                                  tp)
     else:  # hybrid: groups, then blocks, then the shared block
         shared = params["shared_block"]
         for g in range(cfg.num_layers // cfg.attn_every):
             for i in range(cfg.attn_every):
                 x = _decode_ssm_block(cfg, _layer(layers, g, i), x, cache,
-                                      (g, i))
-            x = _decode_dense_block(cfg, shared, x, cache, (g,), pos)
-    return _logits(cfg, params, x), cache
+                                      (g, i), tp)
+            x = _decode_dense_block(cfg, shared, x, cache, (g,), pos, tp=tp,
+                                    sp=sp)
+    return _logits(cfg, params, x, tp), cache

@@ -34,6 +34,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import flags
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.models.layers import Device, dense_init, torch_dtype
@@ -139,7 +140,10 @@ def ssd_chunked(x: torch.Tensor, dtv: torch.Tensor, A: torch.Tensor,
     batch; the chunk states then come from an einsum. ``intra_states_fn``
     takes the same arguments and returns (y_intra, chunk states
     (B,K,H,N,P)). With neither, a CUDA tensor takes the kernel's
-    (``make_intra_states_fn``) and a CPU tensor the plain einsum path.
+    (``make_intra_states_fn``), a CPU tensor the plain einsum path and a
+    ``meta`` tensor under ``flags.analysis`` the kernel's shape-only
+    twin (the dry-run's; elsewhere ``meta`` raises in the kernel's
+    adapter).
     """
     f32 = torch.float32
     Bsz, S, H, P = x.shape
@@ -163,7 +167,10 @@ def ssd_chunked(x: torch.Tensor, dtv: torch.Tensor, A: torch.Tensor,
     # ---- intra-chunk (quadratic within chunk) and chunk-final states ----
     if intra_fn is None and intra_states_fn is None and \
             x.device.type != "cpu":
-        intra_states_fn = _ssd.make_intra_states_fn()
+        intra_states_fn = (_ssd.intra_states_shape
+                           if x.device.type == "meta"
+                           and flags.analysis_mode()
+                           else _ssd.make_intra_states_fn())
     if intra_states_fn is not None:
         if intra_fn is not None:
             raise ValueError("ssd_chunked takes intra_fn or "
@@ -265,17 +272,37 @@ def init_mamba_cache(cfg: ModelConfig, num_layers: int, batch: int,
 
 
 def decode_mamba(cfg: ModelConfig, p: Params, u: torch.Tensor,
-                 ssm_state: torch.Tensor, conv_state: torch.Tensor):
+                 ssm_state: torch.Tensor, conv_state: torch.Tensor,
+                 tp=None):
     """Single-token recurrent update. u: (B,1,d). ssm_state: (B,H,P,N).
-    Returns (out (B,1,d), new ssm_state, new conv_state)."""
+    Returns (out (B,1,d), new ssm_state, new conv_state).
+
+    Under ``tp`` with the inner dimension split, on this rank's heads as
+    :func:`apply_mamba`: ``ssm_state`` holds the rank's heads and
+    ``conv_state`` every channel (``serve_specs`` replicates it); the
+    rank convolves its x channels and all B/C channels, writes those
+    channels of ``conv_state`` in place (the others it never reads) and
+    returns it."""
     B_ = u.shape[0]
-    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
     inner = cfg.ssm_inner
+    local, H = p["wx"].shape[-1], p["wdt"].shape[-1]
+    split = tp is not None and local != inner
     f32 = torch.float32
+    conv_w, conv_b, state = p["conv_w"], p["conv_b"], conv_state
+    if split:
+        lo = tp.index * local
+        conv_w, conv_b, state = (
+            torch.cat([t[..., lo:lo + local], t[..., inner:]], dim=-1)
+            for t in (conv_w, conv_b, conv_state))
     z = u @ p["wz"]
     xBC = torch.cat([u @ p["wx"], u @ p["wB"], u @ p["wC"]], dim=-1)
-    xBC, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state)
-    x, Bm, Cm = torch.split(xBC[:, 0], [inner, N, N], dim=-1)
+    xBC, state = _causal_conv(xBC, conv_w, conv_b, state)
+    if split:
+        conv_state[..., lo:lo + local] = state[..., :local]
+        conv_state[..., inner:] = state[..., local:]
+        state = conv_state
+    x, Bm, Cm = torch.split(xBC[:, 0], [local, N, N], dim=-1)
     x = x.reshape(B_, H, P).to(f32)
     dtv = _softplus((u[:, 0] @ p["wdt"]).to(f32) + p["dt_bias"])  # (B,H)
     A = -torch.exp(p["A_log"])
@@ -287,5 +314,8 @@ def decode_mamba(cfg: ModelConfig, p: Params, u: torch.Tensor,
     ssm_state = ssm_state * decay[..., None, None] + upd
     y = (ssm_state @ Cm.to(f32)[:, None, :, None])[..., 0]
     y = y + p["D"][:, None] * x
-    y = y.reshape(B_, 1, inner).to(u.dtype)
-    return _gated_out(p, y, z, u.dtype), ssm_state, conv_state
+    y = y.reshape(B_, 1, local).to(u.dtype)
+    if not split:
+        return _gated_out(p, y, z, u.dtype), ssm_state, state
+    return (tp.reduce(_gated_out(p, y, z, u.dtype, tp, inner)), ssm_state,
+            state)
