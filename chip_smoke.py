@@ -99,9 +99,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  1 runs under the allocator's memory history (what is
                  live at its peak), round 2 under the profiler (device
                  time by kernel and the device's busy share).
+3b. legacy    — the same configuration on the legacy pytree engine
+                 (``bank=False``), two rounds through ``run_wall_clock``:
+                 finite losses, no kernel launch (asserted), round
+                 seconds and peak memory, and the gap to phase 3's bank
+                 after the same rounds (printed).
 4. population — the same configuration streamed over a virtual
                  population of 10,000 clients (cohort 7 a cluster, int8
-                 cold store, visit mobility 0.25): three pipelined rounds
+                 cold store, visit mobility 0.25): two pipelined rounds
                  (slab 56 + 8 = 64 rows) through ``run_wall_clock``, the
                  last under the profiler; checks finite losses, the slab,
                  the kernels' launch counts and finite stored scales;
@@ -159,8 +164,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  named flash_attention_bwd_*, GEMMs, the rest, busy
                  share).
                  (b) 4 gloo ranks sharing the card, one full-width
-                 replica each in 2 clusters x 2, one dense and one
-                 ringweight round at 2 x 1024: round seconds (max over
+                 replica each in 2 clusters x 2, one ringweight round
+                 at 2 x 1024 (7f runs the dense mix): round seconds (max over
                  ranks), a rank's bytes by collective, peak by rank. (c)
                  2 of the 24 layers at full width in f32: one round on
                  the card against the CPU within 1e-4 (TF32 off).
@@ -227,7 +232,7 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  step's counted FLOPs over 7c's warm step as a share of
                  989 TFLOP/s; at most 30 s (all asserted).
 8. lm decode  — the same model in f32: the kernel forward's logits over
-                 2 x 512 tokens against 512 decode steps (no kernel),
+                 2 x 256 tokens against 256 decode steps (no kernel),
                  within the reference's atol = rtol = 0.05; then the
                  reduced mixtral, llama4 and whisper likewise over 2 x
                  128 tokens (MoE capacity never binding: 0 drops).
@@ -260,12 +265,12 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  8 rank processes of one gloo world share the card, each
                  holding one full-width FEMNIST-CNN bank row (the
                  configuration's tau, q, pi on a ring, its fleet cut to 4
-                 clusters x 2 devices, lr 0.01; a last static round at
-                 the configuration's lr 0.1 shows both engines diverge
-                 there), cuDNN deterministic in every engine: one block
-                 (static, and under ``mobile_sampled`` with ``chaos``
-                 faults), 2 static rounds, 2 under ``mobile_sampled`` +
-                 ``chaos``, 1 depth-3 (2, 2, 2) round and 1 async round
+                 clusters x 2 devices, lr 0.01: both packages diverge
+                 there at the configuration's lr 0.1, ROADMAP C5), cuDNN
+                 deterministic in every engine: one block (static, and
+                 under ``mobile_sampled`` with ``chaos`` faults), 1
+                 static round, 1 under ``mobile_sampled`` + ``chaos``,
+                 1 depth-3 (2, 2, 2) round and 1 async round
                  at s = 2. Every round within 2e-4 of the single-process
                  engine on the card from the same seeds, taking its SGD
                  steps one row at a time and summing each boundary in
@@ -280,9 +285,32 @@ Phases, each reported on its own lines; any failure exits non-zero:
                  rank's bytes by collective; each rank's peak memory;
                  (1, T) rows on every rank, no gather in the static and
                  depth-3 rounds, no kernel launch.
+10c. sharded_population — the sharded streamed bank
+                 (``core/sharded.py`` ``ShardedStreamedBank``): 4 rank
+                 processes of one gloo world share the card; the
+                 configuration's FL whole (8 clusters, tau 2, q 8, pi
+                 10, lr 0.1) streams 10,000 clients through an int8 store
+                 (one cold shard a rank) under phase 4's scenario at one
+                 client a cluster, a slab of 8 trainer and 8
+                 representative lanes, 4 a rank; 2 serial rounds, then 2
+                 pipelined, cuDNN deterministic. The serial rounds within
+                 2e-4 of the single-process engine stepping its trainers
+                 in the ranks' blocks and summing each boundary's B1
+                 partials in rank order (``_rank_order``), the gap to
+                 that engine as it stands printed; pipelined within the
+                 int8 tolerance of serial. Each rank launches B1 q times
+                 a round and B2's encode and decode once a pipelined
+                 round where it holds trainer lanes (none serial); a
+                 round's reduce-scatter bytes equal (R - 1)/R·S·T·4 a
+                 boundary and nothing is gathered (asserted); round
+                 seconds (max over ranks), traffic, peak memory and host
+                 RSS by rank; then B1 alone at a rank's (4 -> 16) x T
+                 partial beside its bound and ``torch.matmul``.
                  Every phase starts by collecting the earlier phases'
                  garbage and printing what is still allocated.
-11. parity    — the quickstart configuration for one round, the small
+11. parity    — the quickstart configuration for one round (the bank
+                 engine, and the legacy engine against the bank on the
+                 card and against itself on the CPU), the small
                  population configuration of the CPU tests (f32,
                  pipelined) for two; at its geometry a compacted
                  scenario with chaos faults, the enumerated streamed
@@ -373,7 +401,7 @@ ZAMBA2_PARAMS = 2_422_670_240
 #: prefill forward against decode steps at f32: the reference's own bound
 #: for that property (tests/test_models.py)
 DECODE_TOL = 0.05
-DECODE_SEQ = 512
+DECODE_SEQ = 256
 #: reduced Zamba2 forward, card (kernels) against CPU (plain) at f32:
 #: sums in other orders over 4 Mamba-2 blocks and 2 attention layers
 LM_PARITY_TOL = 1e-4
@@ -400,6 +428,9 @@ LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_ROUNDS = 4, 2048, 3
 #: (b): gloo ranks sharing the card, one full-width replica each, in 2
 #: clusters x 2, one round a backend
 LM_TRAIN_RANKS, LM_TRAIN_RANK_BATCH, LM_TRAIN_RANK_SEQ = 4, 2, 1024
+#: the mixing backends of 7c (b)'s rounds (one round each); 7f's rounds
+#: run the dense mix over gloo ranks on the card
+LM_TRAIN_RANK_GOSSIP = ("ringweight",)
 #: (c): card against CPU, 2 of the 24 layers at full width in f32
 LM_TRAIN_PARITY_LAYERS, LM_TRAIN_PARITY_SEQ = 2, 256
 #: phase 7d: federated training of the MoE, encoder-decoder and VLM
@@ -588,24 +619,35 @@ SHARDED_RUNS = (
     ("one fused block", {}, 1, {"block": True}),
     ("one fused block, mobile_sampled + chaos", {}, 1, {
         "block": True, "scenario": "mobile_sampled", "faults": "chaos"}),
-    ("static", {}, 2, {}),
-    ("mobile_sampled + chaos", {}, 2, {"scenario": "mobile_sampled",
+    ("static", {}, 1, {}),
+    ("mobile_sampled + chaos", {}, 1, {"scenario": "mobile_sampled",
                                        "faults": "chaos"}),
     ("depth 3 (2, 2, 2)", {"hierarchy": (2, 2, 2)}, 1, {}),
     ("async s=2", {}, 1, {"scenario": "lognormal", "staleness": 2}),
-    ("static at the configuration's lr 0.1", {}, 1, {"lr": 0.1}),
 )
 #: sharded rows against the single-process engine: the reference's own
 #: bound for its sharded engine (tests/test_sharded_bank.py)
 SHARDED_ATOL = 2e-4
 #: at 2 devices a cluster the CNN's local steps diverge at the
-#: configuration's lr 0.1 (the last run of SHARDED_RUNS shows it in both
-#: engines); the other sharded runs train at 0.01
+#: configuration's lr 0.1 from this init, in both packages (ROADMAP C5);
+#: the sharded runs train at 0.01
 SHARDED_LR = 0.01
 #: the dense operator the sharded phase's weighted rotations are held to
 #: B1 with (a seeded row-stochastic 8 x 8)
 PROBE_W = (lambda w: (w / w.sum(1, keepdims=True)).astype(np.float32))(
     np.random.default_rng(19).random((SHARDED_RANKS, SHARDED_RANKS)))
+
+
+#: the sharded population phase (10c): configs/femnist_cnn.py's FL whole
+#: (8 clusters of 8 data shards, tau 2, q 8, pi 10, lr 0.1) streaming
+#: 10,000 clients through an int8 store under phase 4's scenario at one
+#: client a cluster: 8 trainer and 8 representative lanes, a slab of 16
+#: rows, 4 a rank
+SSP_RANKS = 4
+SSP_CLIENTS_PER_CLUSTER = 1250
+SSP_COHORT = 1
+SSP_ROUNDS = 2
+SSP_SLAB = 16
 
 
 def log(msg: str) -> None:
@@ -1337,7 +1379,7 @@ def _stop_memory_history() -> dict:
     return snap
 
 
-def phase_main(dev: torch.device, rounds: int = 2) -> int:
+def phase_main(dev: torch.device, rounds: int = 2) -> tuple:
     from repro_torch.configs import femnist_cnn as cfg
     from repro_torch.core.cefedavg import FLSimulator
     from repro_torch.core.clock import run_wall_clock
@@ -1396,9 +1438,57 @@ def phase_main(dev: torch.device, rounds: int = 2) -> int:
         f"{want}); peak device memory by round "
         f"{', '.join(f'{p / 1e9:.2f}' for p in peaks)} GB")
     assert launches == want, f"gossip_mix launched {launches}, not {want}"
+    rows = sim.bank.params
     del sim
     torch.cuda.empty_cache()
-    return launches
+    return launches, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the legacy pytree engine at full width
+# ---------------------------------------------------------------------------
+
+def phase_legacy(dev: torch.device, bank_rows: torch.Tensor,
+                 rounds: int = 2) -> None:
+    """Phase 3's configuration on the legacy pytree engine
+    (``bank=False``: per-leaf ``tensordot`` mixing a mix op, where-frozen
+    steps on (64, ...) leaves), two rounds through ``run_wall_clock``:
+    finite losses, no kernel launch (asserted), round seconds and peak;
+    the gap to phase 3's bank after the same rounds is printed (its
+    boundaries are one fused B1 pass, summed in another order)."""
+    from repro_torch.configs import femnist_cnn as cfg
+    from repro_torch.core.cefedavg import FLSimulator
+    from repro_torch.core.clock import run_wall_clock
+    from repro_torch.core.runtime import paper_runtime_model
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.models.cnn import apply_femnist_cnn, init_femnist_cnn
+    fl = cfg.FL
+    sim = FLSimulator(init_femnist_cnn, apply_femnist_cnn, fl,
+                      femnist_data(fl), lr=0.1, batch_size=16, seed=0,
+                      device=dev, bank=False)
+    rt = paper_runtime_model()
+    gm.launches = 0
+    for r in range(rounds):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        hist = run_wall_clock(sim, rt, 1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        loss, acc = hist["loss"][-1], hist["acc"][-1]
+        log(f"[legacy] round {r + 1}: {dt:.3f} s on the card (step + eval), "
+            f"loss={loss:.4f} acc={acc:.4f}, peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+        assert math.isfinite(loss), f"legacy round {r + 1}: loss {loss}"
+    rows = sim.layout.flatten_stack(sim.params)
+    gap = float((rows - bank_rows).abs().max())
+    log(f"[legacy] after {rounds} rounds: max abs gap to phase 3's bank "
+        f"engine {gap:.3e} (printed, not held: per-leaf tensordot against "
+        f"B1's fused boundary, amplified by the CNN's local steps); "
+        f"gossip_mix launches {gm.launches} (the legacy engine runs no "
+        f"kernel)")
+    assert gm.launches == 0, gm.launches
+    del sim, rows
 
 
 # ---------------------------------------------------------------------------
@@ -1506,7 +1596,7 @@ def _population_run(dev, codec: str, clients: int, rounds: int,
     return results[True][2]
 
 
-def phase_population(dev: torch.device, rounds: int = 3):
+def phase_population(dev: torch.device, rounds: int = 2):
     """The int8 store over 10,000 clients (``rounds`` rounds, the last
     pipelined one profiled), then the f16 store over 2,000 (F16_ROUNDS
     rounds). Returns the launches of gossip_mix and of the int8 encode
@@ -2399,12 +2489,315 @@ def phase_sharded(dev: torch.device) -> None:
             f"boundary)")
         if not max(errs) <= SHARDED_ATOL:
             bad.append((name, "boundary lowerings", errs))
-        if "lr" not in opt and not math.isfinite(res[0]["loss"]):
+        if not math.isfinite(res[0]["loss"]):
             bad.append((name, "loss", res[0]["loss"]))
         assert sum(r["launches"] for r in res) == 0
     del ranks, single
     torch.cuda.empty_cache()
     assert not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# phase 10c: the sharded streamed bank, 4 gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+def _ssp_config():
+    """(FLConfig, simulator kwargs) of the sharded population phase."""
+    from repro_torch.config import PopulationConfig, ScenarioConfig
+    from repro_torch.configs import femnist_cnn as cfg
+    scenario = ScenarioConfig(
+        sample_fraction=1.0, dropout_prob=0.0, move_prob=0.25, seed=7,
+        population=PopulationConfig(
+            clients_per_cluster=SSP_CLIENTS_PER_CLUSTER,
+            cohort_per_cluster=SSP_COHORT, codec="int8"))
+    return cfg.FL, dict(lr=0.1, batch_size=16, seed=0, scenario=scenario)
+
+
+def _rank_order(sim, ranks: int) -> None:
+    """Make the single-process streamed engine step and mix as ``ranks``
+    ranks of ``ShardedStreamedBank`` do, sum for sum: its trainer rows
+    stepped in blocks of S/ranks lanes (each on a fresh copy of the
+    block, as a rank holds it), and each boundary as B1 on every rank's
+    column block of the operator (an (S, T) partial each) with each
+    rank's rows of the partials summed in rank order, as
+    ``collectives.reduce_scatter`` sums them."""
+    from repro_torch.kernels import gossip_mix as gm
+    working_set, step = sim._working_set, sim._sgd_step
+    block = {}
+
+    def record(plan):
+        ws = working_set(plan)
+        block["rows"] = ws["S"] // ranks
+        return ws
+
+    def in_blocks(Y, M, xs, ys, idx, lr):
+        b = block["rows"]
+        for lo in range(0, Y.shape[0], b):
+            sl = slice(lo, lo + b)
+            y, m = Y[sl].clone(), M[sl].clone()
+            step(y, m, xs[sl], ys[sl], idx[sl], lr)
+            Y[sl].copy_(y)
+            M[sl].copy_(m)
+
+    def mixer(program, block_keyed=False):
+        def mix(bp, mats, Y, lo=0, hi=None):
+            for W in mats[lo:hi]:
+                b = W.shape[0] // ranks
+                parts = [gm.gossip_mix_rows(W[:, i * b:(i + 1) * b],
+                                            Y[i * b:(i + 1) * b].clone())
+                         for i in range(ranks)]
+                out = torch.empty_like(Y)
+                for i in range(ranks):
+                    acc = parts[0][i * b:(i + 1) * b].clone()
+                    for j in range(1, ranks):
+                        acc += parts[j][i * b:(i + 1) * b]
+                    out[i * b:(i + 1) * b] = acc
+                del parts
+                Y = out
+            return Y
+        return mix
+    sim._working_set = record
+    sim._sgd_step = in_blocks
+    sim._mixer = mixer
+
+
+def _ssp_single(dev, rank_order: bool) -> dict:
+    """The single-process serial streamed engine on the card
+    (``store_shards`` and ``min_bucket`` the ranks', so the same slab),
+    as it stands or in the ranks' order of steps and sums: the global
+    row after each round and the final references."""
+    import gc
+    from repro_torch.core.cefedavg import FLSimulator
+    from repro_torch.models.cnn import apply_femnist_cnn, init_femnist_cnn
+    fl, kw = _ssp_config()
+    sim = FLSimulator(init_femnist_cnn, apply_femnist_cnn, fl,
+                      femnist_data(fl), store_shards=SSP_RANKS,
+                      min_bucket=SSP_RANKS, device=dev, **kw)
+    if rank_order:
+        _rank_order(sim, SSP_RANKS)
+    rows = []
+    for _ in range(SSP_ROUNDS):
+        sim.step_round()
+        rows.append(_global_row(sim))
+    out = {"rows": rows, "refs": sim.store.cluster_params.copy(),
+           "S": sim.last_bucket}
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rss_now():
+    """This process's resident bytes now (``/proc/self/statm``), or None
+    where the host's ``/proc`` does not give them."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+def _ssp_rank(_=None) -> dict:
+    """One rank of the sharded population phase: SSP_ROUNDS serial rounds,
+    then SSP_ROUNDS pipelined ones, cuDNN deterministic. Returns, a
+    driver, each round's seconds (synchronized), traffic by op, slab and
+    this rank's trainer lanes, the global row (rank 0), the launches of
+    B1 and of B2's encode and decode, the peak device memory, host RSS
+    and (rank 0) the final references."""
+    import gc
+    from repro_torch.core.sharded import ShardedStreamedBank
+    from repro_torch.kernels import cold_codec as cc
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.launch.mesh import make_replica_mesh
+    from repro_torch.models.cnn import apply_femnist_cnn, init_femnist_cnn
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mesh = make_replica_mesh(SSP_RANKS, device="cuda")
+    dev = mesh.device
+    fl, kw = _ssp_config()
+    data = femnist_data(fl)
+    # a spawned rank's ru_maxrss starts at what its parent held
+    out = {"transport": mesh.transport, "rss_spawn":
+           resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1e3}
+    for pipeline in (False, True):
+        sim = ShardedStreamedBank(init_femnist_cnn, apply_femnist_cnn, fl,
+                                  data, mesh, pipeline=pipeline, **kw)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        gm.launches = cc.encode_launches = cc.decode_launches = 0
+        rounds = []
+        for _ in range(SSP_ROUNDS):
+            mesh.reset_traffic()
+            t0 = time.perf_counter()
+            sim.step_round()
+            torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+            S, k = sim.last_bucket, sim.last_paging["rows_in"]
+            lanes = sim._slab_lanes(S)
+            rounds.append({
+                "seconds": secs, "S": S, "k": k,
+                "k_own": max(0, min(k, lanes.stop) - lanes.start),
+                "traffic": {op: dict(v) for op, v in mesh.traffic.items()},
+                "global": _global_row(sim) if mesh.rank == 0 else None})
+        launches = (gm.launches, cc.encode_launches, cc.decode_launches)
+        sim._drain_pipeline()
+        out[pipeline] = {
+            "rounds": rounds, "launches": launches, "T": sim.layout.total,
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "rss": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1e3,
+            "rss_now": _rss_now(),
+            "peak_rank_slab": sim.peak_rank_slab_bytes,
+            "peak_slab": sim.peak_slab_bytes,
+            "stored": sim.store.num_stored,
+            "refs": (sim.store.cluster_params.copy() if mesh.rank == 0
+                     else None)}
+        del sim
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_population(dev: torch.device) -> tuple:
+    """The sharded streamed bank (``ShardedStreamedBank``) at the FEMNIST
+    CNN's full width: 4 gloo ranks share the card, each holding 4 of the
+    16 slab lanes and one int8 cold-store shard of 10,000 clients; 2
+    serial rounds, then 2 pipelined, cuDNN deterministic everywhere. The
+    serial rounds within ``SHARDED_ATOL`` of the single-process engine
+    stepping and summing in the ranks' order (``_rank_order``), the gap
+    to that engine as it stands printed; the pipelined rounds within
+    ``INT8_ATOL`` of the serial ones (card codec against host codec).
+    Each rank launches B1 q times a round, and B2's encode and decode
+    once a pipelined round where it holds trainer lanes (none serial); a
+    round's reduce-scatter bytes are (R - 1)/R·S·T·4 a boundary. Then B1
+    alone at a rank's partial, (4 -> 16) x T, against its bound and
+    ``torch.matmul``. Returns the ranks' launches of B1, and of B2's
+    encode and decode."""
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import run_local_ranks
+    fl, _ = _ssp_config()
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        t0 = time.perf_counter()
+        stands = _ssp_single(dev, rank_order=False)
+        oracle = _ssp_single(dev, rank_order=True)
+        log(f"[sharded_population] the single-process serial engine, "
+            f"{SSP_ROUNDS} rounds as it stands and in the ranks' order of "
+            f"steps and sums: {time.perf_counter() - t0:.1f} s; slab "
+            f"{oracle['S']} rows")
+        t0 = time.perf_counter()
+        ranks = run_local_ranks(_ssp_rank, SSP_RANKS, backend="gloo",
+                                device="cuda", timeout_s=600)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    log(f"[sharded_population] world of {SSP_RANKS} ranks on this card "
+        f"({ranks[0]['transport']}): {time.perf_counter() - t0:.1f} s from "
+        f"spawn to the last result")
+    bad = []
+    T = ranks[0][False]["T"]
+    assert T == FEMNIST_T, T
+    for pipeline in (False, True):
+        name = "pipelined" if pipeline else "serial"
+        res = [r[pipeline] for r in ranks]
+        for k in range(SSP_ROUNDS):
+            rs = [r["rounds"][k] for r in res]
+            S = rs[0]["S"]
+            assert S == SSP_SLAB, S
+            secs = max(x["seconds"] for x in rs)
+            per = (SSP_RANKS - 1) * (S // SSP_RANKS) * T * 4
+            by_op = "; ".join(
+                f"{op} x{max(x['traffic'][op]['calls'] for x in rs)} sent "
+                f"{max(x['traffic'][op]['sent'] for x in rs) / 1e6:.1f} MB "
+                f"recv {max(x['traffic'][op]['recv'] for x in rs) / 1e6:.1f}"
+                f" MB" for op in sorted(rs[0]["traffic"]))
+            row = rs[0]["global"]
+            if pipeline:
+                ser = ranks[0][False]["rounds"][k]["global"]
+                gap = _gap(row, ser)
+                held = f"against the serial rounds {gap:.3e} (atol " \
+                       f"{INT8_ATOL})"
+                if not gap <= INT8_ATOL:
+                    bad.append((name, k + 1, "against serial", gap))
+            else:
+                gap = _gap(row, oracle["rows"][k])
+                stand = _gap(row, stands["rows"][k])
+                held = (f"against the single-process engine in the ranks' "
+                        f"order {gap:.3e} (atol {SHARDED_ATOL}), as it "
+                        f"stands {stand:.3e}")
+                if not gap <= SHARDED_ATOL:
+                    bad.append((name, k + 1, "rank order", gap))
+            log(f"[sharded_population] {name} round {k + 1}: {secs:.3f} s "
+                f"(max over ranks; gloo on one card), slab {S} rows, "
+                f"{rs[0]['k']} trainers, trainer lanes by rank "
+                f"{[x['k_own'] for x in rs]}; a rank's traffic (max over "
+                f"ranks): {by_op}; global model {held}")
+            for x in rs:
+                t = x["traffic"]
+                if t.get("reduce_scatter") != {"calls": fl.q,
+                                               "sent": fl.q * per,
+                                               "recv": fl.q * per}:
+                    bad.append((name, k + 1, "reduce_scatter bytes",
+                                t.get("reduce_scatter")))
+                if {"gather", "all_gather", "all_reduce"} & set(t):
+                    bad.append((name, k + 1, "gathered", sorted(t)))
+        for rank, r in enumerate(res):
+            trainer_rounds = sum(x["k_own"] > 0 for x in r["rounds"])
+            want = (SSP_ROUNDS * fl.q,) + ((trainer_rounds,) * 2 if pipeline
+                                          else (0, 0))
+            if r["launches"] != want:
+                bad.append((name, "rank", rank, "launches", r["launches"],
+                            want))
+        if pipeline:
+            gap = _gap(res[0]["refs"], ranks[0][False]["refs"])
+        else:
+            gap = _gap(res[0]["refs"], oracle["refs"])
+        peaks = ", ".join(f"{r['peak'] / 1e9:.3f}" for r in res)
+        rss = ", ".join(f"{r['rss'] / 1e9:.2f}" for r in res)
+        now = ", ".join("not measured" if r["rss_now"] is None
+                        else f"{r['rss_now'] / 1e9:.2f}" for r in res)
+        log(f"[sharded_population] {name}: final references against "
+            f"{'serial' if pipeline else 'the ranks-order engine'} "
+            f"{gap:.3e}; peak device memory by rank {peaks} GB; host peak "
+            f"RSS by rank {rss} GB (ru_maxrss, from "
+            f"{ranks[0]['rss_spawn'] / 1e9:.2f} GB at spawn: the parent's), "
+            f"resident after the rounds {now} GB; "
+            f"slab {res[0]['peak_slab'] / 1e9:.3f} GB"
+            f" whole, {res[0]['peak_rank_slab'] / 1e9:.3f} GB a rank; "
+            f"launches by rank (gossip_mix, encode, decode) "
+            f"{[r['launches'] for r in res]}; stored clients by rank "
+            f"{[r['stored'] for r in res]}")
+        if not gap <= (INT8_ATOL if pipeline else SHARDED_ATOL):
+            bad.append((name, "references", gap))
+    # B1 alone at a rank's partial: (4 -> 16) x T
+    b = SSP_SLAB // SSP_RANKS
+    rng = np.random.default_rng(23)
+    W = torch.from_numpy(_stochastic(rng, SSP_SLAB, SSP_SLAB, 1)[:, :b]
+                         .copy()).to(dev)
+    Y = torch.randn((b, T), device=dev,
+                    generator=torch.Generator(dev).manual_seed(3))
+    err = max_err(gm.gossip_mix_rows(W, Y), ref.gossip_mix_rows_ref(W, Y),
+                  TOL[torch.float32], "gossip_mix (4 -> 16) partial")
+    ms = time_ms(lambda: gm.gossip_mix_rows(W, Y))
+    plain_ms = time_ms(lambda: ref.gossip_mix_rows_ref(W, Y))
+    lib_ms = time_ms(lambda: torch.matmul(W, Y))
+    nbytes = 4 * (SSP_SLAB * b + b * T + SSP_SLAB * T)
+    flops = 2 * SSP_SLAB * b * T
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    log(f"[sharded_population] gossip_mix (4 -> 16) x {T} partial: "
+        f"{ms:.4f} ms (plain {plain_ms:.4f}, torch.matmul {lib_ms:.4f}, "
+        f"bound {max(tb, tf):.4f} by {'bytes' if tb >= tf else 'operations'}"
+        f"), max abs err {err:.3e}")
+    del W, Y
+    torch.cuda.empty_cache()
+    assert not bad, bad
+    return tuple(sum(r[True]["launches"][i] + r[False]["launches"][i]
+                     for r in ranks) for i in range(3))
 
 
 # ---------------------------------------------------------------------------
@@ -2439,6 +2832,24 @@ def phase_parity(dev: torch.device) -> None:
         f"params {ep:.3e}, momentum {em:.3e} (atol {PARITY_ATOL})")
     assert ep <= PARITY_ATOL and em <= PARITY_ATOL, \
         "card and CPU banks disagree"
+    # the legacy pytree engine on the same round: on the card against the
+    # CPU, and against the bank engine on the card
+    legacy = {}
+    for where in (dev, torch.device("cpu")):
+        sim = FLSimulator(lambda g: init, apply_mlp_classifier, fl, data,
+                          lr=0.1, batch_size=16, device=where, bank=False)
+        sim.step_round()
+        legacy[where.type] = (sim.layout.flatten_stack(sim.params).cpu(),
+                              sim.layout.flatten_stack(sim.mom).cpu())
+    el = max(float((legacy["cuda"][i] - legacy["cpu"][i]).abs().max())
+             for i in range(2))
+    eb = max(float((legacy["cuda"][i] - banks["cuda"][i]).abs().max())
+             for i in range(2))
+    log(f"[parity] quickstart ce_fedavg on the legacy engine (bank=False), "
+        f"1 round: card vs CPU max abs diff {el:.3e}, against the bank "
+        f"engine on the card {eb:.3e} (atol {PARITY_ATOL})")
+    assert el <= PARITY_ATOL and eb <= PARITY_ATOL, \
+        "the legacy engine disagrees"
 
     # the small population of the CPU tests, pipelined at f32
     from repro_torch.config import PopulationConfig, ScenarioConfig
@@ -4039,7 +4450,7 @@ def phase_lm_train(dev: torch.device):
     t0 = time.perf_counter()
     ranks = lm.run_local_ranks(
         _lm_train_rank, LM_TRAIN_RANKS,
-        args=([flags + ["--gossip", g] for g in ("dense", "ringweight")],),
+        args=([flags + ["--gossip", g] for g in LM_TRAIN_RANK_GOSSIP],),
         backend="gloo", device="cuda", timeout_s=600)
     log(f"[lm_train] {LM_TRAIN_RANKS} gloo ranks on this one card, one "
         f"full-width replica each (2 clusters x 2, {LM_TRAIN_RANK_BATCH} x "
@@ -4047,7 +4458,7 @@ def phase_lm_train(dev: torch.device):
         f"{time.perf_counter() - t0:.1f} s from spawn to the last result; "
         f"gloo carries the replicas through host memory, so these times "
         f"say nothing of NCCL across cards")
-    for i, g in enumerate(("dense", "ringweight")):
+    for i, g in enumerate(LM_TRAIN_RANK_GOSSIP):
         res = [r[i] for r in ranks]
         secs = max(x["hist"]["seconds"][0] for x in res)
         loss = res[0]["hist"]["loss"][0]
@@ -5019,7 +5430,10 @@ def main() -> int:
     ssd = phase_ssd_scan(dev)
     ssd_bwd = phase_ssd_scan_bwd(dev)
     phase_start(dev, "main")
-    entry["launches"] = phase_main(dev)
+    entry["launches"], bank_rows = phase_main(dev)
+    phase_start(dev, "legacy")
+    phase_legacy(dev, bank_rows)
+    del bank_rows
     phase_start(dev, "population")
     gossip_pop, (encode["launches"], decode["launches"]), \
         (f16_encode["launches"], f16_decode["launches"]) = \
@@ -5041,6 +5455,12 @@ def main() -> int:
         f"quantize_int8_blocked 0 (no runtime path calls it)")
     phase_start(dev, "sharded")
     phase_sharded(dev)
+    phase_start(dev, "sharded_population")
+    ssp_gossip, ssp_encode, ssp_decode = phase_sharded_population(dev)
+    log(f"[done] the sharded population path (4 ranks, all rounds): "
+        f"gossip_mix launches {ssp_gossip}, cold_codec encode/decode "
+        f"{ssp_encode}/{ssp_decode} (pipelined rounds, ranks holding "
+        f"trainer lanes); the legacy engine launches no kernel")
     phase_start(dev, "lm")
     attn["launches"], ssd["launches"] = phase_lm(dev)
     phase_start(dev, "lm_families")

@@ -19,11 +19,13 @@ rounds k..R exactly as the uninterrupted run would have.
 
 The tree has the reference's paths and dtypes (the key a (2,) uint32
 array, the bank's (n, T) f32 buffers, the streamed store's encoded
-snapshot), so a checkpoint written by either package restores into the
-other's simulator of the same configuration. A sharded engine
-(``core/sharded.py``) writes the same file: its ranks gather their rows
-into rank 0's host memory and rank 0 writes; on restore every rank
-reads the file and keeps its own rows.
+snapshot, the legacy engine's params, momentum and residual trees), so a
+checkpoint written by either package restores into the other's
+simulator of the same configuration. A sharded engine
+(``core/sharded.py``) writes the same file: its ranks gather their rows,
+or their cold-store shards, into rank 0's host memory and rank 0
+writes; on restore every rank reads the file and keeps its own rows or
+its own shard.
 """
 from __future__ import annotations
 
@@ -31,9 +33,12 @@ import os
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
+from repro_torch import tree as tr
 from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
 from repro_torch.core import collectives as col
+from repro_torch.core.clientstore import SNAPSHOT_KEYS
 
 
 def _capture(sim, round_idx: int, clock, hist, staleness: Optional[int],
@@ -48,7 +53,8 @@ def _capture(sim, round_idx: int, clock, hist, staleness: Optional[int],
     are single arrays (their length lives in the data, not the tree) and
     the async clock carry is zero-padded to ``(k, m)`` with an explicit
     ``ncols`` count. ``paths_only`` (the ``like`` tree of a restore, whose
-    paths alone are checked) leaves the bank's buffers on the device."""
+    paths alone are checked) copies no model state to the host and
+    gathers nothing."""
     m = sim.fl.num_clusters
     n = sim.fl.n
     state: Dict[str, Any] = {
@@ -58,23 +64,31 @@ def _capture(sim, round_idx: int, clock, hist, staleness: Optional[int],
         "labels": np.asarray(sim.labels, np.int64),
         "phases": np.asarray(sim._async_phases, np.int64),
     }
+    empty = (lambda t: np.empty(0, np.float32))
     if sim.bank is not None:
-        host = ((lambda t: np.empty(0, np.float32)) if paths_only
-                else sim._host_rows)
+        host = empty if paths_only else sim._host_rows
         bank = {"params": host(sim.bank.params),
                 "mom": host(sim.bank.mom)}
         if sim.bank.residual is not None:
             bank["residual"] = host(sim.bank.residual)
         state["bank"] = bank
-    else:
+    elif sim.store is not None:
         # streamed engine: the cold store IS the model state — cluster
         # references plus the encoded momentum rows (stored encoded, so a
         # round trip reproduces the same cold bytes under every codec),
         # and the last-sync label tracker. A pipelined driver's in-flight
         # page-out lands first, making the store round-complete.
-        sim._drain_pipeline()
-        state["store"] = sim.store.snapshot()
+        state["store"] = ({k: np.empty(0) for k in SNAPSHOT_KEYS}
+                          if paths_only else sim._store_snapshot())
         state["page_labels"] = np.asarray(sim._page_labels, np.int64)
+    else:
+        # the legacy pytree engine: its trees as they are
+        host = empty if paths_only else (
+            lambda t: t.detach().cpu().numpy())
+        state["params"] = tr.tree_map(host, sim._params)
+        state["mom"] = tr.tree_map(host, sim._mom)
+        if sim._residual is not None:
+            state["residual"] = tr.tree_map(host, sim._residual)
     if sim.engine is not None:
         state["engine"] = {
             "labels": np.asarray(sim.engine.labels, np.int64),
@@ -116,12 +130,19 @@ def _assign(sim, state: Dict[str, Any], clock, hist) -> None:
     if sim.bank is not None:
         b = state["bank"]
         sim.bank.load_rows(b["params"], b["mom"], b.get("residual"))
-    else:
-        sim.store.load(state["store"])
+    elif sim.store is not None:
+        sim._load_store(state["store"])
         sim._page_labels = np.asarray(state["page_labels"], np.int64)
         # drop the pipelined driver's in-flight state: the device
         # references re-seed from the restored store at the next round
         sim._pipe = None
+    else:
+        def dev(a):
+            return torch.from_numpy(np.array(a)).to(sim.device)
+        sim._params = tr.tree_map(dev, state["params"])
+        sim._mom = tr.tree_map(dev, state["mom"])
+        if "residual" in state:
+            sim._residual = tr.tree_map(dev, state["residual"])
     sim.key = np.asarray(state["key"], np.uint32)
     sim.labels = np.asarray(state["labels"], np.int64)
     sim.round_index = int(state["sim_round"])
@@ -195,7 +216,9 @@ class RunCheckpoint:
                 "round": int(round_idx),
                 "staleness": (None if staleness is None
                               else int(staleness)),
-                "engine": "bank" if sim.bank is not None else "streamed"})
+                "engine": ("bank" if sim.bank is not None else
+                           "streamed" if sim.store is not None
+                           else "legacy")})
         if mesh is not None:
             col.barrier(mesh)
 

@@ -45,9 +45,24 @@ With ``compression=`` or ``dp=`` the canonical program uploads: each
 block's device deltas are privatized (:mod:`repro_torch.core.privacy`)
 and compressed with error feedback (:mod:`repro_torch.core.compress`,
 the residual a third (n, T) buffer of the bank) before the first mix,
-on the flat path only — compacted, streamed and async rounds reject
-upload programs, as the reference's do. The legacy pytree engine and the
-sharded streamed bank wait for later slices.
+on the flat and legacy paths — compacted, streamed and async rounds
+reject upload programs, as the reference's do.
+
+``bank=False`` runs the legacy pytree engine (the reference's
+``_lower_legacy``): params, momentum and the EF residual are trees of
+(n, ...) leaves, every mix op is its own per-leaf ``mix`` contraction
+(``fuse=False``), and masked or adaptive devices are frozen by
+``where``. It runs no kernel; the reference keeps it as the bank
+engine's bit-faithful oracle.
+
+The streamed slab's placement, page-in, page-out and mixing are methods
+(``_slab_lanes``, ``_page_in_momentum``, ``_fetch_encoded``,
+``_forward_encoded``, ``_ref_rows``, ``_page_out_momentum``,
+``_encode_slab``, ``_drain_pipeline``, ``_mixer``) that
+:class:`repro_torch.core.sharded.ShardedStreamedBank` overrides to hold
+a contiguous block of each round's lanes on each rank; ``store_shards``
+and ``min_bucket`` give the single-process engine that engine's store
+partition and slab buckets.
 """
 from __future__ import annotations
 
@@ -133,12 +148,26 @@ def make_w_schedule(fl: FLConfig) -> WSchedule:
 
 def mix(W, params):
     """Apply a mixing operator over the leading device axis of every leaf:
-    x_k ← Σ_j W[k,j]·x_j (row application), summed in f32."""
+    x_k ← Σ_j W[k,j]·x_j (row application), summed in f32. ``W`` is a
+    host array or a tensor; a rectangular (m, n) W maps n device models
+    to m."""
     def one(leaf):
-        Wt = torch.as_tensor(np.asarray(W, np.float32), device=leaf.device)
+        Wt = (W if isinstance(W, torch.Tensor)
+              else torch.from_numpy(np.asarray(W, np.float32)))
+        Wt = Wt.to(device=leaf.device, dtype=torch.float32)
         out = torch.tensordot(Wt, leaf.to(torch.float32), dims=([1], [0]))
         return out.to(leaf.dtype)
     return tr.tree_map(one, params)
+
+
+def _row(tree, i: int):
+    """Device ``i``'s tree of a device-stacked tree."""
+    return tr.tree_map(lambda leaf: leaf[i], tree)
+
+
+def _stack_trees(trees):
+    """Stack per-device trees on a new leading axis."""
+    return tr.tree_map(lambda *leaves: torch.stack(leaves), *trees)
 
 
 class _PinnedPair:
@@ -200,6 +229,14 @@ class FLSimulator:
           compressed deltas (with error feedback, a residual row each).
     dp: optional ``privacy.DPConfig``: devices clip and noise their
           deltas before upload (before compression).
+    bank: True (default) runs the flat ModelBank engine; False the
+          legacy pytree engine (per-leaf mixing, ``where``-frozen steps).
+          ``params``, ``mom`` and ``residual`` read and write as trees in
+          both.
+    store_shards: cold-store shards (``client_id % store_shards``
+          routing) of the streamed engine.
+    min_bucket: every streamed slab bucket is a multiple of it (the
+          sharded streamed bank's rank count).
     device: where the bank or slab lives and every round runs; None
           means the CUDA card, and raises without one (pass "cpu" to run
           there).
@@ -210,8 +247,10 @@ class FLSimulator:
                  momentum: float = 0.9, batch_size: int = 50, seed: int = 0,
                  compression: Optional[cmp.CompressionConfig] = None,
                  dp: Optional[prv.DPConfig] = None,
-                 scenario=None, schedule=None, streaming: bool = False,
-                 codec: str = "f32", pipeline: bool = False,
+                 scenario=None, schedule=None, bank: bool = True,
+                 streaming: bool = False, codec: str = "f32",
+                 store_shards: int = 1, min_bucket: int = 1,
+                 pipeline: bool = False,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
         self.fl = fl
@@ -248,7 +287,12 @@ class FLSimulator:
         self.bank: Optional[ModelBank] = None
         self.store: Optional[ClientStore] = None
         self._streamed = bool(streaming)
+        with_residual = (compression is not None
+                         and compression.error_feedback)
         if self._streamed:
+            if not bank:
+                raise ValueError("the streaming client store is a bank "
+                                 "engine (bank=True)")
             if compression is not None or dp is not None:
                 raise ValueError("streamed rounds run plain programs (no "
                                  "upload transforms)")
@@ -260,22 +304,32 @@ class FLSimulator:
             self.store = ClientStore(
                 self.layout, fl.num_clusters,
                 self.layout.flatten_one(one).detach().cpu().numpy(),
-                codec=codec)
+                codec=codec, num_shards=store_shards)
             # slab capacity: the cohort cap plus one representative per
-            # cluster, padded up to power-of-two buckets
+            # cluster, padded up to power-of-two buckets; min_bucket keeps
+            # every bucket divisible by the sharded engine's rank count
             cap = (self.engine.cohort_cap if self.pop is not None
                    else n + fl.num_clusters)
-            self._buckets = cohort_buckets(cap)
+            cap = -(-max(cap, min_bucket) // min_bucket) * min_bucket
+            self._buckets = tuple(b for b in cohort_buckets(cap)
+                                  if b % min_bucket == 0)
             # a cold client's params are its cluster's reference at its
             # last sync: each enumerated device's label as of the previous
             # round's trailing boundary (constant until enumerated
             # scenarios move devices)
             self._page_labels = self.labels.copy()
             self._pipe: Optional[Dict] = None
+        elif bank:
+            self.bank = self._make_bank(one, n, with_residual=with_residual)
+            self._buckets = cohort_buckets(n)
         else:
-            self.bank = self._make_bank(
-                one, n, with_residual=(compression is not None
-                                       and compression.error_feedback))
+            # the legacy pytree engine: every leaf stacked n times
+            self._params = tr.tree_map(
+                lambda leaf: leaf.detach().to(self.device).expand(
+                    (n,) + tuple(leaf.shape)).clone(), one)
+            self._mom = tr.tree_map(torch.zeros_like, self._params)
+            self._residual = (tr.tree_map(torch.zeros_like, self._params)
+                              if with_residual else None)
             self._buckets = cohort_buckets(n)
         # a partial cohort trains on a compacted (k_pad, T) gather of its
         # rows; False keeps it on the mask-frozen full bank
@@ -348,32 +402,68 @@ class FLSimulator:
         return buf.detach().cpu().numpy()
 
     # -- state as trees ------------------------------------------------------
+    def _no_resident_rows(self, what: str):
+        if self._streamed:
+            raise AttributeError(
+                f"the streamed engine keeps no resident per-client {what}: "
+                "read sim.store.cluster_params or edge_models(); cold rows "
+                "live in sim.store")
+
     @property
     def params(self):
-        """Device-stacked model tree (views of the flat bank)."""
+        """Device-stacked model tree: views of the flat bank, or the legacy
+        engine's own tree."""
+        self._no_resident_rows("params")
         if self.bank is None:
-            raise AttributeError(
-                "the streamed engine keeps no resident per-client params: "
-                "read sim.store.cluster_params or edge_models()")
+            return self._params
         return self.bank.params_tree()
+
+    @params.setter
+    def params(self, tree):
+        self._no_resident_rows("params")
+        if self.bank is None:
+            self._params = tree
+        else:
+            self.bank.params = self.layout.flatten_stack(tree).to(
+                self.device)
 
     @property
     def mom(self):
-        """Device-stacked momentum tree (views of the flat bank)."""
+        """Device-stacked momentum tree (see ``params``)."""
+        self._no_resident_rows("momentum")
         if self.bank is None:
-            raise AttributeError(
-                "the streamed engine keeps no resident momentum: cold rows "
-                "live in sim.store")
+            return self._mom
         return self.layout.unflatten_stack(self.bank.mom)
+
+    @mom.setter
+    def mom(self, tree):
+        self._no_resident_rows("momentum")
+        if self.bank is None:
+            self._mom = tree
+        else:
+            self.bank.mom = self.layout.flatten_stack(tree).to(self.device)
 
     @property
     def residual(self):
-        """Error-feedback residual tree (views of the flat bank), or None
-        when compression with error feedback is off (and in the streamed
-        engine, whose rounds reject upload programs)."""
-        if self.bank is None or self.bank.residual is None:
+        """Error-feedback residual tree, or None when compression with
+        error feedback is off (and in the streamed engine, whose rounds
+        reject upload programs)."""
+        if self._streamed:
+            return None
+        if self.bank is None:
+            return self._residual
+        if self.bank.residual is None:
             return None
         return self.layout.unflatten_stack(self.bank.residual)
+
+    @residual.setter
+    def residual(self, tree):
+        if self.bank is None:
+            self._residual = tree
+        else:
+            self.bank.residual = (
+                None if tree is None
+                else self.layout.flatten_stack(tree).to(self.device))
 
     @property
     def peak_slab_bytes(self) -> int:
@@ -620,12 +710,13 @@ class FLSimulator:
             return lambda W: gsp.fault_gate(W, labels, down)
         return lambda W: W
 
-    def _resolve_mats(self, program: prg.RoundProgram,
-                      plan) -> Tuple[np.ndarray, ...]:
+    def _resolve_mats(self, program: prg.RoundProgram, plan,
+                      fuse: bool = True) -> Tuple[np.ndarray, ...]:
         """The round's mixing matrices on the host, in ``resolve_matrices``
         order: fault-gated, masked and renormalized (or not) as the
-        program's directives ask."""
-        plans = prg.lowering_plan(program, fuse=True)
+        program's directives ask; one a fused MixGroup, or one a mix op
+        where ``fuse`` is False (the legacy engine)."""
+        plans = prg.lowering_plan(program, fuse=fuse)
         renorm = program.mask_renorm
         if plan is None:
             return prg.resolve_matrices(
@@ -638,27 +729,116 @@ class FLSimulator:
             lambda pi: gate(self._inter_operator(pi, plan, renorm)),
             tier_of=lambda op: gate(self._tier_operator(op, plan, renorm)))
 
-    def _resolve_args(self, program: prg.RoundProgram,
-                      plan=None) -> prg.RoundArgs:
+    def _resolve_args(self, program: prg.RoundProgram, plan=None,
+                      fuse: bool = True) -> prg.RoundArgs:
         """Runtime operands of one round of ``program``: its mixing
         matrices as f32 tensors on the device (static rounds cache them
-        per program structure) and, for an adaptive program, its
-        per-device step cut-offs (host array)."""
+        per program structure and ``fuse``) and, for an adaptive program,
+        its per-device step cut-offs (host array)."""
         if plan is None:
-            ck = program.signature
+            ck = (fuse, program.signature)
             mats = self._static_mats.get(ck)
             if mats is None:
                 mats = tuple(torch.from_numpy(m).to(self.device)
-                             for m in self._resolve_mats(program, None))
+                             for m in self._resolve_mats(program, None,
+                                                         fuse))
                 self._static_mats[ck] = mats
         else:
             mats = tuple(torch.from_numpy(m).to(self.device)
-                         for m in self._resolve_mats(program, plan))
+                         for m in self._resolve_mats(program, plan, fuse))
         tau_dev = (np.asarray(program.tau_dev, np.int32)
                    if program.adaptive else None)
         return prg.RoundArgs(mats, tau_dev)
 
     # -- lowerings -----------------------------------------------------------
+    def _lower_legacy(self, program: prg.RoundProgram) -> Callable:
+        """Lower a RoundProgram to the legacy pytree round
+        ``legacy_round(params, mom, residual, key, args, mask) -> (params,
+        mom, residual)`` (``fuse=False``: one per-leaf :func:`mix`
+        contraction a mix op, the paper-literal sequential form). Every
+        step draws all n devices' batches and gradients; a device whose
+        ``mask`` entry is unset (and, for an adaptive op, past its
+        ``tau_dev`` cut-off) keeps its params and momentum (``where``).
+        An upload block mixes the devices' deltas, privatized (keys
+        ``split(k, n)``) then compressed with error feedback (keys
+        ``split(fold_in(k, 1), n)``), device by device as the reference's
+        vmaps, with ``k = fold_in(block key, 7)``. Trees are replaced, not
+        updated in place."""
+        runs = prg.block_runs(prg.lowering_plan(program, fuse=False))
+        n, N = self.sched.n, self.data["xs"].shape[1]
+        xs, ys = self.data["xs"], self.data["ys"]
+        comp, dp = self.compression, self.dp
+        rows = torch.arange(n, device=self.device)[:, None]
+
+        def bcast(act, leaf):
+            return act.reshape((-1,) + (1,) * (leaf.ndim - 1))
+
+        def train_block(params, mom, idx, step, op, act, tau_dev):
+            lr = self.lr * op.lr_scale
+            for s in range(op.tau):
+                stepact = act & (tau_dev > s) if op.adaptive else act
+                ix = idx[step]
+                grads = self._grad_rows(params, xs[rows, ix], ys[rows, ix])
+                mom = tr.tree_map(
+                    lambda v, g: torch.where(bcast(stepact, v),
+                                             self.momentum * v + g, v),
+                    mom, grads)
+                params = tr.tree_map(
+                    lambda p, v: torch.where(bcast(stepact, p), p - lr * v,
+                                             p), params, mom)
+                step += 1
+            return params, mom, step
+
+        def upload(delta, residual, key, bp):
+            if bp.privatize and dp is not None and dp.enabled:
+                keys = rnd.split(key, n)
+                delta = _stack_trees([
+                    prv.privatize_update(_row(delta, i), dp, keys[i])
+                    for i in range(n)])
+            if bp.compress and comp is not None and comp.kind != "none":
+                keys = rnd.split(rnd.fold_in(key, 1), n)
+                sent = [cmp.compress_tree(
+                    comp, _row(delta, i),
+                    None if residual is None else _row(residual, i), keys[i])
+                    for i in range(n)]
+                delta = _stack_trees([d for d, _ in sent])
+                if residual is not None:
+                    residual = _stack_trees([r for _, r in sent])
+            return delta, residual
+
+        def legacy_round(params, mom, residual, key, args, mask=None):
+            idx = rnd.randint(self._step_keys(key, runs), (n, self.batch),
+                              0, N)
+            idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+            act = torch.from_numpy(
+                np.ones(n, bool) if mask is None
+                else np.asarray(mask) > 0.5).to(self.device)
+            tau_dev = (None if args.tau_dev is None else torch.from_numpy(
+                np.asarray(args.tau_dev, np.int64)).to(self.device))
+            bkeys = self._block_keys(key, runs)
+            mi = step = ki = 0
+            for bp, count in runs:
+                gm = args.mats[mi:mi + len(bp.groups)]
+                mi += len(bp.groups)
+                for _ in range(count):
+                    params0 = params
+                    params, mom, step = train_block(params, mom, idx, step,
+                                                    bp.local, act, tau_dev)
+                    if bp.upload:
+                        delta = tr.tree_map(torch.sub, params, params0)
+                        delta, residual = upload(
+                            delta, residual, rnd.fold_in(bkeys[ki], 7), bp)
+                        params = tr.tree_map(torch.add, params0,
+                                             mix(gm[0], delta))
+                        gm_rest = gm[1:]
+                    else:
+                        gm_rest = gm
+                    for W in gm_rest:
+                        params = mix(W, params)
+                    ki += 1
+            return params, mom, residual
+        return legacy_round
+
     def _lower_flat(self, program: prg.RoundProgram,
                     block_keyed: bool = False) -> Callable:
         """Lower a RoundProgram to the flat global round
@@ -769,32 +949,42 @@ class FLSimulator:
         mix = self._mixer(program)
 
         def streamed_round(Y, M, key, didx, cids, k, args):
+            # this process's lanes of the slab (all of them here; a rank's
+            # block in the sharded streamed bank) and its trainers
+            lanes = self._slab_lanes(len(didx))
+            kk = max(0, min(k, lanes.stop) - lanes.start)
+            mine = slice(lanes.start, lanes.start + kk)
             skeys = self._step_keys(key, runs)
-            if per_client:
-                # (steps, k) keys in one vectorized fold_in, then every
+            if not kk:
+                idx = np.zeros((len(skeys), 0, self.batch), np.int64)
+            elif per_client:
+                # (steps, kk) keys in one vectorized fold_in, then every
                 # trainer's batch of every step in one randint
-                idx = rnd.randint(rnd.fold_in(skeys[:, None, :], cids[:k]),
+                idx = rnd.randint(rnd.fold_in(skeys[:, None, :],
+                                              cids[mine]),
                                   (self.batch,), 0, N)
             else:
-                idx = rnd.randint(skeys, (n, self.batch), 0, N)[:, didx[:k]]
+                idx = rnd.randint(skeys, (n, self.batch), 0, N)[:, didx[mine]]
             idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-            sel = torch.from_numpy(np.asarray(didx[:k], np.int64)).to(
+            sel = torch.from_numpy(np.asarray(didx[mine], np.int64)).to(
                 self.device)
             tau_rows = (None if args.tau_dev is None
-                        else args.tau_dev[np.asarray(didx, np.int64)])
+                        else args.tau_dev[np.asarray(didx, np.int64)[lanes]])
             return self._run_blocks(Y, M, self.data["xs"][sel],
-                                    self.data["ys"][sel], idx, runs, args, k,
+                                    self.data["ys"][sel], idx, runs, args, kk,
                                     mix, tau_rows=tau_rows)
         return streamed_round
 
     def _get_round(self, kind: str, program: prg.RoundProgram) -> Callable:
-        """The lowering of ``program`` for one engine kind ("flat",
-        "flat_block", "compact", "streamed", "streamed_pop"), built once
-        per program structure."""
+        """The lowering of ``program`` for one engine kind ("legacy",
+        "flat", "flat_block", "compact", "streamed", "streamed_pop"),
+        built once per program structure."""
         ck = (kind, program.signature)
         fn = self._lowered.get(ck)
         if fn is None:
-            if kind in ("flat", "flat_block"):
+            if kind == "legacy":
+                fn = self._lower_legacy(program)
+            elif kind in ("flat", "flat_block"):
                 fn = self._lower_flat(program,
                                       block_keyed=kind == "flat_block")
             elif kind == "compact":
@@ -804,6 +994,11 @@ class FLSimulator:
                                           per_client=kind == "streamed_pop")
             self._lowered[ck] = fn
         return fn
+
+    @property
+    def _round(self) -> Callable:
+        """The canonical program's legacy round (tests and debugging)."""
+        return self._get_round("legacy", self._canonical)
 
     def _next_key(self) -> np.ndarray:
         keys = rnd.split(self.key)
@@ -845,6 +1040,13 @@ class FLSimulator:
             return self._step_round_streamed()
         plan, _, program = self._begin_round()
         mask = None if plan is None else plan.mask
+        if self.bank is None:
+            args = self._resolve_args(program, plan, fuse=False)
+            fn = self._get_round("legacy", program)
+            self._params, self._mom, self._residual = fn(
+                self._params, self._mom, self._residual, self._next_key(),
+                args, mask)
+            return plan
         args = self._resolve_args(program, plan)
         key = self._next_key()
         b = self.bank
@@ -889,6 +1091,9 @@ class FLSimulator:
             raise ValueError(
                 "async bounded-staleness execution needs resident rows "
                 "(blocks replay against the full bank, not a paged slab)")
+        if self.bank is None:
+            raise ValueError("async bounded-staleness execution needs a "
+                             "bank engine (bank=True)")
         plan, _, program = self._begin_round()
         if program.has_upload:
             raise NotImplementedError(
@@ -985,6 +1190,42 @@ class FLSimulator:
         self.last_paging = {"rows_in": k, "rows_out": k,
                             "bits_per_row": self.store.bits_per_row}
 
+    # -- the slab's placement, page-in and page-out (the sharded streamed
+    # -- bank overrides these) ------------------------------------------------
+    def _slab_lanes(self, S: int) -> slice:
+        """The lanes of an S-lane slab this process holds: all of them (a
+        rank of the sharded streamed bank holds a contiguous block)."""
+        return slice(0, S)
+
+    def _page_in_momentum(self, ws: Dict) -> np.ndarray:
+        """(k_own, T) f32 momentum of this process's trainer lanes, decoded
+        by the host codec (zeros on first touch)."""
+        return self.store.fetch(ws["clients"][:ws["k"]])
+
+    def _page_out_momentum(self, ws: Dict, rows: np.ndarray) -> None:
+        """Encode and store the trainer lanes' momentum ``rows``."""
+        if ws["k"]:
+            self.store.commit(ws["clients"][:ws["k"]], rows)
+
+    def _ref_lanes(self, ws: Dict) -> Tuple[np.ndarray, np.ndarray]:
+        """(clusters, lanes): each cluster whose reference this round
+        updates (one with a lane, not fault-dark) and its synced lane —
+        the cluster's last lane (representatives win over participants
+        by position)."""
+        ref_lane = np.full(self.fl.num_clusters, -1, np.int64)
+        ref_lane[ws["ws_labels"]] = np.arange(ws["S"])
+        upd = np.nonzero((ref_lane >= 0) & ~self._dark_clusters(ws))[0]
+        return upd, ref_lane[upd]
+
+    def _ref_rows(self, ws: Dict, Y):
+        """(clusters, rows): the synced rows of this process's lanes
+        ``Y`` (a host array or a device tensor) that become the updated
+        clusters' references, in cluster order."""
+        upd, lanes = self._ref_lanes(ws)
+        if isinstance(Y, torch.Tensor):
+            return upd, Y[torch.from_numpy(lanes).to(Y.device)]
+        return upd, Y[lanes]
+
     def _step_round_streamed(self) -> Optional[RoundPlan]:
         """One serial streamed global round: page the working set in on
         the host (params from each lane's cluster reference at its last
@@ -995,45 +1236,35 @@ class FLSimulator:
         reference; the trainers' momentum is re-encoded). The pipelined
         driver's oracle."""
         st = self.store
-        m = self.fl.num_clusters
         plan, r, program = self._begin_round()
         self._check_streamed_program(program)
         ws = self._working_set(plan)
         if self.pop is None:
             self.labels = ws["labels_now"]
-        k, S = ws["k"], ws["S"]
-        clients, ws_labels = ws["clients"], ws["ws_labels"]
+        k, S, ko = ws["k"], ws["S"], ws["k_own"]
         args = self._slab_args(program, ws, r, plan)
         t0 = time.perf_counter()
-        params_rows = st.cluster_params[ws["src_labels"]]
-        mom_rows = np.zeros((S, self.layout.total), np.float32)
-        if k:
-            mom_rows[:k] = st.fetch(clients[:k])
+        params_rows = st.cluster_params[ws["src_labels"][ws["lanes"]]]
+        mom_rows = np.zeros(params_rows.shape, np.float32)
+        mom_rows[:ko] = self._page_in_momentum(ws)
         slab = ModelBank.from_rows(self.layout, params_rows, mom_rows,
                                    device=self.device)
         del params_rows, mom_rows
         self._page_seconds += time.perf_counter() - t0
         fn = self._get_round(
             "streamed_pop" if self.pop is not None else "streamed", program)
-        Y = fn(slab.params, slab.mom, self._next_key(), ws["didx"], clients,
-               k, args)
+        Y = fn(slab.params, slab.mom, self._next_key(), ws["didx"],
+               ws["clients"], k, args)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         Yh = Y.cpu().numpy()
-        Mh = slab.mom[:k].cpu().numpy()
-        # page-out: the last lane of each cluster (representatives win
-        # over participants by position) carries the synced reference
-        ref_lane = np.full(m, -1, np.int64)
-        ref_lane[ws_labels] = np.arange(S)
-        down = self._dark_clusters(ws)
+        Mh = slab.mom[:ko].cpu().numpy()
         refs = st.cluster_params.copy()
-        for c in range(m):
-            if ref_lane[c] >= 0 and not down[c]:
-                refs[c] = Yh[ref_lane[c]]
+        upd, rows = self._ref_rows(ws, Yh)
+        refs[upd] = np.asarray(rows)
         st.update_clusters(refs)
-        if k:
-            st.commit(clients[:k], Mh)
+        self._page_out_momentum(ws, Mh)
         self._page_seconds += time.perf_counter() - t0
         if self.pop is None:
             # the next round's page-in reads the reference of the cluster
@@ -1107,9 +1338,13 @@ class FLSimulator:
             didx = np.concatenate([didx, np.repeat(didx[:1], pad)])
         lane = np.zeros(S, bool)
         lane[:k] = True
+        # this process's lanes and, among them, its trainers
+        lanes = self._slab_lanes(S)
         return {"cohort": cohort, "clients": clients,
                 "ws_labels": ws_labels, "src_labels": src_labels,
                 "didx": didx, "k": k, "S": S, "lane": lane,
+                "lanes": lanes,
+                "k_own": max(0, min(k, lanes.stop) - lanes.start),
                 "mask_slab": lane.astype(float),
                 "labels_now": labels_now, "h_eff": h_eff,
                 "fault": getattr(plan, "fault", None)}
@@ -1222,20 +1457,67 @@ class FLSimulator:
         out["event"] = ev
         return out
 
+    def _fetch_encoded(self, ws: Dict) -> Tuple[np.ndarray, np.ndarray]:
+        """The *encoded* cold rows (q, scale) of this process's trainer
+        lanes, from the host store."""
+        return self.store.fetch_encoded(ws["cohort"])
+
+    def _forward_encoded(self, prev: Dict, ws: Dict, q_in: torch.Tensor,
+                         s_in: torch.Tensor) -> None:
+        """Overwrite the staged rows of the clients the previous round
+        sampled too (their commit is still in flight) with that round's
+        encoded page-out, on the device."""
+        _, si, di = np.intersect1d(prev["cohort"], ws["cohort"],
+                                   assume_unique=True, return_indices=True)
+        if si.size:
+            src = torch.from_numpy(si.astype(np.int64)).to(self.device)
+            dst = torch.from_numpy(di.astype(np.int64)).to(self.device)
+            q_in[dst] = prev["q"][src]
+            s_in[dst] = prev["s"][src]
+
+    def _decode_slab(self, ws: Dict, q_in: torch.Tensor,
+                     s_in: torch.Tensor) -> torch.Tensor:
+        """The slab's momentum, decoded on the device (zero rows decode to
+        exact zeros)."""
+        return cold_codec.decode_rows(q_in, s_in, self.store.codec,
+                                      self.layout.segments)
+
+    def _encode_slab(self, ws: Dict, M: torch.Tensor):
+        """The momentum rows page-out commits, encoded on the device: the
+        whole slab (its first k rows are committed)."""
+        return cold_codec.encode_rows(M, self.store.codec,
+                                      self.layout.segments)
+
     def _stage_pipelined(self, plan, r: int) -> Dict:
         """Stage round ``r``'s page-in: assemble its working set, gather
         the cohort's *encoded* cold rows (commits up to r-2; the r-1
         delta arrives by device-side forwarding) and start their copy to
         the device — all while round r-1 computes."""
         ws = self._working_set(plan)
-        qc, sc = self.store.fetch_encoded(ws["cohort"])
+        qc, sc = self._fetch_encoded(ws)
         # representative and padding lanes page in zero momentum: zero q
         # and zero scale decode to exact zeros under every codec
-        ws["q"], ev_q = self._upload("in_q", qc, ws["S"])
-        ws["s"], ev_s = self._upload("in_s", sc, ws["S"])
+        rows = ws["lanes"].stop - ws["lanes"].start
+        ws["q"], ev_q = self._upload("in_q", qc, rows)
+        ws["s"], ev_s = self._upload("in_s", sc, rows)
         ws["h2d"] = [e for e in (ev_q, ev_s) if e is not None]
         ws["plan"], ws["r"] = plan, r
         return ws
+
+    def _store_snapshot(self) -> Dict[str, np.ndarray]:
+        """The cold store's round-complete snapshot (a run checkpoint's
+        ``store``; the in-flight page-out lands first)."""
+        self._drain_pipeline()
+        return self.store.snapshot()
+
+    def _load_store(self, snap: Dict[str, np.ndarray]) -> None:
+        """Restore the cold store from a snapshot."""
+        self.store.load(snap)
+
+    def _land_refs(self) -> None:
+        """Make the host store's cluster references round-complete (what
+        evaluation reads)."""
+        self._drain_pipeline()
 
     def _drain_pipeline(self) -> None:
         """Land the in-flight page-out in the host store: wait for its
@@ -1267,8 +1549,6 @@ class FLSimulator:
         up to t-1, so clients sampled in both t and t+1 get their newest
         momentum forwarded on the device from round t's encoded page-out
         — exactly the missing delta."""
-        m = self.fl.num_clusters
-        codec, segs = self.store.codec, self.layout.segments
         p = self._pipe_state()
         plan, r, program = self._begin_round()
         self._check_streamed_program(program)
@@ -1302,45 +1582,37 @@ class FLSimulator:
         # pre, on the device: forward the rows of the previous cohort
         # sampled again now (their commit is still in flight), take
         # params from the resident references, decode the momentum
-        prev = p["prev"]
-        if prev is not None:
-            _, si, di = np.intersect1d(prev["cohort"], ws["cohort"],
-                                       assume_unique=True,
-                                       return_indices=True)
-            if si.size:
-                src = torch.from_numpy(si.astype(np.int64)).to(self.device)
-                dst = torch.from_numpy(di.astype(np.int64)).to(self.device)
-                q_in[dst] = prev["q"][src]
-                s_in[dst] = prev["s"][src]
-        Y0 = p["refs"][torch.from_numpy(
-            np.asarray(ws["src_labels"], np.int64)).to(self.device)]
-        M = cold_codec.decode_rows(q_in, s_in, codec, segs)
+        if p["prev"] is not None:
+            self._forward_encoded(p["prev"], ws, q_in, s_in)
+        Y0 = p["refs"][torch.from_numpy(np.asarray(
+            ws["src_labels"][ws["lanes"]], np.int64)).to(self.device)]
+        M = self._decode_slab(ws, q_in, s_in)
         fn = self._get_round(
             "streamed_pop" if self.pop is not None else "streamed", program)
         Y = fn(Y0, M, self._next_key(), ws["didx"], ws["clients"], k, args)
         # post, on the device: fold each cluster's synced lane into the
         # references (a fault-dark cluster keeps its stale one), encode
-        # the slab's momentum; the copy back starts now and lands at the
-        # next drain
-        ref_lane = np.full(m, -1, np.int64)
-        ref_lane[ws["ws_labels"]] = np.arange(S)
-        upd = np.nonzero((ref_lane >= 0) & ~self._dark_clusters(ws))[0]
+        # the momentum; the copy back starts now and lands at the next
+        # drain
+        upd, rows = self._ref_rows(ws, Y)
         refs_new = p["refs"].clone()
         if upd.size:
-            refs_new[torch.from_numpy(upd).to(self.device)] = Y[
-                torch.from_numpy(ref_lane[upd]).to(self.device)]
-        q_out, s_out = cold_codec.encode_rows(M, codec, segs)
+            refs_new[torch.from_numpy(upd).to(self.device)] = rows
+        enc = self._encode_slab(ws, M)
         p["refs"] = refs_new
-        pending = dict(self._download({"q": q_out, "s": s_out,
-                                       "refs": refs_new}),
-                       cohort=ws["cohort"], k=k)
+        out = {"refs": refs_new}
+        if enc is not None:
+            out.update(q=enc[0], s=enc[1])
+        pending = dict(self._download(out), cohort=ws["cohort"], k=k, S=S)
         # drain round r-1 (its copy overlapped round r's dispatch) and only
         # then stage r+1, so staging sees commits up to r-1 and the
         # forwarding delta is exactly cohort r
         t0 = time.perf_counter()
         self._drain_pipeline()
         p["pending"] = pending
-        p["prev"] = {"cohort": ws["cohort"], "q": q_out, "s": s_out}
+        p["prev"] = {"cohort": ws["cohort"], "S": S,
+                     "q": None if enc is None else enc[0],
+                     "s": None if enc is None else enc[1]}
         p["staged"] = self._stage_pipelined(self._peek_plan(), r + 1)
         self._page_seconds += time.perf_counter() - t0
         self._finish_streamed(S, k)
@@ -1366,16 +1638,21 @@ class FLSimulator:
         engine the store's per-cluster references ARE y_t (the in-flight
         round's land first)."""
         if self._streamed:
-            self._drain_pipeline()
+            self._land_refs()
             return self.layout.unflatten_stack(torch.tensor(
                 self.store.cluster_params, device=self.device))
         B = topo.assignment_matrix(self.labels, self.fl.num_clusters)
-        return self.bank.project(topo.masked_cluster_average(B))
+        P = topo.masked_cluster_average(B)
+        if self.bank is None:
+            # mix() row-applies, so the rectangular (m, n) average maps
+            # the n device models straight to the m edge models
+            return mix(P, self._params)
+        return self.bank.project(P)
 
     def global_model(self):
         """Device-average model x̄ as a single tree."""
         if self._streamed:
-            self._drain_pipeline()
+            self._land_refs()
             # end-of-round rows are cluster-uniform, so the device average
             # is the cluster-size-weighted reference average
             sizes = (self.pop.sizes.astype(np.float64)
@@ -1388,6 +1665,8 @@ class FLSimulator:
                    * w[:, None]).sum(0).astype(np.float32)
             return self.layout.unflatten_one(
                 torch.from_numpy(row).to(self.device))
+        if self.bank is None:
+            return tr.tree_map(lambda leaf: leaf.mean(0), self._params)
         return self.bank.mean_model()
 
     @torch.no_grad()

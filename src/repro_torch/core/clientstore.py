@@ -47,7 +47,10 @@ the last snapshot are re-gathered (bit-identical to a full rebuild).
 Sharding: the store partitions client rows ``client_id % num_shards``
 into independent per-shard arenas, so the sharded engine
 (``core/sharded.py``) keeps one cold shard per bank shard and no single
-host map ever holds the whole population's rows.
+host map ever holds the whole population's rows. A rank of the sharded
+streamed bank fills only its own shard; :func:`merge_snapshots` joins
+the ranks' snapshots into the single-process file format and
+:func:`split_snapshot` cuts a rank's shard back out of it.
 
 Resident-memory formula (doctested in docs/PERFORMANCE.md):
 
@@ -93,6 +96,38 @@ def cold_row_nbytes(total: int, codec: str, num_segments: int) -> int:
     per = cold_bits_per_param(codec) // 8
     scales = 4 * num_segments if codec == "int8" else 0
     return per * int(total) + scales
+
+
+#: the keys of :meth:`ClientStore.snapshot` (a run checkpoint's ``store``)
+SNAPSHOT_KEYS = ("cluster", "ids", "mom_q", "mom_scale")
+
+
+def merge_snapshots(snaps) -> Dict[str, np.ndarray]:
+    """One snapshot of the stores whose shards ``snaps`` hold (each a
+    :meth:`ClientStore.snapshot` of a store that filled only its own
+    shard; the cluster references are the same on every one): the rows
+    of all, sorted by client id — the snapshot of one store holding
+    them all."""
+    snaps = list(snaps)
+    ids = np.concatenate([s["ids"] for s in snaps])
+    order = np.argsort(ids)
+    return {"cluster": np.asarray(snaps[0]["cluster"]).copy(),
+            "ids": ids[order],
+            "mom_q": np.concatenate([s["mom_q"] for s in snaps])[order],
+            "mom_scale": np.concatenate(
+                [s["mom_scale"] for s in snaps])[order]}
+
+
+def split_snapshot(snap, num_shards: int, shard: int
+                   ) -> Dict[str, np.ndarray]:
+    """The part of ``snap`` that shard ``shard`` of ``num_shards`` holds
+    (``client_id % num_shards == shard``), with every cluster
+    reference; :func:`merge_snapshots` of all the parts is ``snap``."""
+    ids = np.asarray(snap["ids"], np.int64)
+    keep = ids % num_shards == shard
+    return {"cluster": np.asarray(snap["cluster"]), "ids": ids[keep],
+            "mom_q": np.asarray(snap["mom_q"])[keep],
+            "mom_scale": np.asarray(snap["mom_scale"])[keep]}
 
 
 class ClientStore:

@@ -18,6 +18,10 @@ call: every rank of the world makes it, in the same order.
   :func:`barrier`: the world sum (the sharded engine's evaluation), every
   rank's tensor on every rank (the LM trainer's dense mixing), rows to
   rank 0 (a checkpoint's save) and a barrier.
+- :func:`reduce_scatter`: each rank's block of rows of the world sum
+  (the sharded streamed bank's mixing boundary), and
+  :func:`exchange_rows`: a variable number of rows from each rank to
+  each rank (its page-in, page-out and reference broadcast).
 
 On a mesh with a model axis (the LM trainer's tensor parallelism) the
 flat replica axis is the rank's *data group*: replica r's peer is the
@@ -252,6 +256,67 @@ def gather_rows(x: torch.Tensor, mesh: ReplicaMesh
         out[r * rows:(r + 1) * rows] = buf.cpu().numpy()
     _count(mesh, "gather", 0, nbytes * (R - 1))
     return out
+
+
+def reduce_scatter(x: torch.Tensor, mesh: ReplicaMesh) -> torch.Tensor:
+    """Rows ``[i·r, (i+1)·r)`` of the sum of every replica's ``x`` (R·r
+    rows) on replica i: each rank sends the (R − 1) blocks of its rows
+    that the others keep and receives its own block from each of them,
+    (R − 1)/R·|x| bytes each way. The blocks move in one
+    ``all_to_all_single`` and are summed here in replica order, so the
+    order of the sums is fixed whatever the backend's reduction would do
+    (a single-process oracle can repeat it). A world of one returns
+    ``x``."""
+    R = flat_axis_size(mesh)
+    if R == 1:
+        return x
+    if x.shape[0] % R:
+        raise ValueError(f"reduce_scatter: {x.shape[0]} rows do not split "
+                         f"into {R} replicas")
+    x = x.contiguous()
+    r = x.shape[0] // R
+    src = _stage(mesh, x, "reduce_scatter")
+    blocks = _recv_buffer(mesh, x, "reduce_scatter_in")
+    dist.all_to_all_single(blocks, src, group=mesh.data_group)
+    blocks = _unstage(mesh, blocks)
+    out = blocks[:r].clone()
+    for i in range(1, R):
+        out += blocks[i * r:(i + 1) * r]
+    nbytes = (R - 1) * r * x[0].numel() * x.element_size()
+    _count(mesh, "reduce_scatter", nbytes, nbytes)
+    return out
+
+
+def exchange_rows(x: torch.Tensor, send_counts: Sequence[int],
+                  recv_counts: Sequence[int], mesh: ReplicaMesh
+                  ) -> torch.Tensor:
+    """A variable-count all-to-all of rows over the flat replica axis:
+    ``x`` holds this rank's outgoing rows grouped by destination
+    (``send_counts[d]`` rows for replica d, in replica order); returns
+    the incoming rows grouped by source (``recv_counts[s]`` from replica
+    s), on ``x``'s device. Every rank knows what it receives (the counts
+    are the caller's), so one ``all_to_all_single`` moves everything.
+    Rows a rank keeps for itself are not counted as traffic. A host
+    ``x`` crosses as it is under gloo (and through the card under NCCL);
+    a CUDA ``x`` under gloo crosses through host memory."""
+    send_counts = [int(c) for c in send_counts]
+    recv_counts = [int(c) for c in recv_counts]
+    me = flat_axis_index(mesh)
+    x = x.contiguous()
+    if x.shape[0] != sum(send_counts):
+        raise ValueError(f"exchange_rows: {x.shape[0]} rows for send "
+                         f"counts {send_counts}")
+    send = x.to(mesh.device) if mesh.backend == "nccl" else x.cpu()
+    out = torch.empty((sum(recv_counts),) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=send.device)
+    dist.all_to_all_single(out, send, output_split_sizes=recv_counts,
+                           input_split_sizes=send_counts,
+                           group=mesh.data_group)
+    row = int(np.prod(x.shape[1:], dtype=np.int64)) * x.element_size()
+    _count(mesh, "exchange_rows",
+           row * (sum(send_counts) - send_counts[me]),
+           row * (sum(recv_counts) - recv_counts[me]))
+    return out.to(x.device)
 
 
 def barrier(mesh: ReplicaMesh) -> None:

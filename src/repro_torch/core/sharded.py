@@ -28,8 +28,15 @@ sharding glue (``_opt_specs``, ``microbatch_specs``, ``batch_specs``,
 the reference's ``(q, tau, R, B, ...)`` batch and the rank slices its
 own replica ``r`` from axis 2.
 
-The sharded streamed bank (``ShardedStreamedBank``) waits for ROADMAP
-A14's streamed half.
+:class:`ShardedStreamedBank` (the streamed half): the streamed
+client-store engine with each round's ``(S, T)`` hot slab split over the
+ranks in contiguous blocks of S/R lanes, and the cold store partitioned
+``client_id % R``, one shard a rank. Its slab is the single-process
+engine's lane for lane (the same working set, buckets divisible by R);
+each mixing boundary is one launch of the gossip-mix kernel on the
+rank's rectangular operator block (an ``(S, T)`` partial) and one
+``reduce_scatter``, and page-in, page-out and the reference broadcast
+move encoded rows between ranks with ``exchange_rows``.
 """
 from __future__ import annotations
 
@@ -48,8 +55,13 @@ from repro_torch.core import gossip as gsp
 from repro_torch.core import program as prg
 from repro_torch.core import topology as topo
 from repro_torch.core.cefedavg import FLSimulator, make_w_schedule
+from repro_torch.core.clientstore import merge_snapshots, split_snapshot
+from repro_torch.core.compress import (cold_dtype, decode_cold_rows,
+                                       encode_cold_rows)
 from repro_torch.core.groups import get_registry
 from repro_torch.core.modelbank import ModelBank
+from repro_torch.kernels import cold_codec
+from repro_torch.kernels.gossip_mix import gossip_mix_rows
 from repro_torch.launch.mesh import ReplicaMesh
 from repro_torch.models import model as mdl
 from repro_torch.optim import apply_updates, make_lr_schedule, make_optimizer
@@ -400,9 +412,9 @@ class ShardedBankCEFedAvg(FLSimulator):
         if kw.get("streaming") or kw.get("pipeline") or (
                 kw.get("scenario") is not None
                 and kw["scenario"].population is not None):
-            raise NotImplementedError(
-                "ShardedBankCEFedAvg holds enumerated rows; the sharded "
-                "streamed bank is ROADMAP A14's ShardedStreamedBank")
+            raise ValueError(
+                "ShardedBankCEFedAvg holds enumerated rows, one a rank; "
+                "stream a virtual population with ShardedStreamedBank")
         device = kw.pop("device", None)
         if device is not None and torch.device(device) != mesh.device:
             raise ValueError(f"device {device} is not the mesh's "
@@ -501,3 +513,310 @@ class ShardedBankCEFedAvg(FLSimulator):
         sum)."""
         total = col.all_reduce(self.bank.params.sum(0), self.mesh)
         return self.layout.unflatten_one(total / self.sched.n)
+
+
+# ---------------------------------------------------------------------------
+# the sharded streamed bank: each round's hot slab split over the ranks
+# ---------------------------------------------------------------------------
+
+_TORCH_DTYPE = {np.dtype(np.int8): torch.int8,
+                np.dtype(np.float16): torch.float16,
+                np.dtype(np.float32): torch.float32}
+
+
+class ShardedStreamedBank(FLSimulator):
+    """The streamed client-store engine with each round's hot slab split
+    over the ranks of a :class:`ReplicaMesh`: rank r holds the lanes
+    ``[r·S/R, (r+1)·S/R)`` of the round's ``(S, T)`` slab, and the cold
+    store shard of the clients with ``client_id % R == r``.
+
+    The slab is the single-process engine's (``store_shards=R,
+    min_bucket=R``): the same working set in the same lane order, every
+    bucket divisible by R. Every rank runs the same host program (plans,
+    working sets, operators and keys are replicated), so each knows who
+    holds every row and every exchange is one collective:
+
+    - **page-in**: each cohort client's *encoded* row leaves its owner's
+      shard for its lane's rank (:func:`repro_torch.core.collectives.
+      exchange_rows`), which decodes it: the host codec in the serial
+      driver, the card codec (B2) in the pipelined one, where the rows of
+      clients the previous round sampled too are forwarded from that
+      round's encoded page-out, across ranks where the lane moved;
+    - **mixing**: at each boundary a rank launches the gossip-mix kernel
+      (B1) on its column block of the operator, ``W[:, lanes] ·
+      Y_lanes``, an ``(S, T)`` partial, and a ``reduce_scatter`` returns
+      its rows of the sum — exact for every operator the slab round
+      receives, masked and fault-gated ones included;
+    - **page-out**: a lane's rank encodes its trainers' momentum and the
+      encoded rows go back to their owners, and the rank holding each
+      updated cluster's last lane sends that reference to every rank
+      (one ``exchange_rows``), so every rank keeps the ``(m, T)``
+      references and evaluation reads them with no collective.
+
+    ``last_bucket``, ``last_paging`` and ``peak_slab_bytes`` report the
+    whole slab, as the reference; ``peak_rank_slab_bytes`` a rank's.
+    Only the order of the boundary sums (and the trainers' vmap) differs
+    from the single-process engine; a world of one is that engine, bit
+    for bit. Run checkpoints gather the ranks' shards into the
+    single-process file on rank 0; a restore keeps each rank's shard.
+    Needs a population scenario and a model axis of 1."""
+
+    def __init__(self, init_fn: Callable, apply_fn: Callable, fl: FLConfig,
+                 data: Dict[str, object], mesh: ReplicaMesh, **kw):
+        if not kw.pop("bank", True):
+            raise ValueError("ShardedStreamedBank is a bank engine")
+        scenario = kw.get("scenario")
+        if scenario is None or scenario.population is None:
+            raise ValueError("ShardedStreamedBank streams a virtual "
+                             "population (ScenarioConfig.population)")
+        if mesh.model != 1:
+            raise ValueError("slab rows are not tensor-parallel (the model "
+                             "axis must be 1)")
+        device = kw.pop("device", None)
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        self.mesh = mesh
+        self.R = col.flat_axis_size(mesh)
+        super().__init__(init_fn, apply_fn, fl, data, device=mesh.device,
+                         store_shards=self.R, min_bucket=self.R, **kw)
+        self._peak_rank_slab = 0
+        T = self.layout.total
+        self._q_dtype = _TORCH_DTYPE[cold_dtype(self.store.codec)]
+        self._q_bytes = T * torch.empty(0, dtype=self._q_dtype).element_size()
+        self._row_bytes = self._q_bytes + 4 * self.store._sw
+
+    @property
+    def peak_rank_slab_bytes(self) -> int:
+        """Largest block of the hot slab (params + momentum) one rank
+        held."""
+        return self._peak_rank_slab
+
+    # -- placement -----------------------------------------------------------
+    def _slab_lanes(self, S: int) -> slice:
+        r = S // self.R
+        return slice(self.mesh.replica * r, (self.mesh.replica + 1) * r)
+
+    def _lane_rank(self, lanes, S: int) -> np.ndarray:
+        return np.asarray(lanes, np.int64) // (S // self.R)
+
+    def _owner(self, clients) -> np.ndarray:
+        return np.asarray(clients, np.int64) % self.R
+
+    def _finish_streamed(self, S: int, k: int) -> None:
+        super()._finish_streamed(S, k)
+        self._peak_rank_slab = max(self._peak_rank_slab,
+                                   2 * 4 * (S // self.R) * self.layout.total)
+
+    # -- moving rows between ranks -------------------------------------------
+    def _route(self, src, dst, rows: Callable):
+        """Move items ``i`` from rank ``src[i]`` to rank ``dst[i]`` (host
+        arrays, the same on every rank). ``rows(ix)`` gives this rank's
+        outgoing rows of the items ``ix`` (a tensor, one row an item, in
+        that order). Returns the items that arrive here and their rows,
+        in item order, on the outgoing rows' device: one
+        ``exchange_rows``, or none when no item changes rank."""
+        me = self.mesh.replica
+        src, dst = np.asarray(src, np.int64), np.asarray(dst, np.int64)
+        out_ix = np.nonzero(src == me)[0]
+        out_ix = out_ix[np.argsort(dst[out_ix], kind="stable")]
+        in_ix = np.nonzero(dst == me)[0]
+        in_ix = in_ix[np.argsort(src[in_ix], kind="stable")]
+        x = rows(out_ix)
+        if (src != dst).any():
+            x = col.exchange_rows(x, np.bincount(dst[out_ix],
+                                                 minlength=self.R),
+                                  np.bincount(src[in_ix], minlength=self.R),
+                                  self.mesh)
+        order = np.argsort(in_ix, kind="stable")
+        return in_ix[order], x[torch.from_numpy(order).to(x.device)]
+
+    def _pack(self, q, scale) -> torch.Tensor:
+        """Encoded rows (codes, scales) as one byte row each; None gives
+        no rows."""
+        if q is None or not len(q):
+            return torch.empty((0, self._row_bytes), dtype=torch.uint8,
+                               device="cpu" if q is None else
+                               torch.as_tensor(q).device)
+        q = torch.as_tensor(q).contiguous().view(torch.uint8)
+        if not self.store._sw:
+            return q   # f32 and f16 codes carry no scales
+        return torch.cat([q, torch.as_tensor(scale).to(q.device)
+                          .contiguous().view(torch.uint8)], 1)
+
+    def _unpack(self, buf: torch.Tensor):
+        """(codes, scales) of :meth:`_pack`'s byte rows."""
+        if not buf.shape[0]:
+            return (torch.empty((0, self.layout.total), dtype=self._q_dtype,
+                                device=buf.device),
+                    torch.empty((0, self.store._sw), device=buf.device))
+        # fresh copies: a view of one row keeps its byte offset, which the
+        # wider dtypes' views need aligned
+        fresh = torch.contiguous_format
+        q = buf[:, :self._q_bytes].clone(memory_format=fresh).view(
+            self._q_dtype)
+        if not self.store._sw:
+            return q, torch.zeros((buf.shape[0], 0), device=buf.device)
+        return q, buf[:, self._q_bytes:].clone(memory_format=fresh).view(
+            torch.float32)
+
+    def _fetch_lanes(self, ws: Dict):
+        """The encoded rows of this rank's trainer lanes, in lane order,
+        from their owners' shards (one exchange)."""
+        k = ws["k"]
+        clients = ws["clients"][:k]
+        _, buf = self._route(
+            self._owner(clients), self._lane_rank(np.arange(k), ws["S"]),
+            lambda ix: self._pack(*self.store.fetch_encoded(clients[ix])))
+        return self._unpack(buf)
+
+    def _commit_lanes(self, S: int, clients: np.ndarray, q, scale) -> None:
+        """Page-out: the encoded rows ``q``/``scale`` of this rank's
+        trainer lanes (lanes 0..k-1 of an S-lane slab hold ``clients``)
+        go to their owners, which store them (one exchange)."""
+        k = clients.shape[0]
+        lo = self._slab_lanes(S).start
+        ix, buf = self._route(
+            self._lane_rank(np.arange(k), S), self._owner(clients),
+            lambda ix: self._pack(None if q is None else q[ix - lo],
+                                  None if q is None else scale[ix - lo]))
+        if ix.size:
+            qq, ss = self._unpack(buf.cpu())
+            self.store.commit_encoded(clients[ix], qq.numpy(), ss.numpy())
+
+    # -- the serial driver's page-in and page-out ----------------------------
+    def _page_in_momentum(self, ws: Dict) -> np.ndarray:
+        q, s = self._fetch_lanes(ws)
+        return decode_cold_rows({"q": q.numpy(), "scale": s.numpy()},
+                                self.store.codec, self.layout.segments)
+
+    def _page_out_momentum(self, ws: Dict, rows: np.ndarray) -> None:
+        if not ws["k"]:
+            return
+        enc = encode_cold_rows(rows, self.store.codec, self.layout.segments)
+        self._commit_lanes(ws["S"], ws["clients"][:ws["k"]], enc["q"],
+                           enc["scale"])
+
+    def _ref_rows(self, ws: Dict, Y):
+        """Every updated cluster's synced row, on every rank: its holder
+        sends it to the R - 1 others (one exchange)."""
+        upd, lanes = self._ref_lanes(ws)
+        R, lo = self.R, ws["lanes"].start
+        Yt = Y if isinstance(Y, torch.Tensor) else torch.from_numpy(Y)
+        holder = self._lane_rank(lanes, ws["S"])
+        _, rows = self._route(
+            np.repeat(holder, R), np.tile(np.arange(R), len(upd)),
+            lambda ix: Yt[torch.from_numpy(lanes[ix // R] - lo).to(
+                Yt.device)])
+        return upd, (rows if isinstance(Y, torch.Tensor) else rows.numpy())
+
+    # -- the pipelined driver's ----------------------------------------------
+    def _fetch_encoded(self, ws: Dict):
+        q, s = self._fetch_lanes(ws)
+        return q.numpy(), s.numpy()
+
+    def _forward_encoded(self, prev: Dict, ws: Dict, q_in: torch.Tensor,
+                         s_in: torch.Tensor) -> None:
+        """The previous round's encoded rows of the clients sampled again
+        go from their old lane's rank to their new one's."""
+        _, si, di = np.intersect1d(prev["cohort"], ws["cohort"],
+                                   assume_unique=True, return_indices=True)
+        if not si.size:
+            return
+        lo = self._slab_lanes(prev["S"]).start
+        q, s = prev["q"], prev["s"]
+
+        def rows(ix):
+            if q is None:
+                return self._pack(None, None)
+            sel = torch.from_numpy(si[ix] - lo).to(q.device)
+            return self._pack(q[sel], s[sel])
+        ix, buf = self._route(self._lane_rank(si, prev["S"]),
+                              self._lane_rank(di, ws["S"]), rows)
+        if ix.size:
+            qq, ss = self._unpack(buf)
+            dst = torch.from_numpy(di[ix] - ws["lanes"].start).to(
+                self.device)
+            q_in[dst] = qq.to(self.device)
+            s_in[dst] = ss.to(self.device)
+
+    def _decode_slab(self, ws: Dict, q_in: torch.Tensor,
+                     s_in: torch.Tensor) -> torch.Tensor:
+        if ws["k_own"]:
+            return super()._decode_slab(ws, q_in, s_in)
+        # no trainer here: the lanes' momentum is zero
+        return torch.zeros(q_in.shape, dtype=torch.float32,
+                           device=self.device)
+
+    def _encode_slab(self, ws: Dict, M: torch.Tensor):
+        ko = ws["k_own"]
+        if not ko:
+            return None
+        return cold_codec.encode_rows(M[:ko], self.store.codec,
+                                      self.layout.segments)
+
+    def _land_refs(self) -> None:
+        """Mirror the in-flight round's references into the host store
+        (no collective: every rank holds them); its momentum commits at
+        the next drain."""
+        p = self._pipe
+        if not p or p["pending"] is None or p["pending"].get("landed"):
+            return
+        pend = p["pending"]
+        if pend["event"] is not None:
+            pend["event"].synchronize()
+        self.store.update_clusters(pend["refs"].numpy())
+        pend["landed"] = True
+
+    def _drain_pipeline(self) -> None:
+        p = self._pipe
+        if not p or p["pending"] is None:
+            return
+        self._land_refs()
+        pend, p["pending"] = p["pending"], None
+        if pend["k"]:
+            self._commit_lanes(pend["S"], pend["cohort"], pend.get("q"),
+                               pend.get("s"))
+
+    # -- mixing: B1 on the rank's operator block, then a reduce-scatter ------
+    def _mixer(self, program: prg.RoundProgram,
+               block_keyed: bool = False) -> Callable:
+        mesh = self.mesh
+
+        def mix(bp, mats, Y, lo=0, hi=None):
+            for W in mats[lo:hi]:
+                lanes = self._slab_lanes(W.shape[0])
+                Y = col.reduce_scatter(gossip_mix_rows(W[:, lanes], Y), mesh)
+            return Y
+        return mix
+
+    # -- checkpoints: the ranks' shards in the single-process file -----------
+    def _store_snapshot(self) -> Dict[str, np.ndarray]:
+        """The merged snapshot of every rank's shard on rank 0 (the
+        single-process engine's ``store``); this rank's own elsewhere."""
+        self._drain_pipeline()
+        mine = self.store.snapshot()
+        counts = np.asarray([int(c.item()) for c in col.all_gather(
+            torch.tensor([mine["ids"].size], device=self.device),
+            self.mesh)], np.int64)
+        off = int(counts[:self.mesh.replica].sum())
+
+        def rows(ix):
+            packed = torch.cat([torch.from_numpy(mine["ids"]).view(-1, 1)
+                                .view(torch.uint8),
+                                self._pack(mine["mom_q"],
+                                           mine["mom_scale"])], 1)
+            return packed[torch.from_numpy(ix - off)]
+        _, buf = self._route(np.repeat(np.arange(self.R), counts),
+                             np.zeros(int(counts.sum()), np.int64), rows)
+        if self.mesh.rank != 0:
+            return mine
+        ids = buf[:, :8].clone(memory_format=torch.contiguous_format).view(
+            torch.int64)[:, 0].numpy()
+        q, s = self._unpack(buf[:, 8:])
+        return merge_snapshots([{"cluster": mine["cluster"], "ids": ids,
+                                 "mom_q": q.numpy(),
+                                 "mom_scale": s.numpy()}])
+
+    def _load_store(self, snap: Dict[str, np.ndarray]) -> None:
+        self.store.load(split_snapshot(snap, self.R, self.mesh.replica))

@@ -43,17 +43,21 @@ cold client store (``core/clientstore.py``) on one device: only each
 round's cohort (plus one representative lane per cluster) is resident;
 ``--pipeline`` overlaps the paging with compute, the cold codec on the
 card. Its task is the same MLP over 16 enumerated data shards (client id
-mod 16):
+mod 16). With ``--data-parallel R > 1`` the hot slab is split over R
+ranks and the cold store is one shard a rank
+(``core.sharded.ShardedStreamedBank``), spawned locally or under
+torchrun as for ``--engine bank``:
 
   PYTHONPATH=src python -m repro_torch.launch.train --population 10000 \
       --cohort 8 --codec int8 --pipeline --rounds 5 --ckpt-dir ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --population 400 \
+      --data-parallel 4 --dist-backend gloo --device cpu
 
 All run on the CUDA card unless ``--device`` says otherwise.
 ``--ckpt-dir`` writes the bank or population run's state atomically
 every ``--ckpt-every`` rounds and ``--resume`` continues from it, bit
-for bit the uninterrupted run. The sharded streamed bank
-(``--population`` with ``--data-parallel > 1``) waits for ROADMAP A14's
-streamed half, ``ShardedStreamedBank``.
+for bit the uninterrupted run (a sharded run writes the single-device
+engine's file).
 """
 from __future__ import annotations
 
@@ -91,7 +95,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="smoke-scale model (CPU-friendly)")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--data-parallel", type=int, default=1,
-                    help="ranks: LM replicas (pytree) or bank rows (bank)")
+                    help="ranks: LM replicas (pytree), bank rows (bank) or "
+                         "blocks of the hot slab (--population)")
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="ranks a replica (tensor parallelism, pytree "
                          "engine); the bank and population engines keep 1")
@@ -168,10 +173,9 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """Parse and run. Returns the population sim; for ``--engine bank`` and
-    ``--engine pytree`` what each rank's run function returned (one dict
-    under torchrun or for a pytree world of one, a list by rank for
-    spawned ranks)."""
+    """Parse and run. Returns the population sim on one device; otherwise
+    what each rank's run function returned (one dict under torchrun or
+    for a pytree world of one, a list by rank for spawned ranks)."""
     ap = _parser()
     args = ap.parse_args(argv)
     if args.population:
@@ -198,18 +202,17 @@ def main(argv=None):
         if args.model_parallel != 1:
             raise ValueError("slab rows are not tensor-parallel; use "
                              "--model-parallel 1")
-        if args.data_parallel > 1:
-            raise NotImplementedError(
-                "the sharded streamed bank (--population with "
-                "--data-parallel > 1) is not ported yet: ROADMAP A14, "
-                "ShardedStreamedBank")
-        return run_population_engine(args)
+        if args.data_parallel == 1:
+            return run_population_engine(args)
     if args.engine == "bank" and args.model_parallel != 1:
         raise ValueError("bank rows are not tensor-parallel; use "
                          "--model-parallel 1")
-    run = run_bank_engine if args.engine == "bank" else run_pytree_engine
-    n = (_bank_ranks(args) if args.engine == "bank"
-         else args.data_parallel * args.model_parallel)
+    if args.population:
+        run, n = run_population_engine, args.data_parallel
+    elif args.engine == "bank":
+        run, n = run_bank_engine, _bank_ranks(args)
+    else:
+        run, n = run_pytree_engine, args.data_parallel * args.model_parallel
     if lm.under_torchrun():
         lm.initialize_multihost(backend=args.dist_backend,
                                 device=args.device)
@@ -219,7 +222,7 @@ def main(argv=None):
             dist.destroy_process_group()
     # validate the rank device here, before any rank starts
     lm.rank_device(args.dist_backend, args.device)
-    if n == 1 and args.engine == "pytree":
+    if n == 1 and args.engine == "pytree" and not args.population:
         with lm.single_rank_world(args.dist_backend, args.device):
             return run(args)
     return lm.run_local_ranks(run, n, args=(args,),
@@ -431,10 +434,15 @@ def run_bank_engine(args) -> dict:
 
 def run_population_engine(args):
     """The streamed client-store engine over a virtual population of
-    ``--population`` clients on one device."""
+    ``--population`` clients: on one device (returns the sim), or with
+    ``--data-parallel R > 1`` one rank of ``ShardedStreamedBank`` in the
+    initialised world of R ranks (returns this rank's global model row,
+    its store shard's snapshot, its collectives' traffic and its peak
+    slab block). Rank 0 logs."""
     from repro_torch.core.cefedavg import FLSimulator
     from repro_torch.core.clientstore import resident_slab_nbytes
     from repro_torch.core.scenario import get_scenario
+    from repro_torch.core.sharded import ShardedStreamedBank
 
     m = args.clusters or 4
     # enumerated *data shards* (client_id mod n picks one) — a small
@@ -448,40 +456,58 @@ def run_population_engine(args):
         population=PopulationConfig(
             clients_per_cluster=max(1, -(-args.population // m)),
             cohort_per_cluster=args.cohort, codec=args.codec))
-    sim = FLSimulator(_init_mlp, apply_mlp_classifier, fl,
-                      _classification_data(n), lr=args.lr,
-                      batch_size=args.batch, seed=0, scenario=scenario,
-                      pipeline=args.pipeline, device=args.device)
+    kw = dict(lr=args.lr, batch_size=args.batch, seed=0, scenario=scenario,
+              pipeline=args.pipeline)
+    mesh = None
+    if args.data_parallel > 1:
+        mesh = lm.make_replica_mesh(args.data_parallel, device=args.device)
+        sim = ShardedStreamedBank(_init_mlp, apply_mlp_classifier, fl,
+                                  _classification_data(n), mesh, **kw)
+    else:
+        sim = FLSimulator(_init_mlp, apply_mlp_classifier, fl,
+                          _classification_data(n), device=args.device, **kw)
+    log = (print if mesh is None or mesh.rank == 0
+           else (lambda *a, **k: None))
     eng = sim.engine
     cap = max(sim._buckets)
-    print(f"population engine: N={eng.population} virtual clients over "
-          f"m={m} clusters (codec={args.codec}, pipeline={args.pipeline}, "
-          f"{sim.device}), slab cap {cap} rows x T={sim.layout.total} = "
-          f"{resident_slab_nbytes(cap, sim.layout.total)} B resident",
-          flush=True)
+    where = (f"{sim.device}" if mesh is None else
+             f"{args.data_parallel} ranks on {sim.device}, {mesh.transport}")
+    log(f"population engine: N={eng.population} virtual clients over "
+        f"m={m} clusters (codec={args.codec}, pipeline={args.pipeline}, "
+        f"{where}), slab cap {cap} rows x T={sim.layout.total} = "
+        f"{resident_slab_nbytes(cap, sim.layout.total)} B resident",
+        flush=True)
     rc = RunCheckpoint(args.ckpt_dir) if args.ckpt_dir else None
     start = 0
     if args.resume and rc.exists():
         start = rc.restore(sim)["round"]
-        print(f"resumed from {rc.path} at round {start}")
+        log(f"resumed from {rc.path} at round {start}")
     for r in range(start, args.rounds):
         t0 = time.time()
         plan = sim.step_round()
         acc, loss = sim.evaluate(256)
-        print(f"round {r}: acc={acc:.3f} loss={loss:.4f} "
-              f"cohort={plan.clients.shape[0]} slab={sim.last_bucket} rows "
-              f"store={sim.store.nbytes / 1e6:.2f}MB "
-              f"({time.time() - t0:.1f}s)", flush=True)
+        log(f"round {r}: acc={acc:.3f} loss={loss:.4f} "
+            f"cohort={plan.clients.shape[0]} slab={sim.last_bucket} rows "
+            f"store={sim.store.nbytes / 1e6:.2f}MB "
+            f"({time.time() - t0:.1f}s)", flush=True)
         if rc is not None and (r + 1) % max(args.ckpt_every, 1) == 0:
             rc.save(sim, round_idx=r + 1)
-    print(f"peak resident slab: {sim.peak_slab_bytes} B (population "
-          f"{eng.population}, cold store {sim.store.nbytes / 1e6:.2f}MB "
-          f"host)")
-    if args.ckpt:
-        save_checkpoint(args.ckpt, sim.global_model(),
-                        {"engine": "streamed", "rounds": args.rounds})
-        print(f"saved global model to {args.ckpt}")
-    return sim
+    log(f"peak resident slab: {sim.peak_slab_bytes} B (population "
+        f"{eng.population}, cold store {sim.store.nbytes / 1e6:.2f}MB "
+        f"host{'' if mesh is None else ' on rank 0'})")
+    gm = sim.global_model()
+    if args.ckpt and (mesh is None or mesh.rank == 0):
+        save_checkpoint(args.ckpt, gm, {"engine": "streamed",
+                                        "rounds": args.rounds})
+        log(f"saved global model to {args.ckpt}")
+    if mesh is None:
+        return sim
+    sim._drain_pipeline()   # the last round's page-out, on every rank
+    return {"rank": mesh.rank,
+            "global_row": sim.layout.flatten_one(gm).cpu().numpy(),
+            "store": sim.store.snapshot(),
+            "traffic": {k: dict(v) for k, v in mesh.traffic.items()},
+            "peak_rank_slab_bytes": sim.peak_rank_slab_bytes}
 
 
 if __name__ == "__main__":

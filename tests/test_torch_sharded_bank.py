@@ -177,23 +177,13 @@ def test_bank_matches_reference(refs, ranks, name):
             np.testing.assert_array_equal(mine[1], np.asarray(theirs[1]))
 
 
-def _chip_smoke():
-    import importlib.util
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.mark.parametrize("name", sorted(cases.CASES))
 def test_bank_is_bitwise_the_card_checks_witness(ranks, name):
     """``chip_smoke.py``'s witness for whole sharded rounds on the card:
     the single-process port engine taking its SGD steps one row at a
     time and summing each boundary in the sharded lowering's order
     reproduces the sharded bank bit for bit."""
-    cs = _chip_smoke()
+    cs = cases.chip_smoke()
     sim = _port(name)
     cs._one_row_at_a_time(sim)
     cs._lowering_order_mixing(sim)
@@ -286,7 +276,7 @@ def test_engine_guards(ranks):
     g = ranks[0]["guards"]
     assert "one bank row per replica device: n=4, devices=8" in \
         g["n_mismatch"]
-    assert g["streaming"].startswith("NotImplementedError") and \
+    assert g["streaming"].startswith("ValueError") and \
         "ShardedStreamedBank" in g["streaming"]
     assert "is not the mesh's cpu" in g["device"]
     assert g["world"].startswith("need 4 devices for 4 bank rows, have 8")
@@ -408,9 +398,15 @@ def test_launcher_guards(monkeypatch, tmp_path):
                  ["--population", "100", "--model-parallel", "2"]):
         with pytest.raises(ValueError, match="not tensor-parallel"):
             train.main(argv + ["--dist-backend", "gloo", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ShardedStreamedBank"):
+    # --population with --data-parallel runs the sharded streamed bank
+    # (ROADMAP A14's streamed half): NCCL refuses the CPU, gloo runs it
+    with pytest.raises(ValueError, match="NCCL moves CUDA tensors"):
         train.main(["--population", "100", "--data-parallel", "2",
                     "--device", "cpu"])
+    ranks = train.main(["--population", "100", "--data-parallel", "2",
+                        "--device", "cpu", "--dist-backend", "gloo",
+                        "--rounds", "1"])
+    assert len(ranks) == 2 and ranks[1]["peak_rank_slab_bytes"] > 0
     with pytest.raises(ValueError, match="NCCL moves CUDA tensors"):
         train.main(bank + ["--device", "cpu"])
     # NCCL with more ranks than cards: refused before any rank starts

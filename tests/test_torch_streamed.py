@@ -308,6 +308,13 @@ def test_population_launcher_on_cpu(capsys, tmp_path):
     a, b = full.store.snapshot(), resumed.store.snapshot()
     for k in a:
         np.testing.assert_array_equal(a[k], b[k])
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        train.main(["--device", "cpu", "--population", "100",
-                    "--data-parallel", "2"])
+    # ROADMAP A14's streamed half: the same flags over 2 gloo ranks run
+    # the sharded streamed bank, whose slab buckets split over the ranks
+    ranks = train.main(["--device", "cpu", "--population", "100",
+                        "--data-parallel", "2", "--dist-backend", "gloo",
+                        "--rounds", "1"])
+    assert [r["rank"] for r in ranks] == [0, 1]
+    assert ranks[0]["traffic"]["reduce_scatter"]["calls"] == 2
+    np.testing.assert_array_equal(ranks[0]["global_row"],
+                                  ranks[1]["global_row"])
+    assert all((r["store"]["ids"] % 2 == r["rank"]).all() for r in ranks)

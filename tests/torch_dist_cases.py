@@ -1,8 +1,10 @@
 """Rank-side halves of the port's multi-rank tests
 (``test_torch_collectives.py``, ``test_torch_groups.py``,
-``test_torch_sharded_bank.py``, ``test_torch_sharded_lm.py``).
+``test_torch_sharded_bank.py``, ``test_torch_sharded_lm.py``,
+``test_torch_sharded_streamed.py``).
 
-Each test file spawns ONE gloo world of 8 ranks on the CPU for its module
+Each test file spawns ONE gloo world of 8 ranks (4 for the sharded
+streamed bank) on the CPU for its module
 (``repro_torch.launch.mesh.run_local_ranks``, one intra-op thread a rank,
 a free port) and runs one of the ``*_world`` functions below on every
 rank. They import the port only (no JAX: the ranks start from a fresh
@@ -109,6 +111,18 @@ def run_case(sim, name: str, rt=None, after_round=None):
         if after_round is not None:
             after_round(r)
     return plans
+
+
+def chip_smoke():
+    """``chip_smoke.py`` loaded as a module (its card oracles run on the
+    CPU too)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _host(t):
@@ -649,3 +663,161 @@ def sharded_lm_world(stacked, tmpdir: str) -> dict:
     out["components"] = _lm_components(meshes, stacked)
     out["launcher"] = _lm_launcher(tmpdir)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sharded streamed bank world
+# ---------------------------------------------------------------------------
+
+SSB_RANKS = 4
+#: tests/test_clientstore.py's configuration: the MLP 16-32-4 over m = 4
+#: clusters of 4 data shards on a ring, tau 2, q 2, pi 2, batch 16, lr
+#: 0.1, seed 1, under its mobile population of 400 (cohort 3 a cluster)
+SSB_FL = dict(algorithm="ce_fedavg", num_clusters=4, devices_per_cluster=4,
+              tau=2, q=2, pi=2, topology="ring")
+SSB_MOBILE = dict(name="mobile", sample_fraction=0.5, dropout_prob=0.1,
+                  move_prob=0.25, seed=7)
+SSB_ROUNDS = 3
+
+
+def ssb_data():
+    from repro_torch.data.federated import (build_fl_data,
+                                            dirichlet_partition,
+                                            make_synthetic_classification)
+    x, y = make_synthetic_classification(800, 16, 4, seed=3)
+    tx, ty = make_synthetic_classification(400, 16, 4, seed=4)
+    parts = dirichlet_partition(y, 16, alpha=0.5, seed=5)
+    return build_fl_data(x, y, parts, tx, ty, samples_per_device=64)
+
+
+def ssb_kwargs(pkg: str, codec: str = "f32") -> dict:
+    """The simulator kwargs of the population runs in package ``pkg``."""
+    cfg = importlib.import_module(pkg + ".config")
+    sc = dataclasses.replace(
+        cfg.ScenarioConfig(**SSB_MOBILE),
+        population=cfg.PopulationConfig(clients_per_cluster=100,
+                                        cohort_per_cluster=3, codec=codec))
+    return {"lr": LR, "batch_size": BATCH, "seed": 1, "scenario": sc}
+
+
+def _streamed(init, mesh, codec="f32", pipeline=False):
+    from repro_torch.config import FLConfig
+    from repro_torch.convert import tree_from_numpy
+    from repro_torch.core.sharded import ShardedStreamedBank
+    from repro_torch.models.cnn import apply_mlp_classifier
+    return ShardedStreamedBank(lambda g: tree_from_numpy(init),
+                               apply_mlp_classifier, FLConfig(**SSB_FL),
+                               ssb_data(), mesh, pipeline=pipeline,
+                               **ssb_kwargs("repro_torch", codec))
+
+
+def streamed_state(sim) -> dict:
+    """Global model row, edge models and round-complete store snapshot
+    of a streamed sim (the sharded one's snapshot is the merged one on
+    rank 0)."""
+    return {"global": _host(sim.layout.flatten_one(sim.global_model())),
+            "edge": _host(sim.layout.flatten_stack(sim.edge_models())),
+            "store": sim._store_snapshot()}
+
+
+def _streamed_run(init, mesh, codec, pipeline) -> dict:
+    """SSB_ROUNDS rounds; per round the global row, the slab's buckets
+    and this rank's traffic by op."""
+    sim = _streamed(init, mesh, codec, pipeline)
+    rounds = []
+    for _ in range(SSB_ROUNDS):
+        mesh.reset_traffic()
+        sim.step_round()
+        rounds.append({
+            "global": _host(sim.layout.flatten_one(sim.global_model())),
+            "S": sim.last_bucket, "k": sim.last_paging["rows_in"],
+            "traffic": {k: dict(v) for k, v in mesh.traffic.items()}})
+    out = streamed_state(sim)
+    out.update(rounds=rounds, buckets=sim._buckets,
+               peak_slab=sim.peak_slab_bytes,
+               peak_rank_slab=sim.peak_rank_slab_bytes,
+               T=sim.layout.total, shards=sim.store.num_shards,
+               own=sim.store.snapshot()["ids"])
+    return out
+
+
+def sharded_streamed_world(init, tmpdir: str, ref_ckpt: str,
+                           port_ckpt: str) -> dict:
+    """The sharded streamed bank on this rank: serial and pipelined runs
+    at f32 and int8, the two new collectives, kill and resume, the
+    checkpoint crossings and the launcher's rank function."""
+    from repro_torch.checkpoint import RunCheckpoint
+    from repro_torch.core import collectives as col
+    from repro_torch.launch.mesh import make_replica_mesh
+    mesh = make_replica_mesh(SSB_RANKS, device="cpu")
+    out = {"runs": {(codec, pipe): _streamed_run(init, mesh, codec, pipe)
+                    for codec in ("f32", "int8") for pipe in (False, True)}}
+    # the collectives on seeded rows
+    me = mesh.rank
+    x = torch.from_numpy(np.random.default_rng(me).standard_normal(
+        (2 * SSB_RANKS, 5)).astype(np.float32))
+    mesh.reset_traffic()
+    rs = _host(col.reduce_scatter(x, mesh))
+    counts = np.random.default_rng(11).integers(0, 3, (SSB_RANKS,
+                                                       SSB_RANKS))
+    send = torch.arange(int(counts[me].sum()) * 3, dtype=torch.int64
+                        ).reshape(-1, 3) + 1000 * me
+    got = _host(col.exchange_rows(send, counts[me], counts[:, me], mesh))
+    out["collectives"] = {"reduce_scatter": rs, "exchange": got,
+                          "counts": counts,
+                          "traffic": {k: dict(v)
+                                      for k, v in mesh.traffic.items()}}
+    # kill and resume, pipelined at int8: 3 rounds against 2 + save + a
+    # fresh sim restored + 1
+    d = os.path.join(tmpdir, "ssb-resume")
+    full = _streamed(init, mesh, "int8", True)
+    killed = _streamed(init, mesh, "int8", True)
+    for _ in range(SSB_ROUNDS):
+        full.step_round()
+    for _ in range(SSB_ROUNDS - 1):
+        killed.step_round()
+    RunCheckpoint(d).save(killed, round_idx=SSB_ROUNDS - 1)
+    resumed = _streamed(init, mesh, "int8", True)
+    meta = RunCheckpoint(d).restore(resumed)
+    resumed.step_round()
+    out["resume"] = {"full": streamed_state(full),
+                     "resumed": streamed_state(resumed),
+                     "round": meta["round"], "engine": meta["engine"],
+                     "key": (np.asarray(full.key).copy(),
+                             np.asarray(resumed.key).copy())}
+    # checkpoints across: this world's (serial f32 after 1 round) and the
+    # single-process engines' of both packages, each continued one round
+    sim = _streamed(init, mesh)
+    sim.step_round()
+    d = os.path.join(tmpdir, "ssb-ckpt")
+    RunCheckpoint(d).save(sim, round_idx=1)
+    saved = streamed_state(sim)
+    sim.step_round()
+    out["ckpt"] = {"dir": d, "saved": saved, "next": streamed_state(sim)}
+    for what, path in (("from_ref", ref_ckpt), ("from_port", port_ckpt)):
+        sim = _streamed(init, mesh)
+        RunCheckpoint(path).restore(sim)
+        restored = streamed_state(sim)
+        sim.step_round()
+        out["ckpt"][what] = {"restored": restored,
+                             "next": streamed_state(sim)}
+    out["launcher"] = _population_launcher(tmpdir)
+    return out
+
+
+def _population_launcher(tmpdir: str) -> dict:
+    """The population launcher's rank function on this world: 3 rounds
+    against 2 + checkpoint + resume + 1, pipelined at int8."""
+    from repro_torch.launch import train
+    flags = ["--population", "400", "--data-parallel", str(SSB_RANKS),
+             "--dist-backend", "gloo", "--device", "cpu", "--cohort", "3",
+             "--codec", "int8", "--pipeline"]
+    d = os.path.join(tmpdir, "ssb-launcher")
+
+    def run(extra):
+        return train.run_population_engine(train._parser().parse_args(
+            flags + extra))
+    full = run(["--rounds", "3"])
+    run(["--rounds", "2", "--ckpt-dir", d])
+    return {"full": full,
+            "resumed": run(["--rounds", "3", "--ckpt-dir", d, "--resume"])}
